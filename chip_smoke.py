@@ -11,25 +11,32 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    ``nvcc`` per source, all at once) and print the build seconds;
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, in fp32 (tolerance 3e-5, the reference's) and
-   bf16 (3e-2), and time kernel, plain version and one PyTorch library
-   call (``scaled_dot_product_attention`` with the same boolean mask, a
-   yardstick only) with CUDA events; compute each kernel's bound from
-   the bytes and operations these inputs need;
-4. engine A: full-width llama3-8b (random weights from a seed, fp32),
+   bf16 (3e-2), and time kernel, plain version and, where one exists,
+   one PyTorch library call (``scaled_dot_product_attention`` with the
+   same boolean mask, a yardstick only) with CUDA events; compute each
+   kernel's bound from the bytes and operations these inputs need;
+4. mamba2: full-width mamba2-370m (random weights from a seed, fp32):
+   ``make_prefill_step`` over 4 prompts of 1920 tokens (the SSD
+   intra-chunk kernel in every layer), 128 teacher-forced
+   ``make_decode_step`` steps (plain PyTorch recurrence, no kernel), one
+   prefill of all 2048 tokens and 8 greedy tokens; decode is held against
+   the 2048-token prefill layer by layer (same inputs, 3e-4) and in the
+   logits (against the model's own fp32 noise floor);
+5. engine A: full-width llama3-8b (random weights from a seed, fp32),
    ``cachecraft`` with a chunk store, ``attn_impl="kernel"``: chunk
    attention in the prefill windows, decode attention over the arena;
-5. engine B: the same weights and workload with ``paged_decode=True,
+6. engine B: the same weights and workload with ``paged_decode=True,
    attn_impl="paged_kernel"``: the paged kernel reads the pool in place;
-6. engine C: the same with ``attn_impl="dense"`` (plain PyTorch
+7. engine C: the same with ``attn_impl="dense"`` (plain PyTorch
    attention); A's and B's per-step decode logits are held against C's;
-7. a ``kernels`` JSON line (launches on the main path, error, times,
-   bound) and per-engine TTFT / decode-step figures;
-8. last line: ``{"ok": true, "device": {...}}``.
+8. a ``kernels`` JSON line (launches on the main paths, error, times,
+   bound), the mamba2 figures and per-engine TTFT / decode-step figures;
+9. last line: ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 just before engines A and B run and read just
-after; the comparison launches of phase 3 do not count. Without CUDA, or
-without the repository's ``src/`` beside it, the script exits non-zero
-and prints no result.
+Launch counts are set to 0 just before the mamba2 phase and engines A and
+B run and read just after; the comparison launches of phase 3 do not
+count. Without CUDA, or without the repository's ``src/`` beside it, the
+script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -53,6 +60,16 @@ TOL = {"float32": 3e-5, "bfloat16": 3e-2}
 # softmax over 64-key tiles vs one dense softmax), carried through 32
 # layers; logits are O(1) (unit-variance unembedding)
 LOGIT_TOL = 2e-3
+# mamba2, decode (plain fp32 recurrence) vs prefill (ssd_intra kernel):
+# - per layer, same input through both paths: the reference's 3e-4
+#   (tests/test_equivalence.py); the block outputs are O(1);
+# - end to end, the logits of 48 random layers: a perturbation of one ulp
+#   on the embeddings alone moves them by O(1) on the H100 (the random
+#   model amplifies rounding through depth), so no fixed tolerance
+#   applies. They are held within MAMBA_NOISE_FACTOR times
+#   that noise floor, measured in the same run at the same positions.
+MAMBA_LAYER_TOL = 3e-4
+MAMBA_NOISE_FACTOR = 4.0
 
 
 def log(*a):
@@ -320,8 +337,265 @@ def check_kernels(dev):
     return rows
 
 
+def ssd_inputs(rng, dev):
+    """The intra-chunk block of one full-width mamba2-370m prefill of 4
+    rows x 1920 tokens: nC 60 chunks of L 128, H 32 heads of P 64, state N
+    128. Distributions as the model makes them: dt = softplus(N(0, 1)),
+    A = -U(1, 8) per head, log_a = dt * A, xdt = x * dt with x ~ N(0, 1),
+    B/C ~ N(0, 1)."""
+    import numpy as np
+    import torch
+    nC, L, H, P, N = 60, 128, 32, 64, 128
+    dt = np.log1p(np.exp(rng.normal(size=(nC, L, H)))).astype(np.float32)
+    A = -rng.uniform(1, 8, size=H).astype(np.float32)
+    f = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa
+    return dict(
+        xdt=f(rng.normal(size=(nC, L, H, P)).astype(np.float32)
+              * dt[..., None]),
+        log_a=f(dt * A),
+        B=f(rng.normal(size=(nC, L, N)).astype(np.float32)),
+        C=f(rng.normal(size=(nC, L, N)).astype(np.float32)))
+
+
+def check_ssd(dev):
+    """ssd_intra vs its plain version at the mamba2 path's shapes. The
+    check is the reference's ``assert_allclose(rtol=tol, atol=tol)``:
+    |y| reaches ~450 here, where fp32 sums taken in another order may
+    differ by more than tol in absolute terms."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.kernels.ssd.ref import ssd_intra_ref
+
+    si = ssd_inputs(np.random.default_rng(1), dev)
+    nC, L, H, P = si["xdt"].shape
+    N = si["B"].shape[-1]
+    res = {}
+    for dt_name in ("float32", "bfloat16"):
+        args = [si[k].to(getattr(torch, dt_name))
+                for k in ("xdt", "log_a", "B", "C")]
+        y, st = sops.ssd_intra(*args)
+        torch.cuda.synchronize()
+        yr, sr = ssd_intra_ref(*args)
+        tol = TOL[dt_name]
+        e, worst_ratio = 0.0, 0.0
+        for a, b in ((y, yr), (st, sr)):
+            d = (a - b).abs()
+            e = max(e, float(d.max()))
+            worst_ratio = max(worst_ratio,
+                              float((d / (tol + tol * b.abs())).max()))
+        if not (worst_ratio <= 1.0 and torch.isfinite(y).all()
+                and torch.isfinite(st).all()):
+            raise RuntimeError(f"ssd_intra {dt_name}: max abs err {e}, "
+                               f"{worst_ratio:.3f}x the allclose bound "
+                               f"(rtol = atol = {tol})")
+        t_k = cuda_ms(lambda: sops.ssd_intra(*args))
+        t_p = cuda_ms(lambda: ssd_intra_ref(*args), iters=5)
+        el = args[0].element_size()
+        nbytes = (nC * L * H * P + nC * L * H + 2 * nC * L * N) * el + \
+            4 * (nC * L * H * P + nC * H * P * N)
+        pairs = L * (L + 1) // 2        # causal (i >= j) pairs per chunk
+        flops = nC * (2 * N * pairs                # C B^T, once per chunk
+                      + H * pairs                  # decay * scores
+                      + 2 * H * P * pairs          # (.) @ xdt
+                      + 2 * H * P * N * L)         # chunk states
+        b_ms, b_by = bound(nbytes, flops, dt_name)
+        res[dt_name] = dict(err=e, ms=t_k, plain_ms=t_p, library_ms=None,
+                            bound_ms=b_ms, bound_by=b_by)
+        log(f"kernel ssd_intra {dt_name} nC={nC} L={L} H={H} P={P} N={N}: "
+            f"max_abs_err={e:.3e} (max |y| {float(yr.abs().max()):.2f}; "
+            f"{worst_ratio:.3f}x the allclose bound, rtol = atol = {tol}) "
+            f"ms={t_k:.4f} plain_ms={t_p:.4f} library_ms=none "
+            f"bound_ms={b_ms:.4f} ({b_by}; {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+    return res
+
+
 # ---------------------------------------------------------------------------
-# phases 4-6: the engine on full-width llama3-8b
+# phase 4: mamba2-370m prefill and decode
+# ---------------------------------------------------------------------------
+def mamba_layer_gap(cfg, params, toks, T0, dev):
+    """Layer by layer, one input through two paths: a prefill of all
+    tokens (the ssd_intra kernel) and a prefill of the first T0 tokens
+    followed by one decode step per later token (plain recurrence). Both
+    get the same hidden states, so the random model's amplification of
+    rounding through depth does not enter. Returns the largest difference
+    of the block outputs over all layers and decoded positions."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    B, T = toks.shape
+    arange = torch.arange(T, dtype=torch.int32, device=dev).expand(B, T)
+    h = M.embed_tokens(cfg, params, toks)
+    worst = 0.0
+    for g in range(cfg.num_layers):
+        p = {n: x[g] for n, x in params["groups"][0].items()}
+
+        def block(mode, x, pos, state):
+            ctx = M.Ctx(cfg=cfg, mode=mode, positions=pos)
+            return M.apply_block(ctx, "ssd", p, x, state)[0]
+
+        def fresh(n):
+            return M.init_layer_cache(cfg, "ssd", B, n, torch.float32, dev)
+
+        h_full = block("prefill", h, arange, fresh(T))
+        st = fresh(T0)
+        block("prefill", h[:, :T0], arange[:, :T0], st)
+        dec = torch.cat([block("decode", h[:, t:t + 1], arange[:, t:t + 1],
+                               st) for t in range(T0, T)], dim=1)
+        worst = max(worst, float((dec - h_full[:, T0:]).abs().max()))
+        h = h_full
+    return worst
+
+
+def run_mamba2(dev):
+    """Prefill 4 x 1920 tokens, decode the next 128 teacher-forced and
+    hold each step's logits against one 2048-token prefill at the same
+    position; then 8 greedy tokens. Returns (figures, ssd launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.models import model as M
+    from repro_torch.training import steps
+
+    cfg = get_config("mamba2-370m")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = M.init_params(cfg, gen)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in [params["embed"], params["unembed"],
+                                        params["final_norm"]]
+                   + [x for g in params["groups"] for x in g.values()])
+    log(f"params: {cfg.name} {n_params / 1e6:.1f}M fp32 on {dev} in "
+        f"{time.perf_counter() - t0:.1f}s ({cfg.num_layers} ssd layers, "
+        f"d_model {cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_heads} "
+        f"heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk "
+        f"{cfg.ssd_chunk}, vocab {cfg.vocab_size} -> {cfg.padded_vocab})")
+    B, T0, n_dec, n_greedy = 4, 1920, 128, 8
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T0 + n_dec))
+                            .astype(np.int32)).to(dev)
+    prefill = steps.make_prefill_step(cfg)
+    decode = steps.make_decode_step(cfg)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    sops.ssd_intra.launches = 0
+    n_prefill = 0
+    pre_ms = []
+    for _ in range(3):        # the first call is warm-up
+        cache = M.init_cache(cfg, B, T0, device=dev)
+        (last, cache), ms = timed(lambda: prefill(
+            params, {"tokens": toks[:, :T0], "cache": cache}))
+        pre_ms.append(ms)
+        n_prefill += 1
+    greedy_cache = {"groups": [{n: x.clone() for n, x in g.items()}
+                               for g in cache["groups"]], "tail": []}
+
+    launched = sops.ssd_intra.launches
+    dec, dec_ms = [], []
+    for t in range(n_dec):
+        pos = torch.full((B,), T0 + t, dtype=torch.int32, device=dev)
+        (lg, cache), ms = timed(lambda: decode(
+            params, {"tokens": toks[:, T0 + t], "positions": pos,
+                     "cache": cache}))
+        dec.append(lg[:, 0])
+        dec_ms.append(ms)
+    if sops.ssd_intra.launches != launched:
+        raise RuntimeError("mamba2: decode steps launched ssd_intra")
+
+    def prefill_all(prm):
+        return M.forward(cfg, prm, tokens=toks, mode="prefill",
+                         cache=M.init_cache(cfg, B, T0 + n_dec, device=dev),
+                         logits_slice="all").logits[:, T0 - 1:]
+
+    full, full_ms = timed(lambda: prefill_all(params))
+    n_prefill += 1
+    diffs = torch.stack([(d - full[:, 1 + t]).abs().amax()
+                         for t, d in enumerate(dec)]).cpu().numpy()
+    pre_diff = float((last[:, 0] - full[:, 0]).abs().max())
+    if not (torch.isfinite(full).all() and torch.isfinite(last).all()
+            and all(bool(torch.isfinite(d).all()) for d in dec)):
+        raise RuntimeError("mamba2: non-finite logits")
+    worst = float(diffs.max())
+    del dec
+
+    # greedy continuation of the prompts
+    cache = greedy_cache
+    tok = last[:, 0, :cfg.vocab_size].argmax(-1).to(torch.int32)
+    gen_toks = [tok]
+    for k in range(n_greedy):
+        pos = torch.full((B,), T0 + k, dtype=torch.int32, device=dev)
+        lg, cache = decode(params, {"tokens": tok, "positions": pos,
+                                    "cache": cache})
+        if not bool(torch.isfinite(lg).all()):
+            raise RuntimeError(f"mamba2: greedy step {k}: non-finite")
+        tok = lg[:, 0, :cfg.vocab_size].argmax(-1).to(torch.int32)
+        gen_toks.append(tok)
+    greedy = torch.stack(gen_toks, 1).cpu().tolist()
+
+    launches = sops.ssd_intra.launches
+    if launches != cfg.num_layers * n_prefill:
+        raise RuntimeError(f"mamba2: ssd_intra launched {launches} times, "
+                           f"expected {cfg.num_layers} x {n_prefill} "
+                           "prefill calls")
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+
+    # comparisons (after the counted run): the fp32 noise floor of the
+    # logits, one ulp on the embeddings; then the per-layer gap
+    nudged = dict(params)
+    gen.manual_seed(1)
+    nudged["embed"] = params["embed"] * (1 + 6e-8 * torch.randn(
+        params["embed"].shape, generator=gen, device=dev))
+    noise = float((prefill_all(nudged)[:, 1:] - full[:, 1:]).abs().max())
+    del nudged, full
+    layer_gap = mamba_layer_gap(cfg, params, toks, T0, dev)
+    log(f"mamba2 decode vs 2048-token prefill: per layer, same inputs, "
+        f"max abs diff of block outputs {layer_gap:.3e} (tol "
+        f"{MAMBA_LAYER_TOL}); logits max abs diff {worst:.3e} (by step "
+        "0/31/63/95/127: "
+        + " ".join(f"{diffs[i]:.2e}" for i in (0, 31, 63, 95, 127))
+        + f"; prefill's last position {pre_diff:.3e}) vs {noise:.3e} from "
+        f"one ulp on the embeddings (tol {MAMBA_NOISE_FACTOR} x that)")
+    if not layer_gap <= MAMBA_LAYER_TOL:
+        raise RuntimeError(f"mamba2: decode vs prefill differ by "
+                           f"{layer_gap} in some layer > {MAMBA_LAYER_TOL}")
+    if not (0 < noise and worst <= MAMBA_NOISE_FACTOR * noise):
+        raise RuntimeError(f"mamba2: decode logits vs prefill {worst} > "
+                           f"{MAMBA_NOISE_FACTOR} x the noise floor {noise}")
+
+    step_s = float(np.mean(dec_ms[3:])) / 1e3   # the first 3: warm-up
+    figs = dict(
+        batch=B, prompt_tokens=T0, prefill_calls=n_prefill,
+        prefill_ms=float(np.mean(pre_ms[1:])), prefill_ms_first=pre_ms[0],
+        prefill_tokens_per_s=B * T0 / (np.mean(pre_ms[1:]) / 1e3),
+        full_prefill_2048_ms=full_ms, decode_steps=n_dec,
+        decode_step_ms=step_s * 1e3,
+        decode_step_ms_p50=float(np.median(dec_ms[3:])),
+        decode_tokens_per_s=B / step_s, layer_gap=layer_gap,
+        max_abs_logit_diff=worst, logit_noise_floor=noise,
+        peak_mem_gb=peak_gb)
+    log(f"mamba2: {json.dumps(figs)}; ssd_intra launches {launches} = "
+        f"{cfg.num_layers} x {n_prefill} prefill calls; greedy tokens "
+        f"{greedy}")
+    del params, cache, greedy_cache, last
+    gc.collect()
+    torch.cuda.empty_cache()
+    return figs, launches
+
+
+# ---------------------------------------------------------------------------
+# phases 5-7: the engine on full-width llama3-8b
 # ---------------------------------------------------------------------------
 def run_engine(tag, cfg, params, tmp, num_requests=12, max_new_tokens=8,
                **spec_kw):
@@ -479,8 +753,12 @@ def main() -> int:
 
     # phase 3: kernels vs plain versions
     krows = check_kernels(dev)
+    krows["ssd_intra"] = check_ssd(dev)
 
-    # phases 4-6: engines on full-width llama3-8b
+    # phase 4: mamba2-370m prefill and decode
+    mamba, ssd_launches = run_mamba2(dev)
+
+    # phases 5-7: engines on full-width llama3-8b
     cfg = get_config("llama3-8b")
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
@@ -495,7 +773,7 @@ def main() -> int:
         f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
         f"head_dim {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab "
         f"{cfg.vocab_size})")
-    launches = {}
+    launches = {"ssd_intra": ssd_launches}
     engines = {}
     with tempfile.TemporaryDirectory(prefix="chip-smoke-") as tmp:
         # warm-up (untimed, not compared): first-use costs of cuBLAS, the
@@ -537,7 +815,7 @@ def main() -> int:
     err_a = compare_logits("A(kernel)", tr_a, tok_a, tr_c, tok_c)
     err_b = compare_logits("B(paged_kernel)", tr_b, tok_b, tr_c, tok_c)
 
-    # phase 7: the kernels line and the engine figures
+    # phase 8: the kernels line, the mamba2 and the engine figures
     sources = {
         "chunk_attention": (
             "src/repro_torch/kernels/chunk_attention/csrc/chunk_attention.cu",
@@ -550,6 +828,9 @@ def main() -> int:
             "src/repro_torch/kernels/decode_attention/csrc/"
             "decode_attention.cu",
             "src/repro/kernels/decode_attention/kernel.py:116"),
+        "ssd_intra": (
+            "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+            "src/repro/kernels/ssd/kernel.py:51"),
     }
     kernels = []
     for name, (src, rep) in sources.items():
@@ -562,6 +843,9 @@ def main() -> int:
             max_abs_err_bf16=b16["err"], ms_bf16=b16["ms"],
             plain_ms_bf16=b16["plain_ms"], bound_ms_bf16=b16["bound_ms"],
             library_ms_bf16=b16["library_ms"]))
+    log(f"mamba2-370m: prefill {mamba['prefill_ms']:.1f} ms per call "
+        f"(4 x 1920 tokens), decode step {mamba['decode_step_ms']:.2f} ms, "
+        f"{mamba['decode_tokens_per_s']:.1f} tokens/s at batch 4 [{card}]")
     log(f"engines: " + json.dumps({
         k: {m: v[m] for m in ("ttft_mean_ms", "ttft_p99_ms",
                               "prefill_pass_ms", "decode_step_ms",

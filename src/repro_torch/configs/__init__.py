@@ -1,5 +1,6 @@
 """Architecture registry of the port: the configs whose layer families
-the port runs so far (the paper's own LLaMA-3 models, dense GQA).
+the port runs so far (the paper's own LLaMA-3 models, dense GQA, and
+mamba2, the Mamba2 SSD family).
 
 ``get_config(name)`` returns the full production config;
 ``get_tiny(name)`` returns a reduced same-family config for CPU smoke
@@ -12,7 +13,7 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ("llama3-8b", "llama3-70b")
+ARCHS = ("llama3-8b", "llama3-70b", "mamba2-370m")
 
 # the paper's own evaluation models (LLaMA-3 family)
 PAPER_ARCHS = ("llama3-8b", "llama3-70b")
@@ -20,6 +21,7 @@ PAPER_ARCHS = ("llama3-8b", "llama3-70b")
 _MODULES = {
     "llama3-8b": "llama3_8b",
     "llama3-70b": "llama3_70b",
+    "mamba2-370m": "mamba2_370m",
 }
 
 

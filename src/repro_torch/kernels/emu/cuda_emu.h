@@ -45,6 +45,12 @@ inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
 }
 inline cudaError_t cudaGetLastError() { return 0; }
 
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) float2 { float x, y; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return float4{x, y, z, w};
+}
+
 struct __nv_bfloat16 { uint16_t x; };
 inline float __bfloat162float(__nv_bfloat16 b) {
   uint32_t u = (uint32_t)b.x << 16;

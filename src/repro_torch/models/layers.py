@@ -1,11 +1,14 @@
-"""Layer primitives of the dense attention family, in PyTorch.
+"""Layer primitives of the dense attention and Mamba2 families, in
+PyTorch.
 
-The main-path subset of ``repro/models/layers.py``: RMS norm, RoPE
+The ported subset of ``repro/models/layers.py``: RMS norm, RoPE
 (apply and remove), position masks with segment ids, the dense GQA
 attention oracle with the Cache-Craft chunk-mass statistic, one-token
-decode attention and the SwiGLU FFN. Every function keeps the JAX
-signature and layout (``[B, T, H, D]``), so the tests feed both packages
-the same numpy arrays and compare like with like.
+decode attention, the SwiGLU FFN, and the Mamba2 pieces (causal depthwise
+conv, chunked SSD prefill through the ``ssd_intra`` kernel, one-step SSD
+decode). Every function keeps the JAX signature and layout (``[B, T, H,
+D]``), so the tests feed both packages the same numpy arrays and compare
+like with like.
 
 All attention helpers take explicit *position vectors* for Q and K
 rather than assuming a triangular layout: that is what lets Cache-Craft's
@@ -19,6 +22,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.ssd import ops as ssd_ops
 
 NEG_INF = -1e30
 
@@ -149,3 +154,73 @@ def swiglu(x, wi, wo):
         *x.shape[:-1], 2, wi.shape[-1])
     h = F.silu(gu[..., 0, :]) * gu[..., 1, :]
     return (h @ wo).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2
+# ---------------------------------------------------------------------------
+def causal_conv1d(x, w, state=None):
+    """x [B,S,R], w [W,R]; returns (y, new_state [B,W-1,R]): the last W-1
+    inputs, carried state included."""
+    W = w.shape[0]
+    if state is None:
+        state = torch.zeros((x.shape[0], W - 1, x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+    xp = torch.cat([state, x], dim=1)
+    S = x.shape[1]
+    y = sum(xp[:, i:i + S] * w[i] for i in range(W))
+    return y.to(x.dtype), xp[:, -(W - 1):] if W > 1 else state
+
+
+def ssd_chunked(x, dt, A_log, B_mat, C_mat, D, chunk: int, state0=None):
+    """SSD forward (state-space duality, chunked).
+
+    x [B,S,H,P], dt [B,S,H] (already softplus'ed), A_log [H], B_mat/C_mat
+    [B,S,N], D [H]. Returns (y [B,S,H,P], state [B,H,P,N] fp32). The
+    intra-chunk term and the chunk states come from the ``ssd_intra``
+    kernel (its plain version on CPU tensors); the inter-chunk recurrence
+    and the ``D`` skip run here."""
+    Bsz, S, H, Pd = x.shape
+    N = B_mat.shape[-1]
+    L = min(chunk, S)
+    while S % L:
+        L -= 1
+    nC = S // L
+    a = -torch.exp(A_log.float())                         # [H]
+    log_a = dt.float() * a                                # [B,S,H]
+    xdt = x.float() * dt.float()[..., None]
+
+    xc = xdt.reshape(Bsz, nC, L, H, Pd)
+    lac = log_a.reshape(Bsz, nC, L, H)
+    # B and C arrive as column slices of the in-projection
+    Bc = B_mat.float().contiguous().reshape(Bsz, nC, L, N)
+    Cc = C_mat.float().contiguous().reshape(Bsz, nC, L, N)
+    y_intra, chunk_state = ssd_ops.ssd_intra(xc, lac, Bc, Cc)
+
+    # inter-chunk recurrence over chunk states
+    cum = torch.cumsum(lac, dim=2)                        # [B,nC,L,H]
+    total = cum[:, :, -1]                                 # [B,nC,H]
+    s = (torch.zeros((Bsz, H, Pd, N), dtype=torch.float32, device=x.device)
+         if state0 is None else state0.float())
+    prev = []
+    for c in range(nC):
+        prev.append(s)
+        s = s * torch.exp(total[:, c])[:, :, None, None] + chunk_state[:, c]
+    prev_states = torch.stack(prev, dim=1)                # [B,nC,H,P,N]
+
+    y_inter = torch.einsum("bcln,bchpn->bclhp", Cc, prev_states) * \
+        torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(Bsz, S, H, Pd)
+    y = y + D.float()[None, None, :, None] * x.float()
+    return y.to(x.dtype), s
+
+
+def ssd_step(x, dt, A_log, B_mat, C_mat, D, state):
+    """One decode step. x [B,H,P], dt [B,H], B/C [B,N], state [B,H,P,N]."""
+    a = torch.exp(dt.float() * -torch.exp(A_log.float()))  # [B,H]
+    xdt = x.float() * dt[..., None]
+    state = state * a[:, :, None, None] + \
+        torch.einsum("bhp,bn->bhpn", xdt, B_mat.float())
+    y = torch.einsum("bhpn,bn->bhp", state, C_mat.float())
+    y = y + D[None, :, None] * x.float()
+    return y.to(x.dtype), state

@@ -1,5 +1,6 @@
-"""Decoder stack of the dense attention family (``pattern=("attn",)``),
-in PyTorch, with the reference's four execution modes:
+"""Decoder stack of the dense attention family (``pattern=("attn",)``)
+and the Mamba2 family (``pattern=("ssd",)``), in PyTorch, with the
+reference's four execution modes:
 
   mode="prefill"  full forward, returns per-layer KV cache (+ the
                   Cache-Craft attention statistics when requested)
@@ -18,11 +19,12 @@ leaves are stacked ``[G, ...]`` along the reference's scan axis, and
 reference pytree (as numpy arrays) into this layout, so both packages
 compute the same function in the tests.
 
-Caches carry an explicit per-slot position array, so causality always
-derives from absolute positions. The reference donates caches to its
-jitted steps; here the cache tensors are updated IN PLACE (``index_put_``
-into views of the stacked leaves) and the returned cache shares storage
-with the one passed in.
+Attention caches carry an explicit per-slot position array, so
+causality always derives from absolute positions; an ``ssd`` layer's
+cache is its running state ``s`` and the last ``W-1`` conv inputs. The
+reference donates caches to its jitted steps; here the cache tensors are
+updated IN PLACE (``index_put_`` / ``copy_`` into views of the stacked
+leaves) and the returned cache shares storage with the one passed in.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import backend as AB
 from repro_torch.models import layers as L
@@ -46,17 +49,35 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def _check_kind(kind: str):
-    if kind != "attn":
+    if kind not in ("attn", "ssd"):
         raise NotImplementedError(
             f"layer kind {kind!r} is not ported to repro_torch yet "
-            "(ROADMAP A8); the port runs the dense attention family")
+            "(ROADMAP A8); the port runs the dense attention and Mamba2 "
+            "(ssd) families")
 
 
 # ---------------------------------------------------------------------------
 # Parameter definitions: one source of truth for init and shapes
 # ---------------------------------------------------------------------------
+def _ssd_defs(cfg: ModelConfig) -> Dict[str, tuple]:
+    d, di, ns, nh, w = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                        cfg.ssm_heads, cfg.conv_width)
+    return {
+        "ln1": ((d,), "zero"),
+        "in_proj": ((d, 2 * di + 2 * ns + nh), "fan_in"),
+        "conv": ((w, di), "fan_in"),
+        "A_log": ((nh,), "ssd_a"),
+        "D": ((nh,), "one"),
+        "dt_bias": ((nh,), "zero"),
+        "out_norm": ((di,), "zero"),
+        "out_proj": ((di, d), "fan_in"),
+    }
+
+
 def _layer_defs(cfg: ModelConfig, kind: str) -> Dict[str, tuple]:
     _check_kind(kind)
+    if kind == "ssd":
+        return _ssd_defs(cfg)
     d, h, hkv, dh, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                         cfg.head_dim_, cfg.d_ff)
     if cfg.num_experts:
@@ -80,6 +101,12 @@ def _init_leaf(gen, shape, init, dtype, device, lead=()):
     full = tuple(lead) + tuple(shape)
     if init == "zero":
         return torch.zeros(full, dtype=dtype, device=device)
+    if init == "one":
+        return torch.ones(full, dtype=dtype, device=device)
+    if init == "ssd_a":                     # log U(1, 8): A = -U(1, 8)
+        u = torch.rand(full, generator=gen, dtype=torch.float32,
+                       device=device)
+        return torch.log(1.0 + 7.0 * u).to(dtype)
     fan_in = shape[0] if init == "fan_in" else int(np.prod(shape[:2]))
     out = torch.randn(full, generator=gen, dtype=torch.float32,
                       device=device)
@@ -92,8 +119,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
     the weights directly on the card; the full-width model would take
     minutes to create on the host). Same distributions as the reference
     (``N(0, 1/fan_in)`` projections, ``N(0, 0.02)`` embedding, zero norm
-    weights), not the same numbers: tests that compare the two packages
-    go through ``params_from_jax``."""
+    weights; for ``ssd`` layers ``A_log = log U(1, 8)``, ``D = 1``, zero
+    ``dt_bias``), not the same numbers: tests that compare the two
+    packages go through ``params_from_jax``."""
     device = generator.device
     dtype = torch_dtype(cfg.param_dtype)
     d, vp = cfg.d_model, cfg.padded_vocab
@@ -154,6 +182,15 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
     _check_kind(kind)
     hkv, dh = cfg.num_kv_heads, cfg.head_dim_
     lead = tuple(lead)
+    if kind == "ssd":
+        return {
+            "s": torch.zeros(lead + (batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                                     cfg.ssm_state), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros(lead + (batch, cfg.conv_width - 1,
+                                        cfg.d_inner), dtype=dtype,
+                                device=device),
+        }
     return {
         "k": torch.zeros(lead + (batch, seq_len, hkv, dh), dtype=dtype,
                          device=device),
@@ -277,6 +314,40 @@ def _self_attention(ctx: Ctx, kind: str, p, x, state):
     return out, new_state, row_mass, key_mass
 
 
+def _ssd_block(ctx: Ctx, p, x, state):
+    """Mamba2 block. The conv state is read only in decode; prefill stores
+    the last W-1 pre-conv inputs. A cache, when given, is written in
+    place."""
+    cfg = ctx.cfg
+    di, ns, nh, pd = (cfg.d_inner, cfg.ssm_state, cfg.ssm_heads,
+                      cfg.ssm_head_dim)
+    proj = _proj(x, p["in_proj"])
+    z, xs, Bm, Cm, dt = torch.split(proj, [di, di, ns, ns, nh], dim=-1)
+    conv_state = state["conv"] if (state is not None and
+                                   ctx.mode == "decode") else None
+    xs, new_conv = L.causal_conv1d(xs, p["conv"], conv_state)
+    xs = F.silu(xs)
+    dt = F.softplus(dt + p["dt_bias"])
+    B_, T = xs.shape[:2]
+    xh = xs.reshape(B_, T, nh, pd)
+    if ctx.mode == "decode":
+        y, s = L.ssd_step(xh[:, 0], dt[:, 0], p["A_log"], Bm[:, 0], Cm[:, 0],
+                          p["D"], state["s"])
+        y = y[:, None]
+    else:
+        s0 = state["s"] if (state is not None and ctx.mode == "partial") \
+            else None
+        y, s = L.ssd_chunked(xh, dt, p["A_log"], Bm, Cm, p["D"],
+                             cfg.ssd_chunk, s0)
+    y = y.reshape(B_, T, di)
+    y = L.rms_norm(y, p["out_norm"], cfg.norm_eps) * F.silu(z)
+    out = _proj(y, p["out_proj"])
+    if state is not None:
+        state["s"].copy_(s)
+        state["conv"].copy_(new_conv)
+    return out, state
+
+
 def apply_block(ctx: Ctx, kind: str, p, h, state):
     _check_kind(kind)
     cfg = ctx.cfg
@@ -285,6 +356,9 @@ def apply_block(ctx: Ctx, kind: str, p, h, state):
                            dtype=torch.float32, device=h.device)
     key_mass = torch.zeros((h.shape[0], h.shape[1]), dtype=torch.float32,
                            device=h.device)
+    if kind == "ssd":                   # no FFN, no attention statistics
+        out, state = _ssd_block(ctx, p, x, state)
+        return h + out, state, row_mass, key_mass
     out, state, rm, km = _self_attention(ctx, kind, p, x, state)
     if rm is not None:
         row_mass = rm

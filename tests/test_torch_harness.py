@@ -34,6 +34,8 @@ def test_port_imports_no_jax_and_no_reference():
         for must in ("repro_torch.core.prefill", "repro_torch.serving.engine",
                      "repro_torch.kernels.chunk_attention.ops",
                      "repro_torch.kernels.decode_attention.ops",
+                     "repro_torch.kernels.ssd.ops",
+                     "repro_torch.training.steps",
                      "repro_torch.launch.serve"):
             assert must in sys.modules, must
         print(len(names))
@@ -89,8 +91,21 @@ def test_unported_backends_name_roadmap_item(impl, item):
         M.forward(cfg, params, tokens=toks, attn_impl=impl)
 
 
-def test_other_layer_families_not_ported():
+@pytest.mark.parametrize("kind", ["local", "xattn", "rglru"])
+def test_other_layer_families_not_ported(kind):
     from repro_torch.models import model as M
-    cfg = get_tiny("llama3-8b").replace(pattern=("attn", "local"))
-    with pytest.raises(NotImplementedError, match="local"):
+    cfg = get_tiny("llama3-8b").replace(pattern=("attn", kind))
+    with pytest.raises(NotImplementedError, match=f"{kind}.*A8"):
         M.init_params(cfg, torch.Generator().manual_seed(0))
+
+
+def test_ssd_layer_family_ported():
+    from repro_torch.models import model as M
+    cfg = get_tiny("mamba2-370m")
+    assert cfg.pattern == ("ssd",)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    cache = M.init_cache(cfg, 1, 8)
+    out = M.forward(cfg, params, tokens=torch.zeros((1, 8), dtype=torch.int32),
+                    mode="prefill", cache=cache)
+    assert tuple(out.logits.shape) == (1, 8, cfg.padded_vocab)
+    assert bool(torch.isfinite(out.logits).all())

@@ -14,6 +14,8 @@ import torch
 
 from repro_torch.kernels.chunk_attention import ops as cops
 from repro_torch.kernels.decode_attention import ops as dops
+from repro_torch.kernels.ssd import ops as sops
+from repro_torch.models import layers as TL
 
 F32 = dict(rtol=3e-5, atol=3e-5)
 BF16 = dict(rtol=3e-2, atol=3e-2)
@@ -29,6 +31,10 @@ DECODE_CASES = [(2, 64, 4, 2, 32, 0), (3, 100, 8, 2, 32, 0),
                 (1, 48, 4, 4, 64, 16)]
 PAGED_CASES = [(2, 8, 4, 4, 2, 32, 0), (3, 12, 8, 8, 2, 32, 0),
                (1, 6, 4, 4, 4, 64, 8)]
+# nC, L, H, P, N: the three shapes of tests/test_kernels.py, then chunk
+# lengths 1 and 7 (ssd_chunked hands the kernel any L <= chunk)
+SSD_CASES = [(1, 8, 2, 16, 8), (3, 16, 4, 32, 16), (2, 32, 2, 64, 32),
+             (2, 1, 2, 16, 8), (3, 7, 2, 16, 8)]
 
 
 def _np(x):
@@ -42,6 +48,7 @@ def counts():
     cops.chunk_attention.launches = 0
     dops.decode_attention.launches = 0
     dops.paged_decode_attention.launches = 0
+    sops.ssd_intra.launches = 0
 
 
 def _need_cuda():
@@ -117,6 +124,19 @@ def _paged_inputs(seed, B, NB, bs, H, Hkv, D):
     return q, kb, vb, kpos, rows, qpos
 
 
+def _ssd_inputs(seed, nC, L, H, P, N, batch=0):
+    """xdt [nC,L,H,P], log_a [nC,L,H] (<= 0), B/C [nC,L,N]; with ``batch``
+    a leading batch axis of that size."""
+    rng = np.random.default_rng(seed)
+    lead = (batch,) if batch else ()
+    xdt = rng.normal(size=lead + (nC, L, H, P)).astype(np.float32)
+    la = (-np.abs(rng.normal(size=lead + (nC, L, H))) * 0.2) \
+        .astype(np.float32)
+    Bm = rng.normal(size=lead + (nC, L, N)).astype(np.float32)
+    Cm = rng.normal(size=lead + (nC, L, N)).astype(np.float32)
+    return xdt, la, Bm, Cm
+
+
 # ---------------- CUDA kernels vs plain versions (on the card) --------------
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -182,3 +202,76 @@ def test_cuda_wrapper_raises_instead_of_falling_back():
         dops.decode_attention(tq, tk, tv, tqp.long(), tkp)
     with pytest.raises(ValueError):
         dops.decode_attention(tq, tk.transpose(1, 2), tv, tqp, tkp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nC,L,H,P,N", SSD_CASES)
+def test_ssd_cuda_kernel_vs_plain(counts, nC, L, H, P, N, dtype):
+    dev = _need_cuda()
+    dt = getattr(torch, dtype)
+    ins = _ssd_inputs(nC * L, nC, L, H, P, N)
+    y, st = sops.ssd_intra(*_t(*ins, device=dev, dtype=dt))
+    torch.cuda.synchronize()
+    assert sops.ssd_intra.launches == 1
+    assert y.dtype == st.dtype == torch.float32
+    yr, sr = sops.ssd_intra(*_t(*ins, dtype=dt))
+    # both versions compute in fp32 from the same (rounded) inputs
+    np.testing.assert_allclose(_np(y), _np(yr), **F32)
+    np.testing.assert_allclose(_np(st), _np(sr), **F32)
+
+
+@pytest.mark.cuda
+def test_ssd_cuda_batched_form_never_reaches_plain(monkeypatch, counts):
+    """A 5-D batch of CUDA tensors is folded into one launch; the plain
+    version is never called for CUDA tensors."""
+    dev = _need_cuda()
+    ins = _ssd_inputs(3, 3, 16, 4, 32, 16, batch=2)
+    yr, sr = sops.ssd_intra(*_t(*ins))
+
+    def boom(*a, **k):
+        raise AssertionError("plain version reached with CUDA tensors")
+    monkeypatch.setattr(sops, "ssd_intra_ref", boom)
+    y, st = sops.ssd_intra(*_t(*ins, device=dev))
+    torch.cuda.synchronize()
+    assert sops.ssd_intra.launches == 1
+    assert tuple(y.shape) == (2, 3, 16, 4, 32)
+    np.testing.assert_allclose(_np(y), _np(yr), **F32)
+    np.testing.assert_allclose(_np(st), _np(sr), **F32)
+
+
+@pytest.mark.cuda
+def test_ssd_cuda_wrapper_raises():
+    dev = _need_cuda()
+    xdt, la, Bm, Cm = _t(*_ssd_inputs(4, 2, 8, 2, 16, 8), device=dev)
+    with pytest.raises(TypeError):
+        sops.ssd_intra(xdt, la.double(), Bm, Cm)
+    with pytest.raises(ValueError):
+        sops.ssd_intra(xdt, la, Bm.transpose(0, 1).contiguous(), Cm)
+    big = _t(*_ssd_inputs(5, 1, 512, 1, 64, 128), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        sops.ssd_intra(*big)
+
+
+@pytest.mark.cuda
+def test_ssd_chunked_cuda_vs_cpu(counts):
+    """The model layer on the card, fed B / C as column slices of one
+    projection (as the Mamba2 block does), against the same call on the
+    CPU (plain version): one kernel launch, same outputs."""
+    dev = _need_cuda()
+    rng = np.random.default_rng(12)
+    Bsz, S, H, P, N = 2, 40, 4, 16, 8
+    x = rng.normal(size=(Bsz, S, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.normal(size=(Bsz, S, H)))).astype(np.float32)
+    A_log = np.log(rng.uniform(1, 8, size=H)).astype(np.float32)
+    BC = rng.normal(size=(Bsz, S, 2 * N + 3)).astype(np.float32)
+    D = np.ones(H, np.float32)
+    outs = []
+    for device in ("cpu", dev):
+        tx, tdt, ta, tbc, tD = _t(x, dt, A_log, BC, D, device=device)
+        outs.append(TL.ssd_chunked(tx, tdt, ta, tbc[..., :N],
+                                   tbc[..., N:2 * N], tD, 16))
+    torch.cuda.synchronize()
+    assert sops.ssd_intra.launches == 1
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(_np(b), _np(a), rtol=1e-5, atol=1e-5)

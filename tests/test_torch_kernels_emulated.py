@@ -4,7 +4,8 @@ per CUDA thread, real barriers and warp shuffles) and held against the
 plain versions at 3e-5 on the parametrisations of ``tests/test_kernels.py``.
 
 This checks the sources' indexing, masking, padding, tile skipping and
-online-softmax logic on a host without a GPU; the card itself checks what
+online-softmax logic, and the SSD block's row tiling and causal skip,
+on a host without a GPU; the card itself checks what
 ``nvcc`` makes of them (``chip_smoke.py``)."""
 import ctypes
 import os
@@ -21,6 +22,8 @@ from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref,
     paged_decode_attention_ref,
 )
+from repro_torch.kernels.ssd.ref import ssd_intra_ref
+from test_torch_kernels_cuda import SSD_CASES, _ssd_inputs
 
 torch.set_num_threads(2)
 EMU = os.path.join(os.path.dirname(build.__file__), "emu")
@@ -56,9 +59,12 @@ def libs(tmp_path_factory):
     fp = loaded["decode_attention"].paged_decode_attention_fwd
     fp.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + \
         [ctypes.c_void_p]
-    for f in (fc, fd, fp):
+    fs = loaded["ssd"].ssd_intra_fwd
+    fs.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
+        [ctypes.c_void_p]
+    for f in (fc, fd, fp, fs):
         f.restype = ctypes.c_int
-    return fc, fd, fp
+    return fc, fd, fp, fs
 
 
 def _t(x, dtype=None):
@@ -176,3 +182,34 @@ def test_paged_source_vs_plain(libs, B, NB, bs, H, Hkv, D, window, NBmax):
     torch.testing.assert_close(
         out, paged_decode_attention_ref(q, kb, vb, kp, rw, qp,
                                         window=window), **F32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nC,L,H,P,N", SSD_CASES)
+def test_ssd_source_vs_plain(libs, nC, L, H, P, N, dtype):
+    """Includes chunk lengths 1 and 7 (ssd_chunked hands the kernel any L
+    up to the chunk); bf16 inputs, fp32 arithmetic in both versions."""
+    dt = getattr(torch, dtype)
+    ins = [_t(x, dt) for x in _ssd_inputs(nC * L + 2, nC, L, H, P, N)]
+    y = torch.empty((nC, L, H, P))
+    st = torch.empty((nC, H, P, N))
+    assert libs[3](*[x.data_ptr() for x in ins], y.data_ptr(),
+                   st.data_ptr(), nC, L, H, P, N, int(dt == torch.bfloat16),
+                   None) == 0
+    yr, sr = ssd_intra_ref(*ins)
+    torch.testing.assert_close(y, yr, **F32)
+    torch.testing.assert_close(st, sr, **F32)
+
+
+def test_ssd_source_row_blocks_and_padding(libs):
+    """L 70 spans three row blocks of 32 (the last one ragged); P 6 and
+    N 5 leave padding columns in the staged tiles."""
+    nC, L, H, P, N = 1, 70, 2, 6, 5
+    ins = [_t(x) for x in _ssd_inputs(70, nC, L, H, P, N)]
+    y = torch.empty((nC, L, H, P))
+    st = torch.empty((nC, H, P, N))
+    assert libs[3](*[x.data_ptr() for x in ins], y.data_ptr(),
+                   st.data_ptr(), nC, L, H, P, N, 0, None) == 0
+    yr, sr = ssd_intra_ref(*ins)
+    torch.testing.assert_close(y, yr, **F32)
+    torch.testing.assert_close(st, sr, **F32)
