@@ -14,7 +14,10 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    bf16 (3e-2), and time kernel, plain version and, where one exists,
    one PyTorch library call (``scaled_dot_product_attention`` with the
    same boolean mask, a yardstick only) with CUDA events; compute each
-   kernel's bound from the bytes and operations these inputs need;
+   kernel's bound from the bytes and operations these inputs need. RoPE
+   is held at two shapes (K of one chunk over all layers, a 1024-token
+   span), applying and removing, with one whole-stack call equal to one
+   call per layer byte for byte and remove o apply within 2e-5 of x;
 4. mamba2: full-width mamba2-370m (random weights from a seed, fp32):
    ``make_prefill_step`` over 4 prompts of 1920 tokens (the SSD
    intra-chunk kernel in every layer), 128 teacher-forced
@@ -24,18 +27,24 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    logits (against the model's own fp32 noise floor);
 5. engine A: full-width llama3-8b (random weights from a seed, fp32),
    ``cachecraft`` with a chunk store, ``attn_impl="kernel"``: chunk
-   attention in the prefill windows, decode attention over the arena;
+   attention in the prefill windows, decode attention over the arena,
+   the RoPE kernel removing RoPE from every stored chunk and re-applying
+   it to every reused one;
 6. engine B: the same weights and workload with ``paged_decode=True,
    attn_impl="paged_kernel"``: the paged kernel reads the pool in place;
 7. engine C: the same with ``attn_impl="dense"`` (plain PyTorch
    attention); A's and B's per-step decode logits are held against C's;
-8. a ``kernels`` JSON line (launches on the main paths, error, times,
-   bound), the mamba2 figures and per-engine TTFT / decode-step figures;
-9. last line: ``{"ok": true, "device": {...}}``.
+8. server: the HTTP server (``serving/server.py``) around a fresh
+   ``kernel`` engine, the same 12 requests submitted and streamed through
+   ``ServeClient``, one cancelled after its 2nd token (``run_server``);
+9. a ``kernels`` JSON line (launches on the main paths, error, times,
+   bound), the mamba2 figures, per-engine TTFT / decode-step figures and
+   the server's;
+10. last line: ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before the mamba2 phase and engines A and
-B run and read just after; the comparison launches of phase 3 do not
-count. Without CUDA, or without the repository's ``src/`` beside it, the
+B run and read just after (rope and the attention kernels of engine A in
+A, paged decode in B); the comparison launches of phase 3 do not count. Without CUDA, or without the repository's ``src/`` beside it, the
 script exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -412,6 +421,101 @@ def check_ssd(dev):
     return res
 
 
+def rope_inputs(rng, dev):
+    """The two shapes of the chunk-cache RPE path, as the executor hands
+    them to the kernel (``core/prefill.py`` ``rope_np``: K of all layers,
+    one position vector shared by the layers): ``path``, K of one 48-token
+    chunk of llama3-8b [L 32, n 48, Hkv 8, D 128] at a layout span ending
+    near 2.6k; ``span``, a 1024-token span [32, 1024, 8, 128] at sorted
+    positions drawn from 0..8191."""
+    import numpy as np
+    import torch
+    L, Hkv, D = 32, 8, 128
+    start = int(rng.integers(2000, 2600 - 48))
+    shapes = {"path": (48, np.arange(start, start + 48)),
+              "span1024": (1024, np.sort(rng.choice(8192, 1024,
+                                                    replace=False)))}
+    out = {}
+    for name, (n, pos) in shapes.items():
+        out[name] = (
+            torch.from_numpy(rng.normal(size=(L, n, Hkv, D))
+                             .astype(np.float32)).to(dev),
+            torch.from_numpy(pos.astype(np.int32)).to(dev))
+    return out
+
+
+def check_rope(dev):
+    """rope vs its plain version at the RPE path's shapes, fp32 (3e-5) and
+    bf16 (3e-2), applying and removing; one whole-stack call vs one call
+    per layer (byte for byte, the streamed == eager contract); remove o
+    apply == id (2e-5). No single PyTorch call computes RoPE, so there is
+    no library yardstick. The bound counts x read and out written once,
+    plus the positions and the frequencies."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.rope import ops as rops
+    from repro_torch.kernels.rope.ref import rope_ref
+
+    theta = 5e5                        # llama3-8b's rope_theta
+    res = {}
+    for shape_name, (x32, pos) in rope_inputs(np.random.default_rng(2),
+                                              dev).items():
+        L, n, H, D = x32.shape
+        for dt_name in ("float32", "bfloat16"):
+            x = x32.to(getattr(torch, dt_name))
+            e = 0.0
+            for inverse in (False, True):
+                o = rops.rope(x, pos, theta=theta, inverse=inverse)
+                torch.cuda.synchronize()
+                r = rope_ref(x.reshape(L * n, H, D), pos.repeat(L),
+                             theta=theta, inverse=inverse).reshape(x.shape)
+                e = max(e, float((o.float() - r.float()).abs().max()))
+                if not (e <= TOL[dt_name] and torch.isfinite(o).all()):
+                    raise RuntimeError(f"rope {shape_name} {dt_name} "
+                                       f"inverse={inverse}: max abs err "
+                                       f"{e} > {TOL[dt_name]}")
+            per_layer = torch.cat([rops.rope(x[l:l + 1].contiguous(), pos,
+                                             theta=theta) for l in range(L)])
+            if not torch.equal(per_layer, rops.rope(x, pos, theta=theta)):
+                raise RuntimeError(f"rope {shape_name} {dt_name}: per-layer "
+                                   "calls differ from the whole-stack call")
+            t_k = cuda_ms(lambda: rops.rope(x, pos, theta=theta))
+            t_p = cuda_ms(lambda: rope_ref(
+                x.reshape(L * n, H, D), pos.repeat(L), theta=theta))
+            # the wrapper's host time per call (checks, ctypes, enqueue;
+            # no sync): where it exceeds the kernel's device time, the
+            # event-timed ms above is the host's, not the card's
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                rops.rope(x, pos, theta=theta)
+            t_h = (time.perf_counter() - t0) / 50 * 1e3
+            torch.cuda.synchronize()
+            el = x.element_size()
+            nbytes = 2 * x.numel() * el + 4 * n + 4 * D // 2
+            # per (t, h, i) pair: the angle and 6 products / sums; the
+            # cos / sin evaluations are not counted (bytes bound anyway)
+            b_ms, b_by = bound(nbytes, 7 * x.numel() // 2, dt_name)
+            res.setdefault(shape_name, {})[dt_name] = dict(
+                err=e, ms=t_k, plain_ms=t_p, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by, host_ms=t_h)
+            log(f"kernel rope {shape_name} {dt_name} [{L}, {n}, {H}, {D}] "
+                f"pos {int(pos.min())}..{int(pos.max())}: max_abs_err="
+                f"{e:.3e} (tol {TOL[dt_name]}) per-layer == whole-stack "
+                f"ms={t_k:.4f} plain_ms={t_p:.4f} library_ms=none "
+                f"bound_ms={b_ms:.4f} ({b_by}; {nbytes / 1e6:.2f} MB) "
+                f"host_ms_per_call={t_h:.4f}")
+        back = rops.rope(rops.rope(x32, pos, theta=theta), pos, theta=theta,
+                         inverse=True)
+        rt = float((back - x32).abs().max())
+        log(f"kernel rope {shape_name}: remove o apply vs x max abs diff "
+            f"{rt:.3e} (tol 2e-5)")
+        if not rt <= 2e-5:
+            raise RuntimeError(f"rope {shape_name}: round trip {rt} > 2e-5")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # phase 4: mamba2-370m prefill and decode
 # ---------------------------------------------------------------------------
@@ -597,10 +701,11 @@ def run_mamba2(dev):
 # ---------------------------------------------------------------------------
 # phases 5-7: the engine on full-width llama3-8b
 # ---------------------------------------------------------------------------
-def run_engine(tag, cfg, params, tmp, num_requests=12, max_new_tokens=8,
-               **spec_kw):
-    import numpy as np
-
+def smoke_engine(tag, cfg, params, tmp, num_requests=12, max_new_tokens=8,
+                 **spec_kw):
+    """A fresh engine with its own chunk store on the card, and the smoke
+    workload (12 requests of 5 chunks from a 24-chunk knowledge base,
+    arriving at once, 8 new tokens each)."""
     from repro_torch.serving.api import EngineSpec, StoreSpec, \
         build_engine, build_store
     from repro_torch.serving.rag import KnowledgeBase
@@ -616,6 +721,15 @@ def run_engine(tag, cfg, params, tmp, num_requests=12, max_new_tokens=8,
     reqs = generate(kb, WorkloadConfig(num_requests=num_requests, qpm=1e9,
                                        k_chunks=5,
                                        max_new_tokens=max_new_tokens))
+    return eng, store, reqs
+
+
+def run_engine(tag, cfg, params, tmp, num_requests=12, max_new_tokens=8,
+               **spec_kw):
+    import numpy as np
+
+    eng, store, reqs = smoke_engine(tag, cfg, params, tmp, num_requests,
+                                    max_new_tokens, **spec_kw)
     t0 = time.perf_counter()
     stats = eng.run(reqs)
     wall = time.perf_counter() - t0
@@ -655,6 +769,107 @@ def run_engine(tag, cfg, params, tmp, num_requests=12, max_new_tokens=8,
     del eng, store
     gc.collect()
     return out, trace, tokens, plans, counters
+
+
+def run_server(cfg, params, tmp, offline_tokens):
+    """The port's HTTP server around a fresh ``kernel`` engine with its
+    own store: the smoke workload's 12 requests submitted and streamed
+    through ``ServeClient`` on 12 threads, one cancelled after its 2nd
+    token. Required: every survivor ends done with max_new_tokens tokens,
+    the cancelled stream ends cancelled with fewer, /health is ok, /stats
+    shows nothing in flight and no reserved block after the drain, and
+    the engine thread stops on shutdown. Logged: how many survivor
+    streams equal the offline engine A's tokens for the same rid (on the
+    card a plan may depend on the measured window time, so bit identity
+    is proved on the CPU, tests/test_torch_server.py), client-side TTFT
+    (wall) and the total wall time."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.serving.server import CacheCraftServer, ServeClient
+
+    eng, store, reqs = smoke_engine("server", cfg, params, tmp,
+                                    attn_impl="kernel")
+    cancel_rid = 5
+    server = CacheCraftServer(eng, host="127.0.0.1", port=0).start()
+    got, ttft, errors = {}, {}, []
+    try:
+        client = ServeClient(server.host, server.port, timeout=300.0)
+        if not client.health().get("ok"):
+            raise RuntimeError("server: /health not ok at start")
+        t0 = time.perf_counter()
+
+        def reader(rid):
+            try:
+                seen = []
+
+                def on_token(tok):
+                    if not seen:
+                        ttft[rid] = time.perf_counter() - t_sub[rid]
+                    seen.append(tok)
+                    if rid == cancel_rid and len(seen) == 2:
+                        client.cancel(rid)
+                got[rid] = client.stream(rid, on_token=on_token)
+            except Exception as e:          # re-raised on the main thread
+                errors.append(f"rid {rid}: {e!r}")
+
+        t_sub, threads = {}, []
+        for req in reqs:
+            t_req = time.perf_counter()
+            rid = client.submit(req)
+            t_sub[rid] = t_req
+            th = threading.Thread(target=reader, args=(rid,), daemon=True)
+            th.start()
+            threads.append(th)
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        if errors or any(th.is_alive() for th in threads):
+            raise RuntimeError(f"server: stream readers failed or hung: "
+                               f"{errors}")
+        health = client.health()
+        stats = client.stats()
+    finally:
+        server.shutdown()
+        store.tiers.close()
+    if server._thread.is_alive():
+        raise RuntimeError("server: engine thread still alive after "
+                           "shutdown")
+    if not health.get("ok"):
+        raise RuntimeError(f"server: /health {health}")
+    if stats["server"]["inflight"] != 0 or \
+            stats["pool"]["reserved_blocks"] != 0:
+        raise RuntimeError(f"server: after the drain inflight "
+                           f"{stats['server']['inflight']}, reserved blocks "
+                           f"{stats['pool']['reserved_blocks']}")
+    same, n_new = 0, reqs[0].max_new_tokens
+    for rid, (toks, state) in sorted(got.items()):
+        if rid == cancel_rid:
+            if not (state == "cancelled" and 2 <= len(toks) < n_new):
+                raise RuntimeError(f"server: cancelled rid {rid} ended "
+                                   f"{state} with {len(toks)} tokens")
+            continue
+        if state != "done" or len(toks) != n_new:
+            raise RuntimeError(f"server: rid {rid} ended {state} with "
+                               f"{len(toks)} tokens")
+        same += toks == offline_tokens[rid]
+    t = np.array([ttft[r] for r in sorted(ttft) if r != cancel_rid])
+    c_toks = got[cancel_rid][0]
+    out = dict(submitted=len(reqs), survivors_done=len(got) - 1,
+               cancelled_tokens=len(c_toks),
+               cancelled_prefix_of_offline_A=c_toks == offline_tokens[
+                   cancel_rid][:len(c_toks)],
+               survivors_equal_offline_A=int(same),
+               ttft_wall_mean_ms=float(t.mean() * 1e3),
+               ttft_wall_p99_ms=float(np.percentile(t, 99) * 1e3),
+               wall_s=wall, completed=stats["completed"],
+               cancelled=stats["cancelled"],
+               reserved_blocks=stats["pool"]["reserved_blocks"])
+    log("server: " + json.dumps(out))
+    del eng, store
+    gc.collect()
+    return out
 
 
 def compare_logits(tag, trace, tokens, ref_trace, ref_tokens):
@@ -725,6 +940,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.chunk_attention import ops as cops
     from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.rope import ops as rops
     from repro_torch.models import model as M
 
     t_all = time.perf_counter()
@@ -754,6 +970,8 @@ def main() -> int:
     # phase 3: kernels vs plain versions
     krows = check_kernels(dev)
     krows["ssd_intra"] = check_ssd(dev)
+    rope_rows = check_rope(dev)
+    krows["rope"] = rope_rows["path"]
 
     # phase 4: mamba2-370m prefill and decode
     mamba, ssd_launches = run_mamba2(dev)
@@ -785,10 +1003,14 @@ def main() -> int:
         cops.chunk_attention.launches = 0
         dops.decode_attention.launches = 0
         dops.paged_decode_attention.launches = 0
+        rops.rope.launches = 0
         engines["A"], tr_a, tok_a, plan_a, c_a = run_engine(
             "A", cfg, params, tmp, attn_impl="kernel")
         launches["chunk_attention"] = cops.chunk_attention.launches
         launches["decode_attention"] = dops.decode_attention.launches
+        # de-rope of every stored miss, re-rope of every injected hit and
+        # every zero-copy pool-run load
+        launches["rope"] = rops.rope.launches
         if engines["A"]["prefill_tokens_computed"] >= \
                 engines["A"]["prefill_tokens_total"]:
             raise RuntimeError("engine A: no chunk reuse happened")
@@ -805,6 +1027,9 @@ def main() -> int:
 
         engines["C"], tr_c, tok_c, plan_c, _c = run_engine(
             "C", cfg, params, tmp, attn_impl="dense")
+
+        # phase 8: the HTTP server around a fresh kernel engine
+        served = run_server(cfg, params, tmp, tok_a)
     log(f"launches on the main path: {json.dumps(launches)}")
     for name, n in launches.items():
         if n <= 0:
@@ -831,6 +1056,9 @@ def main() -> int:
         "ssd_intra": (
             "src/repro_torch/kernels/ssd/csrc/ssd.cu",
             "src/repro/kernels/ssd/kernel.py:51"),
+        "rope": (
+            "src/repro_torch/kernels/rope/csrc/rope.cu",
+            "src/repro/kernels/rope/kernel.py:38"),
     }
     kernels = []
     for name, (src, rep) in sources.items():
@@ -843,6 +1071,15 @@ def main() -> int:
             max_abs_err_bf16=b16["err"], ms_bf16=b16["ms"],
             plain_ms_bf16=b16["plain_ms"], bound_ms_bf16=b16["bound_ms"],
             library_ms_bf16=b16["library_ms"]))
+    # rope's row is at the path's shape; the 1024-token span beside it
+    kernels[-1]["shape"] = "[32, 48, 8, 128]; span1024 [32, 1024, 8, 128]"
+    kernels[-1]["host_ms"] = rope_rows["path"]["float32"]["host_ms"]
+    for dt, sfx in (("float32", ""), ("bfloat16", "_bf16")):
+        r = rope_rows["span1024"][dt]
+        kernels[-1].update({f"max_abs_err_span1024{sfx}": r["err"],
+                            f"ms_span1024{sfx}": r["ms"],
+                            f"plain_ms_span1024{sfx}": r["plain_ms"],
+                            f"bound_ms_span1024{sfx}": r["bound_ms"]})
     log(f"mamba2-370m: prefill {mamba['prefill_ms']:.1f} ms per call "
         f"(4 x 1920 tokens), decode step {mamba['decode_step_ms']:.2f} ms, "
         f"{mamba['decode_tokens_per_s']:.1f} tokens/s at batch 4 [{card}]")
@@ -851,6 +1088,10 @@ def main() -> int:
                               "prefill_pass_ms", "decode_step_ms",
                               "decode_tokens_per_s", "wall_s")}
         for k, v in engines.items()}))
+    log(f"server [{card}]: {served['survivors_done']} survivors done, "
+        f"cancelled after {served['cancelled_tokens']} tokens, TTFT (wall) "
+        f"mean {served['ttft_wall_mean_ms']:.1f} ms p99 "
+        f"{served['ttft_wall_p99_ms']:.1f} ms, wall {served['wall_s']:.1f} s")
     log(f"end-to-end vs dense: A max abs logit diff {err_a:.3e}, "
         f"B {err_b:.3e}; total {time.perf_counter() - t_all:.1f}s")
     log(card)    # nvidia-smi's name, power.limit line, verbatim

@@ -13,7 +13,10 @@ fix the padded shapes, and with them the sums the tests compare.
 Host/device split: plans, the injected chunk KV and the results live on
 the host as numpy (the store and the pool are host structures); the
 model's cache, hidden states and parameters live on the executor's
-device. Caches are updated in place (the reference donates them).
+device. Caches are updated in place (the reference donates them). The
+RPE transform of stored chunk KV (re-rope on inject, de-rope before
+storing) runs on the executor's device: the ``rope`` kernel on the card,
+the plain ``apply_rope`` on the host.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ from repro_torch.core.preload import LayerStream, layerwise_schedule
 from repro_torch.core.strategies import SelectScores, get_strategy
 from repro_torch.core.tiers import CPU_TO_HBM_GBPS, SSD_GBPS, \
     merge_load_infos
+from repro_torch.kernels.rope import ops as rope_ops
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope
@@ -42,18 +46,34 @@ def _bucket(n: int, b: int) -> int:
     return max(b, -(-n // b) * b)
 
 
-def inject_chunk_kv(cfg: ModelConfig, kv, rope_pos) -> Tuple[np.ndarray,
-                                                             np.ndarray]:
+def rope_np(cfg: ModelConfig, k, pos, *, device,
+            inverse: bool = False) -> np.ndarray:
+    """RoPE over host K ``[L, n, Hkv, D]`` at positions ``pos [n]`` (the
+    same for every layer), computed on ``device``: on the host with the
+    plain ``apply_rope``; on the card by the ``rope`` kernel (upload,
+    one launch over all layers, download). Returns fp32 numpy."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return apply_rope(torch.from_numpy(np.array(k, np.float32)),
+                          torch.from_numpy(np.asarray(pos)),
+                          cfg.rope_theta, inverse=inverse).numpy()
+    return rope_ops.rope(
+        _t(np.asarray(k, np.float32), device),
+        _t(np.asarray(pos, np.int32), device), theta=cfg.rope_theta,
+        inverse=inverse).cpu().numpy()
+
+
+def inject_chunk_kv(cfg: ModelConfig, kv, rope_pos, *,
+                    device) -> Tuple[np.ndarray, np.ndarray]:
     """Stored (de-roped) chunk-cache KV -> the exact bytes injected into
     a prefill layout at ``rope_pos``: float32 cast + RoPE at the target
-    positions, computed on the host with the plain ``apply_rope``. Single
-    source of truth shared by the executor's compute injection and the
-    engine's canonical pool-run materialization: the zero-copy design's
-    bit-equality REQUIRES both to produce identical bytes, so never fork
-    this transform."""
-    k = apply_rope(torch.from_numpy(np.array(kv["k"], np.float32)),
-                   torch.from_numpy(np.asarray(rope_pos)), cfg.rope_theta)
-    return k.numpy(), np.asarray(kv["v"], np.float32)
+    positions, on ``device`` (``rope_np``). Single source of truth shared
+    by the executor's compute injection and the engine's canonical
+    pool-run materialization: the zero-copy design's bit-equality
+    REQUIRES both to produce identical bytes, so never fork this
+    transform, and give both the same device."""
+    return rope_np(cfg, kv["k"], rope_pos, device=device), \
+        np.asarray(kv["v"], np.float32)
 
 
 def _t(x, device, dtype=None):
@@ -403,7 +423,7 @@ class CacheCraftExecutor:
                     load_modeled[r] += info.seconds_modeled
                     load_measured[r] += info.seconds_measured
                     tier_hits[r][info.tier] += 1
-                kc, vc = inject_chunk_kv(cfg, kv, rope_pos)
+                kc, vc = inject_chunk_kv(cfg, kv, rope_pos, device=dev)
                 k_np[:, off + d.seg.start:off + d.seg.end] = kc
                 v_np[:, off + d.seg.start:off + d.seg.end] = vc
             # key-side (layout) stat ids for the model's mass statistic
@@ -714,7 +734,7 @@ class CacheCraftExecutor:
                 (np.arange(d.seg.length) + d.variant.scores.orig_start)
             # probe-only read: the main pass records the actual use
             kv, _info = self.store.get_kv(d.variant)
-            kc, vc = inject_chunk_kv(cfg, kv, rope_pos)
+            kc, vc = inject_chunk_kv(cfg, kv, rope_pos, device=self.device)
             k_np[:, d.seg.start:d.seg.end] = kc
             v_np[:, d.seg.start:d.seg.end] = vc
             if d.deferred:
@@ -800,7 +820,7 @@ class CacheCraftExecutor:
                 # runs, applied to one layer (RoPE is layer-independent)
                 kc, vc = inject_chunk_kv(
                     cfg, {"k": kv_l["k"][None], "v": kv_l["v"][None]},
-                    job.rope_pos)
+                    job.rope_pos, device=self.device)
                 k_np[l, s0:s1] = kc[0]
                 v_np[l, s0:s1] = vc[0]
         # refresh the cache slices the window reads
@@ -854,12 +874,13 @@ class CacheCraftExecutor:
             sc = scoring.chunk_scores(inter, lengths, i, hashes[:i],
                                       tok_inter, token_total=tok_total,
                                       orig_start=d.seg.start)
+            # stored position-independent: RoPE removed (§4), on the
+            # executor's device
             kv = {
-                "k": apply_rope(
-                    torch.from_numpy(
-                        np.ascontiguousarray(k_fin[:, d.seg.start:d.seg.end])),
-                    torch.arange(d.seg.start, d.seg.end, dtype=torch.int32),
-                    cfg.rope_theta, inverse=True).numpy(),
+                "k": rope_np(cfg, k_fin[:, d.seg.start:d.seg.end],
+                             np.arange(d.seg.start, d.seg.end,
+                                       dtype=np.int32),
+                             device=self.device, inverse=True),
                 "v": v_fin[:, d.seg.start:d.seg.end].copy(),
             }
             self.store.add_variant(d.seg.chash, kv, sc)

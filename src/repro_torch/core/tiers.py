@@ -72,8 +72,10 @@ its storage scheme:
   lifted from ``distributed/compression.py``;
 * ``"fp8"`` — blockwise float8_e4m3fn, one fp32 scale per
   ``FP8_BLOCK`` elements (~4x fewer bytes, better dynamic range for
-  outlier-heavy tensors; degrades to ``int8`` when ``ml_dtypes`` is
-  unavailable).
+  outlier-heavy tensors). The cast is PyTorch's ``torch.float8_e4m3fn``
+  (round to nearest even, the same bytes as the reference's
+  ``ml_dtypes`` cast) and the payload is kept as its ``uint8`` bit
+  view, the form the SSD tier persists.
 
 Demotion *encodes* for the destination tier (HBM always holds the raw
 fp32 value the executor computes with); promotion and ``get``
@@ -131,6 +133,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.eviction import Candidate, EvictionPolicy, LRUPolicy
 
@@ -154,13 +157,15 @@ QUANT_SCHEMES = ("fp32", "int8", "fp8")
 QUANT_MIN_ELEMS = 64       # float leaves smaller than this stay raw
 FP8_BLOCK = 128            # elements per fp8 scale block
 
-try:                       # ml_dtypes ships with jax; gate, never install
-    import ml_dtypes as _ml_dtypes
-    _FP8_DTYPE: Optional[np.dtype] = np.dtype(_ml_dtypes.float8_e4m3fn)
-    _FP8_MAX = float(_ml_dtypes.finfo(_ml_dtypes.float8_e4m3fn).max)
-except Exception:          # pragma: no cover - jax guarantees ml_dtypes
-    _FP8_DTYPE = None
-    _FP8_MAX = 0.0
+_FP8_DTYPE = getattr(torch, "float8_e4m3fn", None)
+_FP8_MAX = float(torch.finfo(_FP8_DTYPE).max) if _FP8_DTYPE else 0.0  # 448
+
+
+def _require_fp8():
+    if _FP8_DTYPE is None:
+        raise RuntimeError(
+            f"fp8 tiers need torch.float8_e4m3fn, which torch "
+            f"{torch.__version__} lacks")
 
 # ---- SSD entropy coding (module docstring "SSD entropy coding") ------------
 
@@ -226,7 +231,8 @@ def _quantize_leaf(x: np.ndarray, scheme: str):
     blocks = flat.reshape(-1, FP8_BLOCK)
     scale = (np.abs(blocks).max(axis=1, keepdims=True) / _FP8_MAX
              + 1e-12).astype(np.float32)
-    q = (blocks / scale).astype(_FP8_DTYPE)
+    q = torch.from_numpy(blocks / scale).to(_FP8_DTYPE) \
+        .view(torch.uint8).numpy()
     payload = q.reshape(-1)[:xf.size].reshape(xf.shape)
     return payload, scale.reshape(-1)
 
@@ -243,7 +249,9 @@ def _dequantize_leaf(payload: np.ndarray, scale, scheme: str):
         # size-1 arrays, sometimes 0-d) decode through the scalar path
         return payload.astype(np.float32) \
             * np.float32(np.asarray(scale).reshape(-1)[0])
-    flat = payload.astype(np.float32).reshape(-1)
+    # fp8: the payload is the uint8 bit view of float8_e4m3fn values
+    flat = torch.from_numpy(np.ascontiguousarray(payload).reshape(-1)) \
+        .view(_FP8_DTYPE).float().numpy()
     pad = (-flat.size) % FP8_BLOCK
     if pad:
         flat = np.pad(flat, (0, pad))
@@ -259,10 +267,10 @@ def quantize_tree(tree, scheme: str):
     error."""
     if scheme == "fp32" or isinstance(tree, QuantizedTree):
         return tree
-    if scheme == "fp8" and _FP8_DTYPE is None:
-        scheme = "int8"
     if scheme not in QUANT_SCHEMES:
         raise ValueError(f"unknown quantization scheme {scheme!r}")
+    if scheme == "fp8":
+        _require_fp8()
     payloads, scales = [], []
     for leaf in _leaves(tree):
         p, s = _quantize_leaf(np.asarray(leaf), scheme)
@@ -403,8 +411,8 @@ class TieredStore:
                 raise ValueError(f"tier_dtypes: unknown tier {t!r}")
             if s not in QUANT_SCHEMES:
                 raise ValueError(f"tier_dtypes: unknown scheme {s!r}")
-            if s == "fp8" and _FP8_DTYPE is None:
-                s = "int8"           # ml_dtypes absent: degrade, never fail
+            if s == "fp8":
+                _require_fp8()
             self.tier_dtypes[t] = s
         # SSD entropy coding (module docstring): resolve the configured
         # codec once, degrading zstd -> zlib when the package is absent
@@ -649,10 +657,9 @@ class TieredStore:
             scheme = value.scheme
             struct = value.struct
             for i, (p, s) in enumerate(zip(value.leaves, value.scales)):
-                # fp8 payloads persist as uint8 views: npz headers only
-                # round-trip builtin numpy dtypes
-                flat[f"a{i}"] = p.view(np.uint8) \
-                    if s is not None and scheme == "fp8" else p
+                # fp8 payloads are already uint8 bit views (npz headers
+                # only round-trip builtin numpy dtypes)
+                flat[f"a{i}"] = p
                 if s is not None:
                     flat[f"s{i}"] = s
         else:
@@ -720,16 +727,12 @@ class TieredStore:
                 self._structs[key] = struct
             scheme = bytes(z["__scheme__"]).decode() \
                 if "__scheme__" in files else "fp32"
-            if scheme == "fp8" and _FP8_DTYPE is None:
-                return None     # pragma: no cover - fp8 file, no ml_dtypes
             n = sum(1 for f in files if f.startswith("a"))
             leaves: List[np.ndarray] = []
             scales: List[Optional[np.ndarray]] = []
             for i in range(n):
                 p = z[f"a{i}"]
                 s = z[f"s{i}"] if f"s{i}" in files else None
-                if s is not None and scheme == "fp8":
-                    p = p.view(_FP8_DTYPE)
                 leaves.append(p)
                 scales.append(s)
         if scheme == "fp32":

@@ -51,6 +51,12 @@ inline float4 make_float4(float x, float y, float z, float w) {
   return float4{x, y, z, w};
 }
 
+// IEEE single operations rounded one by one (the host compiler, in ISO
+// C++ mode, does not contract them)
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+
 struct __nv_bfloat16 { uint16_t x; };
 inline float __bfloat162float(__nv_bfloat16 b) {
   uint32_t u = (uint32_t)b.x << 16;

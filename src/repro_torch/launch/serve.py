@@ -1,14 +1,26 @@
-"""Serving launcher of the port, batch replay: generate a synthetic RAG
-workload, run it through the engine with continuous batching, print
-per-request and aggregate stats::
+"""Serving launcher of the port: batch replay or a live HTTP server.
+
+Batch replay (default): generate a synthetic RAG workload, run it through
+the engine with continuous batching, print per-request and aggregate
+stats::
 
     python -m repro_torch.launch.serve --requests 24 --qpm 240
     python -m repro_torch.launch.serve --full --attn-impl kernel  # H100
 
+Online serving (``--serve``): the engine on a background stepping thread
+behind the stdlib HTTP API of ``serving/server.py`` (routes, threading
+contract and ``ServeClient`` there)::
+
+    python -m repro_torch.launch.serve --serve --full --attn-impl kernel \
+        --port 8763
+    curl -s localhost:8763/v1/submit -d '{"system_tokens": [1,2,3],
+        "chunk_tokens": [[4,5,6],[7,8]], "question_tokens": [9,10],
+        "max_new_tokens": 8}'                      # -> {"rid": 0}
+    curl -sN localhost:8763/v1/stream/0            # NDJSON tokens
+    curl -s localhost:8763/stats
+
 Runs on the GPU unless ``--device cpu``. ``--full`` serves the full-size
 config (random weights from ``--seed``); the default is the tiny one.
-The HTTP front end (``--serve``) waits for the port of
-``serving/server.py`` (ROADMAP A6).
 """
 from __future__ import annotations
 
@@ -54,6 +66,10 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--tenants", default=None,
                     help='mixed-tenant trace, e.g. "gold:3:2.0,free:1:8.0" '
                          "(name:weight:deadline_s)")
+    ap.add_argument("--serve", action="store_true",
+                    help="run the HTTP server instead of batch replay")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8763)
     return ap
 
 
@@ -71,6 +87,20 @@ def main(argv=None):
     args = make_parser().parse_args(argv)
     spec = EngineSpec.from_args(args)
     eng = build_engine(spec)
+    if args.serve:
+        from repro_torch.serving.server import CacheCraftServer
+        srv = CacheCraftServer(eng, host=args.host, port=args.port).start()
+        print(f"serving {args.arch}{'' if args.full else ' (tiny)'} "
+              f"strategy={spec.strategy} on {eng.device} at {srv.url}")
+        print("routes: POST /v1/submit | GET /v1/stream/<rid> | "
+              "POST /v1/cancel/<rid> | GET /health | GET /stats")
+        try:
+            while True:
+                time.sleep(3600)
+        except KeyboardInterrupt:
+            print("\nshutting down...")
+            srv.shutdown()
+        return None
     kb = KnowledgeBase(num_chunks=args.kb_chunks,
                        vocab_size=eng.cfg.vocab_size, seed=args.seed)
     reqs = generate(kb, WorkloadConfig(

@@ -482,7 +482,7 @@ class Engine:
             if kv is None:
                 return None
             span = np.arange(start, start + length, dtype=np.int32)
-            k, v = inject_chunk_kv(self.cfg, kv, span)
+            k, v = inject_chunk_kv(self.cfg, kv, span, device=self.device)
             return k, v, span
         return load
 

@@ -29,12 +29,15 @@ def test_port_imports_no_jax_and_no_reference():
             importlib.import_module(n)
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
-                     or m == "repro" or m.startswith("repro."))
+                     or m == "repro" or m.startswith("repro.")
+                     or m == "ml_dtypes")
         assert not bad, bad
         for must in ("repro_torch.core.prefill", "repro_torch.serving.engine",
                      "repro_torch.kernels.chunk_attention.ops",
                      "repro_torch.kernels.decode_attention.ops",
                      "repro_torch.kernels.ssd.ops",
+                     "repro_torch.kernels.rope.ops",
+                     "repro_torch.serving.server",
                      "repro_torch.training.steps",
                      "repro_torch.launch.serve"):
             assert must in sys.modules, must

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels.chunk_attention import ops as cops
 from repro_torch.kernels.decode_attention import ops as dops
+from repro_torch.kernels.rope import ops as rops
 from repro_torch.kernels.ssd import ops as sops
 from repro_torch.models import layers as TL
 
@@ -35,6 +36,10 @@ PAGED_CASES = [(2, 8, 4, 4, 2, 32, 0), (3, 12, 8, 8, 2, 32, 0),
 # lengths 1 and 7 (ssd_chunked hands the kernel any L <= chunk)
 SSD_CASES = [(1, 8, 2, 16, 8), (3, 16, 4, 32, 16), (2, 32, 2, 64, 32),
              (2, 1, 2, 16, 8), (3, 7, 2, 16, 8)]
+# T, H, D, theta: the three shapes of tests/test_kernels.py, then an odd T
+# with D/2 not a multiple of 4 (one element per thread)
+ROPE_CASES = [(32, 4, 32, 1e4), (50, 2, 64, 5e5), (128, 8, 128, 1e6),
+              (7, 3, 10, 1e4)]
 
 
 def _np(x):
@@ -49,6 +54,7 @@ def counts():
     dops.decode_attention.launches = 0
     dops.paged_decode_attention.launches = 0
     sops.ssd_intra.launches = 0
+    rops.rope.launches = 0
 
 
 def _need_cuda():
@@ -122,6 +128,14 @@ def _paged_inputs(seed, B, NB, bs, H, Hkv, D):
         rows[b, :n] = rng.choice(NB, size=n, replace=False)
     qpos = rng.integers(1, 64, B).astype(np.int32)
     return q, kb, vb, kpos, rows, qpos
+
+
+def _rope_inputs(seed, T, H, D, lead=()):
+    """x [.., T, H, D] fp32 and int32 positions [.., T] up to 10,000."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=lead + (T, H, D)).astype(np.float32)
+    pos = rng.integers(0, 10_000, lead + (T,)).astype(np.int32)
+    return x, pos
 
 
 def _ssd_inputs(seed, nC, L, H, P, N, batch=0):
@@ -275,3 +289,72 @@ def test_ssd_chunked_cuda_vs_cpu(counts):
     assert sops.ssd_intra.launches == 1
     for a, b in zip(*outs):
         np.testing.assert_allclose(_np(b), _np(a), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T,H,D,theta", ROPE_CASES)
+def test_rope_cuda_kernel_vs_plain(counts, T, H, D, theta, dtype):
+    dev = _need_cuda()
+    dt = getattr(torch, dtype)
+    tol = F32 if dt == torch.float32 else BF16
+    x, pos = _rope_inputs(T * D, T, H, D)
+    for inverse in (False, True):
+        o = rops.rope(*_t(x, pos, device=dev, dtype=dt), theta=theta,
+                      inverse=inverse)
+        r = rops.rope(*_t(x, pos, dtype=dt), theta=theta, inverse=inverse)
+        assert o.dtype == dt
+        np.testing.assert_allclose(_np(o), _np(r), **tol)
+    torch.cuda.synchronize()
+    assert rops.rope.launches == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared_pos", [False, True])
+def test_rope_cuda_batched_form_never_reaches_plain(monkeypatch, counts,
+                                                    shared_pos):
+    """[B,T,H,D] with pos [B,T] or a shared pos [T] is one launch; the
+    plain version is never called for CUDA tensors."""
+    dev = _need_cuda()
+    x, pos = _rope_inputs(9, 20, 2, 32, lead=(3,))
+    if shared_pos:
+        pos = pos[0]
+    r = rops.rope(*_t(x, pos), theta=1e4)
+
+    def boom(*a, **k):
+        raise AssertionError("plain version reached with CUDA tensors")
+    monkeypatch.setattr(rops, "rope_ref", boom)
+    o = rops.rope(*_t(x, pos, device=dev), theta=1e4)
+    torch.cuda.synchronize()
+    assert rops.rope.launches == 1 and tuple(o.shape) == x.shape
+    np.testing.assert_allclose(_np(o), _np(r), **F32)
+
+
+@pytest.mark.cuda
+def test_rope_cuda_wrapper_raises():
+    dev = _need_cuda()
+    x, pos = _rope_inputs(2, 16, 2, 32)
+    tx, tp = _t(x, pos, device=dev)
+    with pytest.raises(ValueError, match="pos on cpu"):
+        rops.rope(tx, torch.from_numpy(pos), theta=1e4)
+    with pytest.raises(TypeError):
+        rops.rope(tx, tp.long(), theta=1e4)
+    with pytest.raises(ValueError, match="contiguous"):
+        rops.rope(tx.transpose(0, 1), tp[:2], theta=1e4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inverse", [False, True])
+def test_rope_cuda_whole_stack_equals_per_layer(counts, inverse):
+    """K of a chunk over all layers [L, n, Hkv, D] in one call == L calls
+    on [1, n, Hkv, D], byte for byte (the executor's streamed == eager
+    contract: streamed loads re-rope one layer at a time)."""
+    dev = _need_cuda()
+    x, pos = _rope_inputs(3, 48, 8, 128, lead=(6,))
+    tx, tp = _t(x, pos[0], device=dev)
+    whole = rops.rope(tx, tp, theta=5e5, inverse=inverse)
+    layers = torch.cat([rops.rope(tx[l:l + 1].contiguous(), tp, theta=5e5,
+                                  inverse=inverse) for l in range(6)])
+    torch.cuda.synchronize()
+    assert torch.equal(whole, layers)
+    assert rops.rope.launches == 7

@@ -4,8 +4,9 @@ per CUDA thread, real barriers and warp shuffles) and held against the
 plain versions at 3e-5 on the parametrisations of ``tests/test_kernels.py``.
 
 This checks the sources' indexing, masking, padding, tile skipping and
-online-softmax logic, and the SSD block's row tiling and causal skip,
-on a host without a GPU; the card itself checks what
+online-softmax logic, the SSD block's row tiling and causal skip, and
+the RoPE kernel's vector lanes and shared positions, on a host without a
+GPU; the card itself checks what
 ``nvcc`` makes of them (``chip_smoke.py``)."""
 import ctypes
 import os
@@ -22,8 +23,10 @@ from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref,
     paged_decode_attention_ref,
 )
+from repro_torch.kernels.rope.ref import rope_ref
 from repro_torch.kernels.ssd.ref import ssd_intra_ref
-from test_torch_kernels_cuda import SSD_CASES, _ssd_inputs
+from repro_torch.models.layers import _inv_freq
+from test_torch_kernels_cuda import SSD_CASES, _rope_inputs, _ssd_inputs
 
 torch.set_num_threads(2)
 EMU = os.path.join(os.path.dirname(build.__file__), "emu")
@@ -62,9 +65,12 @@ def libs(tmp_path_factory):
     fs = loaded["ssd"].ssd_intra_fwd
     fs.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
         [ctypes.c_void_p]
-    for f in (fc, fd, fp, fs):
+    fr = loaded["rope"].rope_fwd
+    fr.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
+        [ctypes.c_void_p]
+    for f in (fc, fd, fp, fs, fr):
         f.restype = ctypes.c_int
-    return fc, fd, fp, fs
+    return fc, fd, fp, fs, fr
 
 
 def _t(x, dtype=None):
@@ -213,3 +219,48 @@ def test_ssd_source_row_blocks_and_padding(libs):
     yr, sr = ssd_intra_ref(*ins)
     torch.testing.assert_close(y, yr, **F32)
     torch.testing.assert_close(st, sr, **F32)
+
+
+def _rope(fr, x, pos, theta, inverse):
+    """x [N,H,D] and pos [P] (row t reads pos[t % P]) through the
+    emulated kernel."""
+    N, H, D = x.shape
+    freqs = _t(_inv_freq(D, theta).astype(np.float32))
+    out = torch.empty_like(x)
+    assert fr(x.data_ptr(), pos.data_ptr(), freqs.data_ptr(),
+              out.data_ptr(), N, H, D, pos.numel(), int(inverse),
+              int(x.dtype == torch.bfloat16), None) == 0
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("T", [1, 7, 70])
+def test_rope_source_vs_plain(libs, T, D, dtype):
+    """Odd T (the tail of a 256-thread block), D/2 a multiple of 4 (the
+    4-wide vector lanes), fp32 at 3e-5 and bf16 at 3e-2 (both versions
+    compute in fp32 and round once to bf16)."""
+    dt = getattr(torch, dtype)
+    tol = F32 if dtype == "float32" else dict(rtol=3e-2, atol=3e-2)
+    x, pos = _rope_inputs(T * D, T, 3, D)
+    x = _t(x, dt)
+    pos = _t(pos)
+    for inverse in (False, True):
+        out = _rope(libs[4], x, pos, 5e5, inverse)
+        assert out.dtype == dt
+        torch.testing.assert_close(
+            out.float(), rope_ref(x, pos, theta=5e5,
+                                  inverse=inverse).float(), **tol)
+
+
+def test_rope_source_scalar_lanes_and_shared_positions(libs):
+    """D 10 (D/2 = 5, not a multiple of 4: one element per thread) and a
+    batch of 3 rows sharing one position vector (P = T < N): row t reads
+    pos[t % P], as ``ops.rope`` folds ``[B,T,H,D]`` with ``pos [T]``."""
+    B, T, H, D = 3, 9, 2, 10
+    x, pos = _rope_inputs(11, B * T, H, D)
+    x = _t(x)
+    pos = _t(pos[:T])
+    out = _rope(libs[4], x, pos, 1e4, False)
+    ref = rope_ref(x, pos.repeat(B), theta=1e4)
+    torch.testing.assert_close(out, ref, **F32)
