@@ -8,13 +8,21 @@ Phases (each prints its own line; any failure raises and exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from ``src/repro_torch/kernels/*/csrc`` (one
-   ``nvcc`` per source, all at once) and print the build seconds;
+   ``nvcc`` per source, all at once) and print the build seconds, the
+   registers ``ptxas`` reports, and the chunk kernel's shared memory and
+   resident CTAs per SM (at least 2 required);
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, in fp32 (tolerance 3e-5, the reference's) and
    bf16 (3e-2), and time kernel, plain version and, where one exists,
    one PyTorch library call (``scaled_dot_product_attention`` with the
    same boolean mask, a yardstick only) with CUDA events; compute each
-   kernel's bound from the bytes and operations these inputs need. RoPE
+   kernel's bound from the bytes and operations these inputs need (the
+   chunk kernel's fp32 products as 3xTF32 at the TF32 rate, the CUDA-core
+   figure beside it). Two chunk launches on the same inputs must give the
+   same bytes. The chunk kernel is measured again after engine A, on the
+   recorded inputs of A's most frequent ``(B, A, S)``, and timed at each
+   number of key ranges at the table's shape and every shape A launched,
+   beside the count ``num_splits`` picks (``sweep_chunk_splits``). RoPE
    is held at two shapes (K of one chunk over all layers, a 1024-token
    span), applying and removing, with one whole-stack call equal to one
    call per layer byte for byte and remove o apply within 2e-5 of x;
@@ -29,7 +37,7 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    ``cachecraft`` with a chunk store, ``attn_impl="kernel"``: chunk
    attention in the prefill windows, decode attention over the arena,
    the RoPE kernel removing RoPE from every stored chunk and re-applying
-   it to every reused one;
+   it to every reused one; logs the chunk calls by ``(B, A, S)``;
 6. engine B: the same weights and workload with ``paged_decode=True,
    attn_impl="paged_kernel"``: the paged kernel reads the pool in place;
 7. engine C: the same with ``attn_impl="dense"`` (plain PyTorch
@@ -49,6 +57,8 @@ script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
+import ctypes
 import gc
 import json
 import os
@@ -61,9 +71,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and the rate
-# for each operand type (fp32 outside the tensor cores; bf16 tensor core)
+# for each operand type (fp32 outside the tensor cores; bf16 and tf32 on
+# the tensor cores)
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
+# the chunk kernel's fp32 products run as 3xTF32: three TF32 products for
+# each fp32 product, so its fp32 bound counts 3x the operations at the
+# TF32 rate (the CUDA-core figure is kept beside it)
+TF32_PASSES = 3
 TOL = {"float32": 3e-5, "bfloat16": 3e-2}
 # A/B vs C decode logits: fp32 attention summed in another order (online
 # softmax over 64-key tiles vs one dense softmax), carried through 32
@@ -110,9 +125,10 @@ def bound(nbytes, flops, dtype):
 # phase 3: kernels vs plain versions at the main path's shapes
 # ---------------------------------------------------------------------------
 def chunk_inputs(rng, dev):
-    """A 256 query rows x S 1024 keys, H 32 / Hkv 8 / D 128, C 16: two
-    packed requests (segments 0 / 1, request-local positions), padding
-    rows and slots (pos -1 / seg -1) as the executor lays them out."""
+    """The kernel table's shape: A 256 query rows x S 1024 keys, H 32 / Hkv 8 /
+    D 128, C 16: two packed requests (segments 0 / 1, request-local
+    positions), padding rows and slots (pos -1 / seg -1) as the executor
+    lays them out."""
     import numpy as np
     import torch
     A, S, H, Hkv, D, C = 256, 1024, 32, 8, 128, 16
@@ -137,7 +153,184 @@ def chunk_inputs(rng, dev):
     i = lambda x: torch.from_numpy(x)[None].to(dev)  # noqa: E731
     return dict(q=f(1, A, H, D), k=f(1, S, Hkv, D), v=f(1, S, Hkv, D),
                 q_pos=i(qpos), k_pos=i(kpos), k_chunk=i(kch), q_seg=i(qseg),
-                k_seg=i(kseg), C=C)
+                k_seg=i(kseg), C=C, window=0)
+
+
+def measure_chunk(label, ci):
+    """chunk_attention on ``ci`` (batched tensors as the wrapper takes
+    them, fp32, plus ``C`` and ``window``) in fp32 and bf16: error against
+    the plain version (per batch row), two launches byte for byte, kernel /
+    plain / SDPA times and the bound from the pairs these inputs mask in.
+    The fp32 bound counts the 3xTF32 products at the TF32 rate; the
+    CUDA-core bound (fp32 at 67 TFLOP/s) is kept beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.chunk_attention import ops as cops
+    from repro_torch.kernels.chunk_attention.ref import chunk_attention_ref
+
+    C, window = ci["C"], ci["window"]
+    B, A, H, D = ci["q"].shape
+    S, Hkv = ci["k"].shape[1:3]
+    qp, kp = ci["q_pos"], ci["k_pos"]
+    mask = (qp[:, :, None] >= kp[:, None]) & (qp[:, :, None] >= 0) & \
+        (kp[:, None] >= 0) & (ci["q_seg"][:, :, None] == ci["k_seg"][:, None])
+    if window:
+        mask &= (qp[:, :, None] - kp[:, None]) < window
+    n_pairs = int(mask.sum())
+    flops = 4 * D * H * n_pairs
+    res = {}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        x = {n: (t.to(dt) if t.is_floating_point() else t)
+             for n, t in ci.items() if isinstance(t, torch.Tensor)}
+        args = (x["q"], x["k"], x["v"], x["q_pos"], x["k_pos"], x["k_chunk"])
+        kw = dict(q_seg=x["q_seg"], k_seg=x["k_seg"], num_chunks=C,
+                  window=window)
+        o, m = cops.chunk_attention(*args, **kw)
+        o2, m2 = cops.chunk_attention(*args, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(o, o2) and torch.equal(m, m2)):
+            raise RuntimeError(f"chunk_attention {label} {dt_name}: two "
+                               "launches on the same inputs differ")
+
+        def plain():
+            return [chunk_attention_ref(
+                x["q"][b], x["k"][b], x["v"][b], x["q_pos"][b],
+                x["k_pos"][b], x["k_chunk"][b], num_chunks=C, window=window,
+                q_seg=x["q_seg"][b], k_seg=x["k_seg"][b]) for b in range(B)]
+        e = 0.0
+        for b, (orf, mrf) in enumerate(plain()):
+            e = max(e, float((o[b].float() - orf.float()).abs().max()),
+                    float((m[b] - mrf).abs().max()))
+        if not (e <= TOL[dt_name] and torch.isfinite(o).all()):
+            raise RuntimeError(f"chunk_attention {label} {dt_name}: max abs "
+                               f"err {e} > {TOL[dt_name]}")
+        qh = x["q"].transpose(1, 2).contiguous()           # [B, H, A, D]
+        kh = x["k"].transpose(1, 2).contiguous()
+        vh = x["v"].transpose(1, 2).contiguous()
+        t_k = cuda_ms(lambda: cops.chunk_attention(*args, **kw))
+        t_p = cuda_ms(plain, iters=5)
+        t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask[:, None], enable_gqa=True))
+        el = x["q"].element_size()
+        nbytes = B * ((2 * A * H * D + 2 * S * Hkv * D) * el
+                      + 4 * (2 * A + 3 * S) + 4 * A * C)
+        if dt_name == "float32":
+            b_ms, b_by = bound(nbytes, TF32_PASSES * flops, "tf32")
+            cc_ms, cc_by = bound(nbytes, flops, "float32")
+            note = (f" (3xTF32 at 495 TFLOP/s; CUDA cores: {cc_ms:.4f} "
+                    f"{cc_by})")
+        else:
+            b_ms, b_by = bound(nbytes, flops, dt_name)
+            cc_ms, note = None, ""
+        res[dt_name] = dict(err=e, ms=t_k, plain_ms=t_p, library_ms=t_l,
+                            bound_ms=b_ms, bound_by=b_by,
+                            bound_ms_cuda_cores=cc_ms)
+        log(f"kernel chunk_attention {label} {dt_name} B={B} A={A} S={S} "
+            f"H={H} Hkv={Hkv} D={D} C={C} splits="
+            f"{cops.num_splits(B, A, S, H, Hkv, dt)} pairs={n_pairs}: "
+            f"max_abs_err={e:.3e} (tol {TOL[dt_name]}) two launches "
+            f"bit-identical ms={t_k:.4f} plain_ms={t_p:.4f} "
+            f"library_ms={t_l:.4f} bound_ms={b_ms:.4f} ({b_by}){note} "
+            f"share={b_ms / t_k:.1%}")
+    return res
+
+
+def sweep_chunk_splits(inputs, splits=(1, 2, 3, 4, 6, 8, 12, 16)):
+    """Times the chunk kernel on each of ``inputs`` (label -> batched
+    inputs as ``measure_chunk`` takes them) in fp32 and bf16 at each
+    number of key ranges that gives whole, non-empty ranges, through the
+    wrapper with ``num_splits`` held at that count, and prints the count
+    ``num_splits`` picks beside the fastest. Each forced split is held
+    against the plain version. Returns {label: {dtype: {...}}}."""
+    import torch
+
+    from repro_torch.kernels.chunk_attention import ops as cops
+    from repro_torch.kernels.chunk_attention.ref import chunk_attention_ref
+
+    rule = cops.num_splits
+    res = {}
+    try:
+        for label, ci in inputs.items():
+            C, window = ci["C"], ci["window"]
+            B, A, H, D = ci["q"].shape
+            S, Hkv = ci["k"].shape[1:3]
+            for dt_name in ("float32", "bfloat16"):
+                dt = getattr(torch, dt_name)
+                x = {n: (t.to(dt) if t.is_floating_point() else t)
+                     for n, t in ci.items() if isinstance(t, torch.Tensor)}
+                args = (x["q"], x["k"], x["v"], x["q_pos"], x["k_pos"],
+                        x["k_chunk"])
+                kw = dict(q_seg=x["q_seg"], k_seg=x["k_seg"], num_chunks=C,
+                          window=window)
+                ref = [chunk_attention_ref(
+                    x["q"][b], x["k"][b], x["v"][b], x["q_pos"][b],
+                    x["k_pos"][b], x["k_chunk"][b], num_chunks=C,
+                    window=window, q_seg=x["q_seg"][b], k_seg=x["k_seg"][b])
+                    for b in range(B)]
+                tiles = -(-S // cops._BK[dt])
+                pick = rule(B, A, S, H, Hkv, dt)
+                # the counts the kernel takes: tiles split into ranges of
+                # ceil(tiles / n), none empty
+                counts = sorted({-(-tiles // -(-tiles // n))
+                                 for n in splits if n <= tiles} | {pick})
+                ms = {}
+                for n in counts:
+                    cops.num_splits = lambda *a, n=n: n  # noqa: E731
+                    o, m = cops.chunk_attention(*args, **kw)
+                    torch.cuda.synchronize()
+                    e = max(max(float((o[b].float() - orf.float()).abs()
+                                      .max()),
+                                float((m[b] - mrf).abs().max()))
+                            for b, (orf, mrf) in enumerate(ref))
+                    if not e <= TOL[dt_name]:
+                        raise RuntimeError(
+                            f"chunk_attention {label} {dt_name} with {n} "
+                            f"key ranges: max abs err {e} > {TOL[dt_name]}")
+                    ms[n] = cuda_ms(lambda: cops.chunk_attention(*args,
+                                                                 **kw))
+                cops.num_splits = rule
+                best = min(ms, key=ms.get)
+                res.setdefault(label, {})[dt_name] = dict(
+                    rule=pick, best=best, ms=ms)
+                log(f"chunk split sweep {label} {dt_name}: num_splits "
+                    f"picks {pick} ({ms[pick]:.4f} ms), fastest {best} "
+                    f"({ms[best]:.4f} ms); ms by ranges " + " ".join(
+                        f"{n}:{t:.4f}" for n, t in ms.items()))
+    finally:
+        cops.num_splits = rule
+    return res
+
+
+class ChunkRecorder:
+    """Wraps the chunk wrapper's launch during a run: counts the calls by
+    (B, A, S) and keeps a copy of the first call's inputs for each, so the
+    path's own shapes and data can be replayed after the run."""
+
+    def __init__(self, cops):
+        self.cops, self.orig, self.calls = cops, cops._launch, {}
+        self.shapes = collections.Counter()
+
+    def __enter__(self):
+        def rec(q, k, v, q_pos, k_pos, k_chunk, q_seg, k_seg, num_chunks,
+                window):
+            key = (q.shape[0], q.shape[1], k.shape[1])
+            self.shapes[key] += 1
+            if key not in self.calls:
+                self.calls[key] = dict(
+                    q=q.float().clone(), k=k.float().clone(),
+                    v=v.float().clone(), q_pos=q_pos.clone(),
+                    k_pos=k_pos.clone(), k_chunk=k_chunk.clone(),
+                    q_seg=q_seg.clone(), k_seg=k_seg.clone(), C=num_chunks,
+                    window=int(window))
+            return self.orig(q, k, v, q_pos, k_pos, k_chunk, q_seg, k_seg,
+                             num_chunks, window)
+        self.cops._launch = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.cops._launch = self.orig
 
 
 def decode_inputs(rng, dev):
@@ -197,8 +390,6 @@ def check_kernels(dev):
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.chunk_attention import ops as cops
-    from repro_torch.kernels.chunk_attention.ref import chunk_attention_ref
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_ref, paged_decode_attention_ref)
@@ -213,52 +404,8 @@ def check_kernels(dev):
     def err(a, b):
         return float((a.float() - b.float()).abs().max())
 
-    # ---- chunk attention ----
-    ci = chunk_inputs(rng, dev)
-    C = ci["C"]
-    qp, kp = ci["q_pos"][0], ci["k_pos"][0]
-    mask = (qp[:, None] >= kp[None]) & (qp[:, None] >= 0) & \
-        (kp[None] >= 0) & (ci["q_seg"][0][:, None] == ci["k_seg"][0][None])
-    n_pairs = int(mask.sum())
-    A, H, D = ci["q"].shape[1:]
-    S, Hkv = ci["k"].shape[1:3]
-    res = {}
-    for dt_name in ("float32", "bfloat16"):
-        x = cast(ci, getattr(torch, dt_name))
-        args = (x["q"], x["k"], x["v"], x["q_pos"], x["k_pos"], x["k_chunk"])
-        kw = dict(q_seg=x["q_seg"], k_seg=x["k_seg"], num_chunks=C)
-        o, m = cops.chunk_attention(*args, **kw)
-        torch.cuda.synchronize()
-
-        def plain():
-            return chunk_attention_ref(
-                x["q"][0], x["k"][0], x["v"][0], x["q_pos"][0],
-                x["k_pos"][0], x["k_chunk"][0], num_chunks=C,
-                q_seg=x["q_seg"][0], k_seg=x["k_seg"][0])
-        orf, mrf = plain()
-        e = max(err(o[0], orf), err(m[0], mrf))
-        if not (e <= TOL[dt_name] and torch.isfinite(o).all()):
-            raise RuntimeError(f"chunk_attention {dt_name}: max abs err "
-                               f"{e} > {TOL[dt_name]}")
-        qh = x["q"].transpose(1, 2)                    # [1, H, A, D]
-        kh = x["k"].transpose(1, 2).contiguous()
-        vh = x["v"].transpose(1, 2).contiguous()
-        qh = qh.contiguous()
-        t_k = cuda_ms(lambda: cops.chunk_attention(*args, **kw))
-        t_p = cuda_ms(plain, iters=5)
-        t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask, enable_gqa=True))
-        el = x["q"].element_size()
-        nbytes = (2 * A * H * D + 2 * S * Hkv * D) * el + \
-            4 * (2 * A + 3 * S) + 4 * A * C
-        b_ms, b_by = bound(nbytes, 4 * D * H * n_pairs, dt_name)
-        res[dt_name] = dict(err=e, ms=t_k, plain_ms=t_p, library_ms=t_l,
-                            bound_ms=b_ms, bound_by=b_by)
-        log(f"kernel chunk_attention {dt_name} A={A} S={S} H={H} Hkv={Hkv} "
-            f"D={D} C={C} pairs={n_pairs}: max_abs_err={e:.3e} "
-            f"(tol {TOL[dt_name]}) ms={t_k:.4f} plain_ms={t_p:.4f} "
-            f"library_ms={t_l:.4f} bound_ms={b_ms:.4f} ({b_by})")
-    rows["chunk_attention"] = res
+    # ---- chunk attention, at the kernel table's shape ----
+    rows["chunk_attention"] = measure_chunk("table", chunk_inputs(rng, dev))
 
     # ---- decode attention ----
     di = decode_inputs(rng, dev)
@@ -935,6 +1082,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, SRC)
 
+    import numpy as np
+
     from repro_torch import device as devmod
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
@@ -966,6 +1115,21 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.2f}s wall, per kernel "
         + json.dumps({n: round(r["seconds"], 2) for n, r in blog.items()})
         + " ptxas " + json.dumps(regs))
+    # the chunk kernel's resources per CTA at llama3-8b's D 128, C 16
+    clib = build.load("chunk_attention")
+    clib.chunk_attention_smem_bytes.restype = ctypes.c_longlong
+    # D 128, C 16, a key range of 32 tiles (S 1024 in fp32, 2048 in bf16)
+    occ = {dt: dict(
+        smem_bytes=clib.chunk_attention_smem_bytes(128, 16, bf, 32),
+        ctas_per_sm=clib.chunk_attention_occupancy(128, 16, bf, 32))
+        for dt, bf in (("float32", 0), ("bfloat16", 1))}
+    log("chunk_attention D=128 C=16 per CTA: " + json.dumps(occ)
+        + "; ptxas:\n  " + "\n  ".join(
+            ln.strip() for ln in blog["chunk_attention"]["log"].splitlines()
+            if "Used" in ln or "Compiling entry" in ln or "spill" in ln))
+    if min(o["ctas_per_sm"] for o in occ.values()) < 2:
+        raise RuntimeError(f"chunk_attention: fewer than 2 CTAs per SM: "
+                           f"{occ}")
 
     # phase 3: kernels vs plain versions
     krows = check_kernels(dev)
@@ -1004,9 +1168,14 @@ def main() -> int:
         dops.decode_attention.launches = 0
         dops.paged_decode_attention.launches = 0
         rops.rope.launches = 0
-        engines["A"], tr_a, tok_a, plan_a, c_a = run_engine(
-            "A", cfg, params, tmp, attn_impl="kernel")
+        with ChunkRecorder(cops) as chunk_calls:
+            engines["A"], tr_a, tok_a, plan_a, c_a = run_engine(
+                "A", cfg, params, tmp, attn_impl="kernel")
         launches["chunk_attention"] = cops.chunk_attention.launches
+        hist = sorted(chunk_calls.shapes.items(),
+                      key=lambda kv: (-kv[1], -kv[0][1] * kv[0][2]))
+        log("engine A chunk_attention calls by (B, A, S): " + ", ".join(
+            f"{k}: {n}" for k, n in hist))
         launches["decode_attention"] = dops.decode_attention.launches
         # de-rope of every stored miss, re-rope of every injected hit and
         # every zero-copy pool-run load
@@ -1030,6 +1199,17 @@ def main() -> int:
 
         # phase 8: the HTTP server around a fresh kernel engine
         served = run_server(cfg, params, tmp, tok_a)
+    # chunk_attention at the path's most frequent shape, on the inputs of
+    # engine A's first call of that shape
+    path_shape = hist[0][0]
+    path_rows = measure_chunk(f"path{list(path_shape)}",
+                              chunk_calls.calls[path_shape])
+    # the key-split rule against the other counts, at the table's shape
+    # and every shape engine A launched (not counted as path launches)
+    sweep_chunk_splits(
+        {"table": chunk_inputs(np.random.default_rng(0), dev)}
+        | {f"path{list(k)}": chunk_calls.calls[k] for k, _ in hist})
+    del chunk_calls
     log(f"launches on the main path: {json.dumps(launches)}")
     for name, n in launches.items():
         if n <= 0:
@@ -1071,6 +1251,22 @@ def main() -> int:
             max_abs_err_bf16=b16["err"], ms_bf16=b16["ms"],
             plain_ms_bf16=b16["plain_ms"], bound_ms_bf16=b16["bound_ms"],
             library_ms_bf16=b16["library_ms"]))
+    # chunk_attention's row is at the kernel table's shape; the path's most
+    # frequent shape and the fp32 CUDA-core bound beside it
+    kernels[0]["shape"] = ("table: B 1, A 256, S 1024, H 32/8, D 128, C 16; "
+                           f"path: (B, A, S) {list(path_shape)}")
+    kernels[0]["bound_note"] = ("fp32 operations counted as 3xTF32: three "
+                                "TF32 products per fp32 product at 495 "
+                                "TFLOP/s")
+    kernels[0]["bound_ms_cuda_cores"] = \
+        krows["chunk_attention"]["float32"]["bound_ms_cuda_cores"]
+    for dt, sfx in (("float32", ""), ("bfloat16", "_bf16")):
+        r = path_rows[dt]
+        kernels[0].update({f"max_abs_err_path{sfx}": r["err"],
+                           f"ms_path{sfx}": r["ms"],
+                           f"plain_ms_path{sfx}": r["plain_ms"],
+                           f"library_ms_path{sfx}": r["library_ms"],
+                           f"bound_ms_path{sfx}": r["bound_ms"]})
     # rope's row is at the path's shape; the 1024-token span beside it
     kernels[-1]["shape"] = "[32, 48, 8, 128]; span1024 [32, 1024, 8, 128]"
     kernels[-1]["host_ms"] = rope_rows["path"]["float32"]["host_ms"]

@@ -155,7 +155,7 @@ def paged_sync_fn(cfg):
 # ---------------------------------------------------------------------------
 # cache packing: engine-side per-layer numpy KV <-> model stacked cache
 # ---------------------------------------------------------------------------
-def pack_cache(cfg: ModelConfig, k_np, v_np, pos_np, device="cpu"):
+def pack_cache(cfg: ModelConfig, k_np, v_np, pos_np, device):
     """k/v [L,S,Hkv,D] numpy, pos [S] -> model cache (B=1) on ``device``."""
     P, G = len(cfg.pattern), cfg.n_groups
     k = _t(np.asarray(k_np, np.float32), device)

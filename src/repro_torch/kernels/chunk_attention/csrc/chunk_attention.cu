@@ -12,33 +12,57 @@
 //   mask(a,s)   = q_pos[a] >= k_pos[s] >= 0, q_seg[a] == k_seg[s],
 //                 and q_pos[a] - k_pos[s] < window when window > 0.
 // Rows past A read as q_pos -1 / q_seg -1 and keys past S as k_pos -1 /
-// k_seg -2 / chunk C-1 (the reference wrapper's padding, ops.py:50-59), so
-// the ragged edges need no padded copies. The running max is clamped at
-// NEG_INF/2 and the denominator at 1e-30 (kernel.py:72, :87): a fully
-// masked row gives 0 output and 0 mass.
+// k_seg -2 / chunk C-1 (the reference wrapper's padding), so the ragged
+// edges need no padded copies. The running max is clamped at NEG_INF/2
+// and the denominator at 1e-30 (kernel.py:72, :87): a fully masked row
+// gives 0 output and 0 mass.
 //
-// What bounds it on the H100: at the main path's shapes (A ~ S ~ 10^3,
-// H 32, D 128) the score and PV products are ~4*A*S*H*D flops against
-// ~(A*H + 2*S*Hkv)*D elements read, so it is bound by arithmetic. This
-// first version does the products on the fp32 CUDA cores (67 TFLOP/s
-// peak), not the tensor cores, so fp32 results stay IEEE (no TF32).
+// What bounds it on the H100. At the serving path's shapes (A 160-768
+// query rows over S 224-1024 keys, H 32 / Hkv 8, D 128) a call is ~1
+// GFLOP of unmasked work and a few MB of K/V: bytes bound it at ~3 us in
+// bf16, 3xTF32 operations at ~6 us in fp32. The kernel stays far above
+// that because each warp walks its key tiles in sequence and there are
+// only ~A*H/16 warps (about one per SM sub-core): the time is set by the
+// instructions and latencies of one tile step, by load-then-compute
+// serialisation, and by how many SMs the grid fills.
 //
 // What the design does about that:
-//  * One CTA holds the G = H/Hkv query heads of BQ = 64/G query rows for
-//    one KV head (64 query vectors), so each K/V tile is read from device
-//    memory once and used G times from shared memory.
-//  * 256 threads compute a 64x64 score tile as 4x4 register micro-tiles
-//    from shared memory padded to D+1 (conflict-free), and the PV product
-//    as 4 rows x 8 columns of the output accumulator held in registers.
-//  * A tile in which no (row, key) pair passes the mask is skipped before
-//    its K/V are loaded: packed multi-request prefill then costs the
-//    block-diagonal work, not the (sum A)(sum S) product. Skipping is
-//    exact: a fully masked tile leaves the online-softmax state unchanged.
-//  * The TPU kernel sums the mass across heads by revisiting one output
-//    block in its sequential grid; CTAs here run in no order, so each CTA
-//    writes a per-KV-head partial [B, Hkv, A, C] and a second kernel sums
-//    it over Hkv in fixed order: deterministic, no atomics.
-// Later work: wgmma on bf16 tiles, TMA loads, split-K over S.
+//  * Tensor cores through mma.sync. bf16: m16n8k16 with fp32 accumulation
+//    for Q.K^T and P.V, P rounded to bf16 for P.V as flash kernels do;
+//    ldmatrix (x4, and x4.trans for V) feeds the fragments. fp32: 3xTF32
+//    on m16n8k8 (x = big + small, each rounded to tf32 to nearest, ties
+//    away; big.big + big.small + small.big), which keeps fp32 accuracy
+//    (~2^-21 per product); there is no single-pass TF32 path. The two
+//    correction products accumulate apart from big.big, so a score tile
+//    has two dependent mma chains, not one. The chunk mass is a product
+//    too, mass += P . onehot(chunk): the one-hot matrix is exact in both
+//    types, and P enters as two terms (big + small) so the mass keeps fp32
+//    accuracy. Running max, sums and rescaling stay fp32 (exp2 of scores
+//    scaled by log2 e).
+//  * Registers, not shared memory, for S and P: each of the 4 warps owns
+//    16 query vectors; the Q.K^T accumulators become P in place and feed
+//    the P.V and mass products (the bf16 A fragment of P.V is the C
+//    fragment of Q.K^T; for tf32 the keys of a k-step are relabelled so
+//    that it is too). All 64 query vectors of a CTA belong to one KV head
+//    (G heads x 64/G rows), so each K/V tile is read once for G heads.
+//  * The exact tile skip runs once per CTA, before any K/V copy: a pass
+//    over the range's k_pos / k_seg against the CTA's 64/G distinct rows
+//    marks the tiles with a live (row, key) pair. The tile loop then
+//    copies only those, with cp.async into a ring of two stages: K/V rows
+//    in 16-byte copies and k_pos / k_seg / k_chunk in 4-byte copies, tile
+//    j+1 in flight while tile j is computed. Rows are padded by 16 bytes,
+//    which keeps every fragment load free of bank conflicts.
+//  * 64-key tiles in bf16 (87 KB of shared memory per CTA at D 128) and
+//    32-key tiles in fp32 (100 KB): two CTAs per SM either way.
+//  * A grid that fills the card: where query blocks x KV heads x batch
+//    give fewer CTAs than the dtype's target (3 x 132 in fp32, 132 in
+//    bf16; ops.num_splits, from the shapes alone), the keys are split into
+//    ranges. Each range writes partial (m, l, acc, mass) rows and a second
+//    kernel combines them, and the mass over heads, in a fixed order.
+//    Without a split the CTA normalises itself and the second kernel sums
+//    the per-KV-head mass. No atomics: the same inputs give the same bits
+//    on every launch.
+// Later work: wgmma with TMA-fed, warp-specialised stages.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -51,22 +75,76 @@ __device__ __forceinline__ unsigned char* dyn_smem() {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   return smem_raw;
 }
+// 16-byte asynchronous copy global -> shared; zero-fills when !pred
+__device__ __forceinline__ void cp_async_cg16(void* dst, const void* src,
+                                              bool pred) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// 4-byte asynchronous copy global -> shared; zero-fills when !pred
+__device__ __forceinline__ void cp_async_ca4(void* dst, const void* src,
+                                             bool pred) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+// four 8x8 b16 matrices from shared memory; lane i gives the address of
+// row i % 8 of matrix i / 8 and gets, per matrix, the pair (i / 4,
+// 2 (i % 4) .. +1); .trans: the pair (2 (i % 4) .. +1, i / 4)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* row) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* row) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+// d += a . b on one 16x8x8 tile (tf32 in, fp32 accumulate)
+__device__ __forceinline__ void mma_m16n8k8_tf32(float* d, const uint32_t* a,
+                                                 const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// d += a . b on one 16x8x16 tile (bf16 in, fp32 accumulate)
+__device__ __forceinline__ void mma_m16n8k16_bf16(float* d, const uint32_t* a,
+                                                  const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 #endif
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int NR = 64;        // query vectors (row x head) per CTA
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 256;  // 16 x 16 thread grid
-constexpr int RPT = 4;        // score / output rows per thread
-constexpr int CPT = BK / 16;  // score columns per thread
-constexpr int MAXE = 8;       // output columns per thread (D <= 128)
+constexpr int WARPS = 4;      // 16 query vectors each
+constexpr int THREADS = 32 * WARPS;
+constexpr int MAXC = 64;      // chunk-mass columns held in registers
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+template <typename T> struct IsBf16 { static constexpr bool v = false; };
+template <> struct IsBf16<__nv_bfloat16> { static constexpr bool v = true; };
+
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
@@ -74,6 +152,28 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// two bf16 in one register: lo in the low half (the lower k index)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
+}
+__device__ __forceinline__ uint32_t pack_u16(uint16_t lo, uint16_t hi) {
+  return (uint32_t)lo | ((uint32_t)hi << 16);
+}
+// fp32 -> tf32 (10 mantissa bits), round to nearest, ties away from zero:
+// the rounding of cvt.rna.tf32.f32 for finite x, in two integer
+// operations (the cvt instruction made the fp32 kernel 25% slower on the
+// H100). The result is an fp32 bit pattern with the 13 low bits zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+// x = big + small, both tf32 (3xTF32 operand split)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
 }
 
 struct ChunkParams {
@@ -86,223 +186,432 @@ struct ChunkParams {
   const int* qseg;     // [B, A]
   const int* kseg;     // [B, S]
   void* out;           // [B, A, H, D]
-  float* mass_part;    // [B, Hkv, A, C]
-  int B, A, S, H, Hkv, D, C, window;
+  float* work;         // nsplit 1: mass per KV head [B, Hkv, A, C];
+                       // else o [ns,B,A,H,D], m, l [ns,B,A,H], mass
+                       // [ns,B,A,H,C] (unnormalised partials)
+  int B, A, S, H, Hkv, D, C, window, nsplit, tiles_per_split;
   float scale;
 };
 
+// q_pos >= k_pos >= 0, same segment, inside the window; with qp >= 0,
+// kp in [0, qp] <=> (unsigned) kp <= (unsigned) qp
 __device__ __forceinline__ bool allowed(int qp, int qs, int kp, int ks,
                                         int window) {
-  bool ok = (qp >= kp) && (qp >= 0) && (kp >= 0) && (qs == ks);
-  if (window > 0) ok = ok && (qp - kp < window);
-  return ok;
+  return qp >= 0 && qs == ks && (unsigned)kp <= (unsigned)qp &&
+         (window <= 0 || qp - kp < window);
 }
 
+// keys per tile: 64 in bf16, 32 in fp32 (two stages of fp32 K/V at 64
+// keys would leave one CTA per SM)
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__host__ __device__ constexpr int keys_per_tile() {
+  return IsBf16<T>::v ? 64 : 32;
+}
+// shared-memory row stride in elements: D plus 16 bytes
+template <typename T, int D>
+__host__ __device__ constexpr int row_stride() {
+  return D + 16 / (int)sizeof(T);
+}
+
+template <typename T, int D>
+size_t smem_bytes(int C, int tiles_per_split) {
+  constexpr int RS = row_stride<T, D>(), BK = keys_per_tile<T>();
+  const size_t main = sizeof(T) * (size_t)(NR + 4 * BK) * RS +
+                      sizeof(int) * (6 * BK + 2 * NR + tiles_per_split);
+  const size_t epi = sizeof(float) * (size_t)NR * 8 * ((C + 7) / 8);
+  return main > epi ? main : epi;
+}
+
+// CTM: chunk-mass column tiles held in registers (C <= 8 CTM)
+template <typename T, int D, int CTM>
+__global__ void __launch_bounds__(THREADS, 2)
 chunk_attention_kernel(ChunkParams p) {
-  const int D = p.D, C = p.C, G = p.H / p.Hkv;
+  constexpr bool BF = IsBf16<T>::v;
+  constexpr int BK = keys_per_tile<T>();
+  constexpr int RS = row_stride<T, D>();
+  constexpr int VEC = 16 / (int)sizeof(T);   // elements per 16-byte copy
+  constexpr int CPR = D / VEC;               // 16-byte copies per row
+  constexpr int NTD = D / 8;                 // output column tiles
+  constexpr int NTK = BK / 8;                // score column tiles
+  const int C = p.C, G = p.H / p.Hkv, CT = (C + 7) / 8;
   const int BQ = NR / G;            // query rows per CTA
   const int nrow = BQ * G;          // live query vectors (<= NR)
-  const int qb = blockIdx.x, hkv = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int DP = D + 1;             // padded row stride (bank conflicts)
+  const int qb = blockIdx.x, hkv = blockIdx.y;
+  const int b = blockIdx.z / p.nsplit, sp = blockIdx.z % p.nsplit;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gi = lane / 4, ti = lane % 4;     // fragment row / column
 
-  float* q_s = reinterpret_cast<float*>(dyn_smem());   // [NR][D+1]
-  float* k_s = q_s + NR * DP;                          // [BK][D+1]
-  float* v_s = k_s + BK * DP;                          // [BK][D]
-  float* p_s = v_s + BK * D;                           // [NR][BK+1]
-  float* mass_s = p_s + NR * (BK + 1);                 // [NR][C]
-  float* m_s = mass_s + NR * C;                        // [NR]
-  float* l_s = m_s + NR;                               // [NR]
-  float* corr_s = l_s + NR;                            // [NR]
-  int* qpos_s = reinterpret_cast<int*>(corr_s + NR);   // [NR]
-  int* qseg_s = qpos_s + NR;                           // [NR]
-  int* kpos_s = qseg_s + NR;                           // [BK]
-  int* kseg_s = kpos_s + BK;                           // [BK]
-  int* kch_s = kseg_s + BK;                            // [BK]
+  T* q_s = reinterpret_cast<T*>(dyn_smem());            // [NR][RS]
+  T* k_s = q_s + NR * RS;                               // [2][BK][RS]
+  T* v_s = k_s + 2 * BK * RS;                           // [2][BK][RS]
+  int* meta = reinterpret_cast<int*>(v_s + 2 * BK * RS);  // [2][3][BK]
+  int* qpos_s = meta + 6 * BK;                          // [NR]
+  int* qseg_s = qpos_s + NR;                            // [NR]
+  int* live_s = qseg_s + NR;                            // [tiles_per_split]
 
   const T* q = static_cast<const T*>(p.q);
   const T* k = static_cast<const T*>(p.k);
   const T* v = static_cast<const T*>(p.v);
+  const float scale2 = p.scale * 1.4426950408889634f;   // log2 e
 
-  // ---- load this CTA's query vectors: row r = qi * G + g ----
-  for (int idx = tid; idx < NR * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D;
-    const int qi = r / G, g = r % G, a = qb * BQ + qi;
-    float val = 0.f;
-    if (r < nrow && a < p.A)
-      val = to_f(q[((size_t)(b * p.A + a) * p.H + hkv * G + g) * D + d]);
-    q_s[r * DP + d] = val;
+  // ---- Q (cp.async group 0) and the row metadata ----
+  for (int idx = tid; idx < NR * CPR; idx += THREADS) {
+    const int r = idx / CPR, c = idx % CPR;
+    const int a = qb * BQ + r / G, g = r % G;
+    const bool live = r < nrow && a < p.A;
+    const T* src = live ? q + ((size_t)(b * p.A + a) * p.H + hkv * G + g) * D +
+                              c * VEC
+                        : q;
+    cp_async_cg16(q_s + r * RS + c * VEC, src, live);
   }
+  cp_async_commit();
   for (int r = tid; r < NR; r += THREADS) {
     const int a = qb * BQ + r / G;
     const bool live = r < nrow && a < p.A;
     qpos_s[r] = live ? p.qpos[b * p.A + a] : -1;
     qseg_s[r] = live ? p.qseg[b * p.A + a] : -1;
-    m_s[r] = NEG_INF;
-    l_s[r] = 0.f;
   }
-  for (int idx = tid; idx < NR * C; idx += THREADS) mass_s[idx] = 0.f;
+  const int ntiles = (p.S + BK - 1) / BK;
+  const int t0 = sp * p.tiles_per_split;
+  const int t_end = t0 + p.tiles_per_split < ntiles ? t0 + p.tiles_per_split
+                                                    : ntiles;
+  for (int i = tid; i < p.tiles_per_split; i += THREADS) live_s[i] = 0;
+  __syncthreads();
 
-  float acc[RPT][MAXE];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int e = 0; e < MAXE; ++e) acc[i][e] = 0.f;
-
-  for (int s0 = 0; s0 < p.S; s0 += BK) {
-    __syncthreads();  // previous tile fully consumed
-    for (int j = tid; j < BK; j += THREADS) {
-      const int s = s0 + j;
-      const bool in = s < p.S;
-      kpos_s[j] = in ? p.kpos[b * p.S + s] : -1;
-      kseg_s[j] = in ? p.kseg[b * p.S + s] : -2;
-      kch_s[j] = in ? p.kchunk[b * p.S + s] : C - 1;
-    }
-    __syncthreads();
-    // skip a tile no (row, key) pair of this CTA may attend to
-    int any = 0;
-    for (int idx = tid; idx < NR * BK; idx += THREADS) {
-      const int r = idx / BK, j = idx % BK;
-      any |= allowed(qpos_s[r], qseg_s[r], kpos_s[j], kseg_s[j], p.window);
-    }
-    if (!__syncthreads_or(any)) continue;
-
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int j = idx / D, d = idx % D, s = s0 + j;
-      float kv = 0.f, vv = 0.f;
-      if (s < p.S) {
-        const size_t off = ((size_t)(b * p.S + s) * p.Hkv + hkv) * D + d;
-        kv = to_f(k[off]);
-        vv = to_f(v[off]);
-      }
-      k_s[j * DP + d] = kv;
-      v_s[j * D + d] = vv;
-    }
-    __syncthreads();
-
-    // ---- scores: rows ty*4 + i, columns tx + 16*c ----
-    float sc[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) sc[i][c] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[RPT], kv[CPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = q_s[(ty * RPT + i) * DP + d];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) kv[c] = k_s[(tx + 16 * c) * DP + d];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) sc[i][c] += qv[i] * kv[c];
-    }
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = ty * RPT + i;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const int j = tx + 16 * c;
-        const bool ok = allowed(qpos_s[r], qseg_s[r], kpos_s[j], kseg_s[j],
-                                p.window);
-        p_s[r * (BK + 1) + j] = ok ? sc[i][c] * p.scale : NEG_INF;
-      }
-    }
-    __syncthreads();
-
-    // ---- online softmax: 4 threads per row ----
-    {
-      const int r = tid / 4, sub = tid % 4;
-      float mt = NEG_INF;
-      for (int j = sub; j < BK; j += 4) mt = fmaxf(mt, p_s[r * (BK + 1) + j]);
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(fmaxf(m_prev, mt), NEG_INF / 2);
-      float sum = 0.f;
-      for (int j = sub; j < BK; j += 4) {
-        const float e = expf(p_s[r * (BK + 1) + j] - m_new);
-        p_s[r * (BK + 1) + j] = e;
-        sum += e;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      __syncwarp();
-      if (sub == 0) {
-        const float corr = expf(m_prev - m_new);
-        l_s[r] = l_s[r] * corr + sum;
-        corr_s[r] = corr;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // ---- chunk mass: (row, chunk) pairs over the tile's keys ----
-    for (int idx = tid; idx < NR * C; idx += THREADS) {
-      const int r = idx / C, c = idx % C;
-      float sum = 0.f;
-      for (int j = 0; j < BK; ++j)
-        if (kch_s[j] == c) sum += p_s[r * (BK + 1) + j];
-      mass_s[idx] = mass_s[idx] * corr_s[r] + sum;
-    }
-
-    // ---- PV: rows ty*4 + i, columns tx + 16*e ----
-    float cr[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) cr[i] = corr_s[ty * RPT + i];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int e = 0; e < MAXE; ++e) acc[i][e] *= cr[i];
-    for (int j = 0; j < BK; ++j) {
-      float pj[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) pj[i] = p_s[(ty * RPT + i) * (BK + 1) + j];
-#pragma unroll
-      for (int e = 0; e < MAXE; ++e) {
-        const int d = tx + 16 * e;
-        if (d < D) {
-          const float vv = v_s[j * D + d];
-#pragma unroll
-          for (int i = 0; i < RPT; ++i) acc[i][e] += pj[i] * vv;
-        }
-      }
+  // ---- exact tile skip, before any K/V copy: a tile is live if one of
+  // its keys passes the mask for one of this CTA's BQ query rows ----
+  {
+    const int s_hi = t_end * BK < p.S ? t_end * BK : p.S;
+#pragma unroll 4
+    for (int s = t0 * BK + tid; s < s_hi; s += THREADS) {
+      const int kp = p.kpos[b * p.S + s], ks = p.kseg[b * p.S + s];
+      bool live = false;
+      for (int qi = 0; qi < BQ && !live; ++qi)
+        live = allowed(qpos_s[qi * G], qseg_s[qi * G], kp, ks, p.window);
+      if (live) live_s[s / BK - t0] = 1;    // same value from every writer
     }
   }
   __syncthreads();
+  auto next_live = [&](int t) {
+    while (t < t_end && !live_s[t - t0]) ++t;
+    return t;
+  };
+  // K/V rows (16-byte copies) and key metadata (4-byte copies) of tile t
+  // into stage st; keys past S are zero-filled and masked by position
+  auto load_tile = [&](int t, int st) {
+    T* kd = k_s + st * BK * RS;
+    T* vd = v_s + st * BK * RS;
+    for (int idx = tid; idx < BK * CPR; idx += THREADS) {
+      const int j = idx / CPR, c = idx % CPR, s = t * BK + j;
+      const bool in = s < p.S;
+      const size_t off =
+          in ? ((size_t)(b * p.S + s) * p.Hkv + hkv) * D + c * VEC : 0;
+      cp_async_cg16(kd + j * RS + c * VEC, k + off, in);
+      cp_async_cg16(vd + j * RS + c * VEC, v + off, in);
+    }
+    int* km = meta + st * 3 * BK;
+    for (int idx = tid; idx < 3 * BK; idx += THREADS) {
+      const int which = idx / BK, j = idx % BK, s = t * BK + j;
+      const bool in = s < p.S;
+      const int* src = which == 0 ? p.kpos : which == 1 ? p.kseg : p.kchunk;
+      cp_async_ca4(km + idx, src + (in ? b * p.S + s : 0), in);
+    }
+    cp_async_commit();
+  };
 
-  // ---- epilogue: normalised output, per-KV-head partial mass ----
-  T* out = static_cast<T*>(p.out);
+  // this warp's two fragment rows
+  const int rA = warp * 16 + gi, rB = rA + 8;
+  const int qpA = qpos_s[rA], qsA = qseg_s[rA];
+  const int qpB = qpos_s[rB], qsB = qseg_s[rB];
+  float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
+  float o[NTD][4], ms[CTM][4];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = ty * RPT + i;
-    const int qi = r / G, g = r % G, a = qb * BQ + qi;
-    if (r >= nrow || a >= p.A) continue;
-    const float inv_l = 1.f / fmaxf(l_s[r], 1e-30f);
+  for (int n = 0; n < NTD; ++n)
 #pragma unroll
-    for (int e = 0; e < MAXE; ++e) {
-      const int d = tx + 16 * e;
-      if (d < D)
-        out[((size_t)(b * p.A + a) * p.H + hkv * G + g) * D + d] =
-            from_f<T>(acc[i][e] * inv_l);
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < CTM; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ms[n][e] = 0.f;
+
+  int cur = next_live(t0);
+  if (cur < t_end) load_tile(cur, 0);
+  int st = 0;
+  while (cur < t_end) {
+    const int nxt = next_live(cur + 1);
+    if (nxt < t_end) {
+      load_tile(nxt, st ^ 1);
+      cp_async_wait<1>();   // Q and tile cur landed; nxt in flight
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();
+    const T* kt = k_s + st * BK * RS;
+    const T* vt = v_s + st * BK * RS;
+    const int* km = meta + st * 3 * BK;
+    const int* kc = km + 2 * BK;
+
+    // ---- S = Q K^T: 16 rows x BK keys per warp ----
+    float s[NTK][4];
+#pragma unroll
+    for (int j = 0; j < NTK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    if constexpr (BF) {
+      // lane l addresses row l % 8 of matrix l / 8: A = Q rows (+8 for
+      // matrices 1, 3), cols (+8 for 2, 3); B = K rows of tiles j, j + 1
+      // (matrices 2, 3), cols +8 for matrices 1, 3
+      const int mi = lane / 8, mr = lane % 8;
+      const T* qa = q_s + (warp * 16 + mr + 8 * (mi % 2)) * RS + 8 * (mi / 2);
+      const T* ka = kt + (mr + 8 * (mi / 2)) * RS + 8 * (mi % 2);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t a[4];
+        ldmatrix_x4(a, qa + kk * 16);
+#pragma unroll
+        for (int j = 0; j < NTK; j += 2) {
+          uint32_t bb[4];
+          ldmatrix_x4(bb, ka + 8 * j * RS + kk * 16);
+          mma_m16n8k16_bf16(s[j], a, bb);
+          mma_m16n8k16_bf16(s[j + 1], a, bb + 2);
+        }
+      }
+    } else {
+      // the correction terms (small.big + big.small) in their own
+      // accumulators: two dependent mma chains per score tile, not one
+      float s2[NTK][4];
+#pragma unroll
+      for (int j = 0; j < NTK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s2[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const T* q0 = q_s + rA * RS + kk * 8 + ti;
+        const float af[4] = {q0[0], q0[8 * RS], q0[4], q0[8 * RS + 4]};
+        uint32_t ab[4], as[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(af[e], ab[e], as[e]);
+#pragma unroll
+        for (int j = 0; j < NTK; ++j) {
+          const T* k0 = kt + (8 * j + gi) * RS + kk * 8 + ti;
+          uint32_t bb[2], bs[2];
+          split_tf32(k0[0], bb[0], bs[0]);
+          split_tf32(k0[4], bb[1], bs[1]);
+          mma_m16n8k8_tf32(s2[j], as, bb);
+          mma_m16n8k8_tf32(s2[j], ab, bs);
+          mma_m16n8k8_tf32(s[j], ab, bb);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NTK; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] += s2[j][e];
+    }
+
+    // ---- mask, online softmax (4 lanes share a row) ----
+    // scores in log2 units (scale * log2 e), so exp2f gives the softmax
+    float mt[2] = {NEG_INF, NEG_INF};
+    const int keys_in = p.S - cur * BK;
+#pragma unroll
+    for (int j = 0; j < NTK; ++j)
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int key = 8 * j + 2 * ti + jj;
+        const int kp = km[key], ks = km[BK + key];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const bool ok =
+              key < keys_in && allowed(i ? qpB : qpA, i ? qsB : qsA, kp, ks,
+                                       p.window);
+          float& x = s[j][2 * i + jj];
+          x = ok ? x * scale2 : NEG_INF;
+          mt[i] = fmaxf(mt[i], x);
+        }
+      }
+    float corr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+      const float m_new = fmaxf(fmaxf(m_r[i], mt[i]), NEG_INF / 2);
+      corr[i] = exp2f(m_r[i] - m_new);
+      m_r[i] = m_new;
+      l_r[i] *= corr[i];
+    }
+#pragma unroll
+    for (int j = 0; j < NTK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - m_r[e / 2]);
+        l_r[e / 2] += s[j][e];          // this lane's share of the row
+      }
+#pragma unroll
+    for (int n = 0; n < NTD; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] *= corr[e / 2];
+#pragma unroll
+    for (int n = 0; n < CTM; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ms[n][e] *= corr[e / 2];
+
+    // ---- O += P V, mass += P onehot(chunk) ----
+    if constexpr (BF) {
+      constexpr uint16_t ONE = 0x3F80;   // 1.0 in bf16
+      // lane l addresses V row 16 kk + l % 8 (+8 for matrices 1, 3) at
+      // column tile n (+1 for matrices 2, 3); .trans yields b0, b1 of n
+      // and of n + 1
+      const int mi = lane / 8, mr = lane % 8;
+      const T* va = vt + (mr + 8 * (mi % 2)) * RS + 8 * (mi / 2);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const float* s0 = s[2 * kk];
+        const float* s1 = s[2 * kk + 1];
+        const uint32_t a[4] = {pack_bf16(s0[0], s0[1]),
+                               pack_bf16(s0[2], s0[3]),
+                               pack_bf16(s1[0], s1[1]),
+                               pack_bf16(s1[2], s1[3])};
+        const int k0 = 16 * kk + 2 * ti;        // keys k0, k0+1, k0+8, k0+9
+#pragma unroll
+        for (int n = 0; n < NTD; n += 2) {
+          uint32_t bb[4];
+          ldmatrix_x4_trans(bb, va + 16 * kk * RS + 8 * n);
+          mma_m16n8k16_bf16(o[n], a, bb);
+          mma_m16n8k16_bf16(o[n + 1], a, bb + 2);
+        }
+        // mass: P = hi + lo, both bf16, against the exact one-hot
+        uint32_t alo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float* sx = e < 2 ? s0 : s1;
+          const int i0 = (e & 1) * 2;
+          const float h0 = __bfloat162float(__float2bfloat16(sx[i0]));
+          const float h1 = __bfloat162float(__float2bfloat16(sx[i0 + 1]));
+          alo[e] = pack_bf16(sx[i0] - h0, sx[i0 + 1] - h1);
+        }
+        const int c0 = kc[k0], c1 = kc[k0 + 1];
+        const int c8 = kc[k0 + 8], c9 = kc[k0 + 9];
+#pragma unroll
+        for (int n = 0; n < CTM; ++n) {
+          const int c = 8 * n + gi;
+          const uint32_t bb[2] = {
+              pack_u16(c0 == c ? ONE : 0, c1 == c ? ONE : 0),
+              pack_u16(c8 == c ? ONE : 0, c9 == c ? ONE : 0)};
+          mma_m16n8k16_bf16(ms[n], alo, bb);
+          mma_m16n8k16_bf16(ms[n], a, bb);
+        }
+      }
+    } else {
+      const float* vf = reinterpret_cast<const float*>(vt);
+#pragma unroll
+      for (int j = 0; j < NTK; ++j) {
+        // k-step over keys 8j..8j+7, relabelled so that k index ti holds
+        // key 2ti and ti+4 holds key 2ti+1: the A fragment is then the C
+        // fragment of S as it stands
+        const float af[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+        uint32_t ab[4], as[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split_tf32(af[e], ab[e], as[e]);
+        const int k0 = 8 * j + 2 * ti;
+#pragma unroll
+        for (int n = 0; n < NTD; ++n) {
+          const int d = 8 * n + gi;
+          uint32_t bb[2], bs[2];
+          split_tf32(vf[k0 * RS + d], bb[0], bs[0]);
+          split_tf32(vf[(k0 + 1) * RS + d], bb[1], bs[1]);
+          mma_m16n8k8_tf32(o[n], as, bb);
+          mma_m16n8k8_tf32(o[n], ab, bs);
+          mma_m16n8k8_tf32(o[n], ab, bb);
+        }
+        const int c0 = kc[k0], c1 = kc[k0 + 1];
+#pragma unroll
+        for (int n = 0; n < CTM; ++n) {
+          const int c = 8 * n + gi;
+          const uint32_t bb[2] = {c0 == c ? 0x3F800000u : 0u,
+                                  c1 == c ? 0x3F800000u : 0u};
+          mma_m16n8k8_tf32(ms[n], as, bb);
+          mma_m16n8k8_tf32(ms[n], ab, bb);
+        }
+      }
+    }
+    __syncthreads();   // stage st is free again
+    cur = nxt;
+    st ^= 1;
   }
-  for (int idx = tid; idx < BQ * C; idx += THREADS) {
-    const int qi = idx / C, c = idx % C, a = qb * BQ + qi;
-    if (a >= p.A) continue;
-    float sum = 0.f;
-    for (int g = 0; g < G; ++g) {
-      const int r = qi * G + g;
-      sum += mass_s[r * C + c] / fmaxf(l_s[r], 1e-30f);
+  cp_async_wait<0>();  // Q's copies, if no tile was live
+  __syncthreads();
+
+  // ---- epilogue ----
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
+  }
+  if (p.nsplit == 1) {
+    T* out = static_cast<T*>(p.out);
+    float* ms_s = reinterpret_cast<float*>(dyn_smem());   // [NR][8 CT]
+    const int CP = 8 * CT;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = i ? rB : rA;
+      const int a = qb * BQ + r / G, g = r % G;
+      const float inv_l = 1.f / fmaxf(l_r[i], 1e-30f);
+      if (r < nrow && a < p.A) {
+        T* orow = out + ((size_t)(b * p.A + a) * p.H + hkv * G + g) * D;
+#pragma unroll
+        for (int n = 0; n < NTD; ++n) {
+          orow[8 * n + 2 * ti] = from_f<T>(o[n][2 * i] * inv_l);
+          orow[8 * n + 2 * ti + 1] = from_f<T>(o[n][2 * i + 1] * inv_l);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < CTM; ++n)
+        if (n < CT) {
+          ms_s[r * CP + 8 * n + 2 * ti] = ms[n][2 * i] * inv_l;
+          ms_s[r * CP + 8 * n + 2 * ti + 1] = ms[n][2 * i + 1] * inv_l;
+        }
     }
-    p.mass_part[((size_t)(b * p.Hkv + hkv) * p.A + a) * C + c] = sum;
+    __syncthreads();
+    for (int idx = tid; idx < BQ * C; idx += THREADS) {
+      const int qi = idx / C, c = idx % C, a = qb * BQ + qi;
+      if (a >= p.A) continue;
+      float sum = 0.f;
+      for (int g = 0; g < G; ++g) sum += ms_s[(qi * G + g) * CP + c];
+      p.work[((size_t)(b * p.Hkv + hkv) * p.A + a) * C + c] = sum;
+    }
+  } else {
+    const size_t rows = (size_t)p.nsplit * p.B * p.A * p.H;
+    float* o_part = p.work;
+    float* m_part = o_part + rows * D;
+    float* l_part = m_part + rows;
+    float* mass_part = l_part + rows;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = i ? rB : rA;
+      const int a = qb * BQ + r / G, g = r % G;
+      if (r >= nrow || a >= p.A) continue;
+      const size_t row =
+          ((size_t)(sp * p.B + b) * p.A + a) * p.H + hkv * G + g;
+      if (ti == 0) {
+        m_part[row] = m_r[i];
+        l_part[row] = l_r[i];
+      }
+#pragma unroll
+      for (int n = 0; n < NTD; ++n) {
+        o_part[row * D + 8 * n + 2 * ti] = o[n][2 * i];
+        o_part[row * D + 8 * n + 2 * ti + 1] = o[n][2 * i + 1];
+      }
+#pragma unroll
+      for (int n = 0; n < CTM; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * n + 2 * ti + e;
+          if (c < C) mass_part[row * C + c] = ms[n][2 * i + e];
+        }
+    }
   }
 }
 
-// mass[b, a, c] = sum over kv heads, in order, of mass_part[b, h, a, c]
+// mass[b, a, c] = sum over kv heads, in order, of the per-head partials
 __global__ void mass_reduce_kernel(const float* mass_part, float* mass,
                                    int B, int Hkv, int A, int C) {
   const size_t n = (size_t)B * A * C;
@@ -316,43 +625,151 @@ __global__ void mass_reduce_kernel(const float* mass_part, float* mass,
   }
 }
 
-size_t smem_bytes(int D, int C) {
-  return sizeof(float) * ((size_t)NR * (D + 1) + (size_t)BK * (D + 1) +
-                          (size_t)BK * D + (size_t)NR * (BK + 1) +
-                          (size_t)NR * C + 3 * NR) +
-         sizeof(int) * (2 * NR + 3 * BK);
+// One CTA per (a, b): merges the nsplit key ranges of every head (max,
+// rescaled sums, in split order), then sums the mass over heads in order.
+template <typename T>
+__global__ void combine_kernel(ChunkParams p, float* mass) {
+  const int a = blockIdx.x, b = blockIdx.y, H = p.H, D = p.D, C = p.C;
+  const int ns = p.nsplit;
+  const size_t rows = (size_t)ns * p.B * p.A * H;
+  const float* o_part = p.work;
+  const float* m_part = o_part + rows * D;
+  const float* l_part = m_part + rows;
+  const float* mass_part = l_part + rows;
+  float* w_s = reinterpret_cast<float*>(dyn_smem());   // [ns][H]
+  float* inv_s = w_s + ns * H;                          // [H]
+  float* mh_s = inv_s + H;                              // [H][C]
+  auto row = [&](int s, int h) {
+    return ((size_t)(s * p.B + b) * p.A + a) * H + h;
+  };
+  for (int h = threadIdx.x; h < H; h += blockDim.x) {
+    float m = NEG_INF;
+    for (int s = 0; s < ns; ++s) m = fmaxf(m, m_part[row(s, h)]);
+    m = fmaxf(m, NEG_INF / 2);
+    float l = 0.f;
+    for (int s = 0; s < ns; ++s) {
+      const float w = exp2f(m_part[row(s, h)] - m);   // log2 units
+      w_s[s * H + h] = w;
+      l += w * l_part[row(s, h)];
+    }
+    inv_s[h] = 1.f / fmaxf(l, 1e-30f);
+  }
+  __syncthreads();
+  T* out = static_cast<T*>(p.out);
+  // normalised output, 4 columns (16 bytes of each partial) per thread
+  const int D4 = D / 4;
+#pragma unroll 4
+  for (int idx = threadIdx.x; idx < H * D4; idx += blockDim.x) {
+    const int h = idx / D4, d = 4 * (idx % D4);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int s = 0; s < ns; ++s) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(o_part + row(s, h) * D + d);
+      const float w = w_s[s * H + h];
+      acc[0] += w * x.x;
+      acc[1] += w * x.y;
+      acc[2] += w * x.z;
+      acc[3] += w * x.w;
+    }
+    T* dst = out + ((size_t)(b * p.A + a) * H + h) * D + d;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dst[e] = from_f<T>(acc[e] * inv_s[h]);
+  }
+  // normalised mass per (h, c)
+  for (int idx = threadIdx.x; idx < H * C; idx += blockDim.x) {
+    const int h = idx / C, c = idx % C;
+    float hm = 0.f;
+    for (int s = 0; s < ns; ++s)
+      hm += w_s[s * H + h] * mass_part[row(s, h) * C + c];
+    mh_s[h * C + c] = hm * inv_s[h];
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float sum = 0.f;
+    for (int h = 0; h < H; ++h) sum += mh_s[h * C + c];
+    mass[((size_t)b * p.A + a) * C + c] = sum;
+  }
 }
 
-template <typename T>
+// the attention kernel for (T, D) and C chunks: 2 mass tiles when C <= 16
+template <typename T, int D>
+void (*kernel_for(int C))(ChunkParams) {
+  return C <= 16 ? chunk_attention_kernel<T, D, 2>
+                 : chunk_attention_kernel<T, D, MAXC / 8>;
+}
+
+template <typename T, int D>
 int launch(const ChunkParams& p, float* mass, cudaStream_t stream) {
   const int G = p.H / p.Hkv;
   const int BQ = NR / G;
-  const size_t smem = smem_bytes(p.D, p.C);
-  void (*kern)(ChunkParams) = chunk_attention_kernel<T>;
+  const size_t smem = smem_bytes<T, D>(p.C, p.tiles_per_split);
+  void (*kern)(ChunkParams) = kernel_for<T, D>(p.C);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((p.A + BQ - 1) / BQ, p.Hkv, p.B);
+  dim3 grid((p.A + BQ - 1) / BQ, p.Hkv, p.B * p.nsplit);
   LAUNCH(kern, grid, dim3(THREADS), smem, stream)(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const size_t n = (size_t)p.B * p.A * p.C;
-  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-  LAUNCH(mass_reduce_kernel, dim3(blocks > 0 ? blocks : 1), dim3(256), 0,
-         stream)(p.mass_part, mass, p.B, p.Hkv, p.A, p.C);
+  if (p.nsplit == 1) {
+    const size_t n = (size_t)p.B * p.A * p.C;
+    const int blocks =
+        (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+    LAUNCH(mass_reduce_kernel, dim3(blocks > 0 ? blocks : 1), dim3(256), 0,
+           stream)(p.work, mass, p.B, p.Hkv, p.A, p.C);
+  } else {
+    const size_t csmem =
+        sizeof(float) * (size_t)(p.nsplit + 1 + p.C) * p.H;
+    LAUNCH(combine_kernel<T>, dim3(p.A, p.B), dim3(256), csmem,
+           stream)(p, mass);
+  }
   return (int)cudaGetLastError();
+}
+
+// f(kernel, shared memory bytes) for the (dtype, D) instantiation
+template <typename F>
+int with_kernel(int is_bf16, int D, int C, int tiles_per_split, F f) {
+  if (is_bf16) {
+    switch (D) {
+      case 32: return f(kernel_for<__nv_bfloat16, 32>(C),
+                        smem_bytes<__nv_bfloat16, 32>(C, tiles_per_split));
+      case 64: return f(kernel_for<__nv_bfloat16, 64>(C),
+                        smem_bytes<__nv_bfloat16, 64>(C, tiles_per_split));
+      case 128: return f(kernel_for<__nv_bfloat16, 128>(C),
+                         smem_bytes<__nv_bfloat16, 128>(C, tiles_per_split));
+    }
+  } else {
+    switch (D) {
+      case 32: return f(kernel_for<float, 32>(C),
+                        smem_bytes<float, 32>(C, tiles_per_split));
+      case 64: return f(kernel_for<float, 64>(C),
+                        smem_bytes<float, 64>(C, tiles_per_split));
+      case 128: return f(kernel_for<float, 128>(C),
+                         smem_bytes<float, 128>(C, tiles_per_split));
+    }
+  }
+  return -1;
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Pointers are device pointers;
 // int tensors are int32; is_bf16 selects bf16 (1) or fp32 (0) q/k/v/out.
-// Returns the cudaError_t of the launches (0 = success).
+// ``work`` is fp32 scratch of ops.workspace_floats(...) elements, ``nsplit``
+// the number of key ranges (ops.num_splits; at most one per key tile of
+// 64 keys in bf16, 32 in fp32). D must be 32, 64 or 128, H / Hkv <= 64,
+// C <= 64. Returns the cudaError_t of the launches (0 = success).
 extern "C" int chunk_attention_fwd(
     const void* q, const void* k, const void* v, const void* qpos,
     const void* kpos, const void* kchunk, const void* qseg, const void* kseg,
-    void* out, void* mass_part, void* mass, int B, int A, int S, int H,
-    int Hkv, int D, int C, int window, int is_bf16, void* stream) {
+    void* out, void* work, void* mass, int B, int A, int S, int H, int Hkv,
+    int D, int C, int window, int is_bf16, int nsplit, void* stream) {
+  const int BK = is_bf16 ? keys_per_tile<__nv_bfloat16>()
+                         : keys_per_tile<float>();
+  const int ntiles = (S + BK - 1) / BK;
+  if (B < 1 || A < 1 || S < 1 || Hkv < 1 || H % Hkv || H / Hkv > NR ||
+      C < 1 || C > MAXC || nsplit < 1 || nsplit > ntiles)
+    return (int)cudaErrorInvalidValue;
   ChunkParams p;
   p.q = q; p.k = k; p.v = v;
   p.qpos = static_cast<const int*>(qpos);
@@ -361,11 +778,49 @@ extern "C" int chunk_attention_fwd(
   p.qseg = static_cast<const int*>(qseg);
   p.kseg = static_cast<const int*>(kseg);
   p.out = out;
-  p.mass_part = static_cast<float*>(mass_part);
+  p.work = static_cast<float*>(work);
   p.B = B; p.A = A; p.S = S; p.H = H; p.Hkv = Hkv; p.D = D; p.C = C;
   p.window = window;
+  p.nsplit = nsplit;
+  p.tiles_per_split = (ntiles + nsplit - 1) / nsplit;
   p.scale = 1.0f / sqrtf((float)D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* m = static_cast<float*>(mass);
-  return is_bf16 ? launch<__nv_bfloat16>(p, m, st) : launch<float>(p, m, st);
+  switch (D + is_bf16) {
+    case 32: return launch<float, 32>(p, m, st);
+    case 64: return launch<float, 64>(p, m, st);
+    case 128: return launch<float, 128>(p, m, st);
+    case 33: return launch<__nv_bfloat16, 32>(p, m, st);
+    case 65: return launch<__nv_bfloat16, 64>(p, m, st);
+    case 129: return launch<__nv_bfloat16, 128>(p, m, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
+
+// Dynamic shared memory per CTA of the attention kernel, in bytes, for a
+// key range of tiles_per_split tiles; -1 on an unsupported D.
+extern "C" long long chunk_attention_smem_bytes(int D, int C, int is_bf16,
+                                                int tiles_per_split) {
+  return with_kernel(is_bf16, D, C, tiles_per_split,
+                     [](void (*)(ChunkParams), size_t smem) {
+                       return (int)smem;
+                     });
+}
+
+#ifndef CPU_EMULATION
+// Resident CTAs per SM of the attention kernel, from the runtime's
+// occupancy calculator; -1 on an unsupported D.
+extern "C" int chunk_attention_occupancy(int D, int C, int is_bf16,
+                                         int tiles_per_split) {
+  return with_kernel(is_bf16, D, C, tiles_per_split,
+                     [](void (*kern)(ChunkParams), size_t smem) {
+                       int n = -1;
+                       cudaFuncSetAttribute(
+                           kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+                       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                           &n, kern, THREADS, smem);
+                       return n;
+                     });
+}
+#endif

@@ -4,6 +4,11 @@ CPU tensors go through the plain version (``ref.py``); CUDA tensors
 launch the CUDA kernel (``csrc/chunk_attention.cu``) or raise: there is
 no fallback on the card. ``chunk_attention.launches`` counts kernel
 launches (never the CPU path).
+
+The kernel takes 64 query vectors (row x head of one KV head) per CTA and
+32 keys per tile; where that gives fewer CTAs than fill the card, the keys
+are split into ``num_splits`` ranges whose partial rows a second kernel
+combines in a fixed order (``workspace_floats`` of fp32 scratch).
 """
 from __future__ import annotations
 
@@ -16,16 +21,47 @@ from repro_torch.kernels.chunk_attention.ref import chunk_attention_ref
 
 _WHAT = "chunk_attention"
 _FLOATS = (torch.float32, torch.bfloat16)
-_MAX_D = 128          # output columns per thread x 16 (MAXE in the source)
-_MAX_G = 64           # query vectors per CTA (NR)
-_MAX_C = 64           # chunk-mass accumulators stay in shared memory
+_HEAD_DIMS = (32, 64, 128)   # the source's instantiations
+_NR = 64              # query vectors per CTA (NR in the source); H/Hkv <= it
+_BK = {torch.float32: 32, torch.bfloat16: 64}   # keys per tile
+_MAX_C = 64           # chunk-mass column tiles held in registers (8 x 8)
+# CTAs a call should launch on the H100's 132 SMs (design constants, not
+# read from the device), a hand-picked compromise rather than a fit: fp32
+# (3xTF32, long dependent mma chains) gains from more than one resident
+# CTA's worth of warps per SM; bf16 splits only where SMs would idle. At
+# some shapes another count reads faster; chip_smoke.py's split sweep
+# prints them beside this rule's choice (PERF.md)
+_TARGET_CTAS = {torch.float32: 3 * 132, torch.bfloat16: 132}
+_MAX_SPLIT = 16
+
+
+def num_splits(B: int, A: int, S: int, H: int, Hkv: int,
+               dtype=torch.float32) -> int:
+    """Key ranges of one call, from the shapes and dtype alone: enough
+    CTAs to reach ``_TARGET_CTAS`` where query blocks x KV heads x batch
+    do not, at least one key tile (32 keys in fp32, 64 in bf16) per range
+    and at most ``_MAX_SPLIT`` ranges, none empty."""
+    base = -(-A // (_NR // (H // Hkv))) * Hkv * B
+    tiles = -(-S // _BK[dtype])
+    n = max(1, min(_TARGET_CTAS[dtype] // base, tiles, _MAX_SPLIT))
+    per = -(-tiles // n)
+    return -(-tiles // per)
+
+
+def workspace_floats(B: int, A: int, H: int, Hkv: int, D: int, C: int,
+                     nsplit: int) -> int:
+    """fp32 scratch of one launch: the per-KV-head mass without a split,
+    else the partial (acc, m, l, mass) rows of every range and head."""
+    if nsplit == 1:
+        return B * Hkv * A * C
+    return nsplit * B * A * H * (D + 2 + C)
 
 
 def _lib():
     lib = build.load("chunk_attention")
     fn = lib.chunk_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + \
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -44,26 +80,33 @@ def _launch(q, k, v, q_pos, k_pos, k_chunk, q_seg, k_seg, num_chunks,
                        ("k_pos", k_pos, S), ("k_chunk", k_chunk, S),
                        ("k_seg", k_seg, S)):
         build.check_tensor(_WHAT, name, t, (B, n), (torch.int32,), dev)
-    if H % Hkv or H // Hkv > _MAX_G:
+    if H % Hkv or H // Hkv > _NR:
         raise ValueError(f"chunk_attention: H={H}, Hkv={Hkv} needs "
-                         f"Hkv | H and H/Hkv <= {_MAX_G}")
-    if D % 16 or D > _MAX_D:
-        raise ValueError(f"chunk_attention: head dim {D} must be a "
-                         f"multiple of 16 and <= {_MAX_D}")
+                         f"Hkv | H and H/Hkv <= {_NR}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"chunk_attention: head dim {D} not in "
+                         f"{_HEAD_DIMS}")
     if not 0 < num_chunks <= _MAX_C:
         raise ValueError(f"chunk_attention: num_chunks {num_chunks} "
                          f"outside (0, {_MAX_C}]")
+    if min(A, S) < 1:
+        raise ValueError(f"chunk_attention: A={A}, S={S} must be >= 1")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"chunk_attention: {name} is not 16-byte "
+                             "aligned (16-byte asynchronous copies)")
+    nsplit = num_splits(B, A, S, H, Hkv, q.dtype)
     out = torch.empty_like(q)
-    mass_part = torch.empty((B, Hkv, A, num_chunks), dtype=torch.float32,
-                            device=dev)
+    work = torch.empty(workspace_floats(B, A, H, Hkv, D, num_chunks, nsplit),
+                       dtype=torch.float32, device=dev)
     mass = torch.empty((B, A, num_chunks), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  q_pos.data_ptr(), k_pos.data_ptr(), k_chunk.data_ptr(),
                  q_seg.data_ptr(), k_seg.data_ptr(), out.data_ptr(),
-                 mass_part.data_ptr(), mass.data_ptr(), B, A, S, H, Hkv, D,
+                 work.data_ptr(), mass.data_ptr(), B, A, S, H, Hkv, D,
                  num_chunks, int(window), int(q.dtype == torch.bfloat16),
-                 stream)
+                 nsplit, stream)
     build.check(err, _WHAT)
     chunk_attention.launches += 1
     return out, mass

@@ -9,10 +9,16 @@
 // another: __syncthreads is a std::barrier over the block, warp shuffles
 // exchange through a per-warp buffer between two warp barriers, dynamic
 // shared memory is a per-block buffer filled with a poison byte. Device
-// pointers are host pointers. The kernel sources opt in through two hooks
-// (LAUNCH and dyn_smem, defined here when CPU_EMULATION is set). It checks
-// indexing, masking and synchronisation logic; it says nothing about speed
-// or about what nvcc accepts.
+// pointers are host pointers. The kernel sources opt in through hooks
+// defined here when CPU_EMULATION is set and as inline PTX otherwise:
+// LAUNCH and dyn_smem, and for the chunk-attention kernel cp_async_cg16 /
+// cp_async_ca4 / cp_async_commit / cp_async_wait (a synchronous 16- or
+// 4-byte copy or zero fill), ldmatrix x4 (plain and .trans) and the two
+// mma.sync shapes (each lane writes its
+// fragments into a per-warp buffer, then computes its own outputs by the
+// PTX ISA's fragment layouts, between two warp barriers). It checks
+// indexing, masking, fragment and synchronisation logic; it says nothing
+// about speed or about what nvcc accepts.
 #pragma once
 #define CPU_EMULATION 1
 #include <atomic>
@@ -28,7 +34,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __align__(x)
 
 struct dim3 {
@@ -37,6 +43,7 @@ struct dim3 {
 };
 typedef int cudaError_t;
 constexpr int cudaSuccess = 0;
+constexpr int cudaErrorInvalidValue = 1;
 typedef void* cudaStream_t;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class F>
@@ -77,6 +84,8 @@ struct EmuBlock {
   std::unique_ptr<std::barrier<>> bar;
   std::vector<std::unique_ptr<std::barrier<>>> wbar;
   std::vector<float> shfl;
+  std::vector<uint32_t> frag;   // per lane: mma A (4) and B (2) registers
+  std::vector<const void*> rowp;   // per lane: ldmatrix row address
   std::atomic<int> orv{0};
   std::vector<unsigned char> smem;
 };
@@ -109,6 +118,119 @@ inline float __shfl_xor_sync(unsigned, float v, int m) {
   return r;
 }
 
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.x; }
+
+// cp.async.cg 16 bytes / cp.async.ca 4 bytes (zero fill when !pred);
+// commit / wait are no-ops because the copy completes at once
+inline void cp_async_cg16(void* dst, const void* src, bool pred) {
+  if (pred)
+    std::memcpy(dst, src, 16);
+  else
+    std::memset(dst, 0, 16);
+}
+inline void cp_async_ca4(void* dst, const void* src, bool pred) {
+  if (pred)
+    std::memcpy(dst, src, 4);
+  else
+    std::memset(dst, 0, 4);
+}
+inline void cp_async_commit() {}
+template <int N>
+inline void cp_async_wait() {}
+
+// mma.sync.aligned.m16n8k{8,16}.row.col.f32.{tf32,bf16}: element (row, k)
+// of A and (k, col) of B read from the lanes that hold them in the PTX
+// ISA's fragment layouts (groupID = lane / 4, threadID_in_group = lane % 4)
+inline float emu_bf16_half(uint32_t reg, int half) {
+  __nv_bfloat16 h;
+  h.x = (uint16_t)(half ? reg >> 16 : reg & 0xffffu);
+  return __bfloat162float(h);
+}
+inline void emu_mma(float* d, const uint32_t* a, const uint32_t* b,
+                    bool bf16) {
+  EmuBlock& B = *emu_cur;
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  uint32_t* mine = &B.frag[6 * threadIdx.x];
+  for (int i = 0; i < 4; ++i) mine[i] = a[i];
+  mine[4] = b[0];
+  mine[5] = b[1];
+  B.wbar[w]->arrive_and_wait();
+  const uint32_t* f = &B.frag[6 * 32 * w];
+  const int K = bf16 ? 16 : 8;
+  for (int e = 0; e < 4; ++e) {
+    const int row = lane / 4 + 8 * (e / 2), col = 2 * (lane % 4) + e % 2;
+    float acc = d[e];
+    for (int k = 0; k < K; ++k) {
+      float x, y;
+      if (bf16) {
+        // A: a0 (g, 2t..2t+1), a1 (g+8, ..), a2 (g, 2t+8..), a3 (g+8, ..)
+        // B: b0 (k 2t..2t+1, n g), b1 (k 2t+8.., n g); low half = lower k
+        x = emu_bf16_half(
+            f[6 * ((row % 8) * 4 + (k % 8) / 2) + (row / 8) + 2 * (k / 8)],
+            k % 2);
+        y = emu_bf16_half(f[6 * (col * 4 + (k % 8) / 2) + 4 + k / 8], k % 2);
+      } else {
+        // A: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+        // B: b0 (k t, n g), b1 (k t+4, n g)
+        x = __uint_as_float(
+            f[6 * ((row % 8) * 4 + k % 4) + (row / 8) + 2 * (k / 4)]);
+        y = __uint_as_float(f[6 * (col * 4 + k % 4) + 4 + k / 4]);
+      }
+      acc += x * y;
+    }
+    d[e] = acc;
+  }
+  B.wbar[w]->arrive_and_wait();
+}
+// ldmatrix.sync.aligned.m8n8.x4[.trans].shared.b16: lane i gives the
+// address of row i % 8 of matrix i / 8 (8 contiguous b16); lane l gets,
+// per matrix j, elements (l / 4, 2 (l % 4) .. +1), or with .trans
+// (2 (l % 4) .. +1, l / 4); the lower column / row in the low half
+inline void emu_ldmatrix(uint32_t* r, const void* row, bool trans) {
+  EmuBlock& B = *emu_cur;
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  B.rowp[threadIdx.x] = row;
+  B.wbar[w]->arrive_and_wait();
+  const void* const* rows = &B.rowp[32 * w];
+  for (int j = 0; j < 4; ++j) {
+    uint16_t lo, hi;
+    if (trans) {
+      const int rr = 8 * j + 2 * (lane % 4);
+      std::memcpy(&lo, (const uint16_t*)rows[rr] + lane / 4, 2);
+      std::memcpy(&hi, (const uint16_t*)rows[rr + 1] + lane / 4, 2);
+    } else {
+      const uint16_t* p = (const uint16_t*)rows[8 * j + lane / 4];
+      std::memcpy(&lo, p + 2 * (lane % 4), 2);
+      std::memcpy(&hi, p + 2 * (lane % 4) + 1, 2);
+    }
+    r[j] = (uint32_t)lo | ((uint32_t)hi << 16);
+  }
+  B.wbar[w]->arrive_and_wait();
+}
+inline void ldmatrix_x4(uint32_t* r, const void* row) {
+  emu_ldmatrix(r, row, false);
+}
+inline void ldmatrix_x4_trans(uint32_t* r, const void* row) {
+  emu_ldmatrix(r, row, true);
+}
+inline void mma_m16n8k8_tf32(float* d, const uint32_t* a, const uint32_t* b) {
+  emu_mma(d, a, b, false);
+}
+inline void mma_m16n8k16_bf16(float* d, const uint32_t* a,
+                              const uint32_t* b) {
+  emu_mma(d, a, b, true);
+}
+
 template <class... A>
 struct EmuLauncher {
   void (*k)(A...);
@@ -125,6 +247,8 @@ struct EmuLauncher {
           for (unsigned w = 0; w < (b.x + 31) / 32; ++w)
             blk.wbar.push_back(std::make_unique<std::barrier<>>(32));
           blk.shfl.assign(b.x, 0.f);
+          blk.frag.assign(6 * b.x, 0u);
+          blk.rowp.assign(b.x, nullptr);
           blk.smem.assign(sm + 16, 0xAB);
           std::vector<std::thread> ts;
           for (unsigned t = 0; t < b.x; ++t)

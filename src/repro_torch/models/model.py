@@ -148,7 +148,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
     }
 
 
-def params_from_jax(cfg: ModelConfig, np_params, device="cpu") -> Params:
+def params_from_jax(cfg: ModelConfig, np_params, device) -> Params:
     """The reference's parameter pytree, with every leaf as a numpy array
     (``jax.tree.map(np.asarray, params)``), -> the port's parameters on
     ``device``. The layouts match leaf for leaf: ``groups`` stacked
@@ -202,7 +202,7 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None,
-               device="cpu") -> Dict[str, List[dict]]:
+               *, device) -> Dict[str, List[dict]]:
     dtype = torch_dtype(dtype or cfg.dtype)
     groups = [init_layer_cache(cfg, k, batch, seq_len, dtype, device,
                                lead=(cfg.n_groups,))

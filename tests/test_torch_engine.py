@@ -49,7 +49,8 @@ def world():
     cfg = get_tiny("llama3-8b")
     jcfg = j_tiny("llama3-8b")
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    tparams = TM.params_from_jax(cfg, jax.tree.map(np.asarray, jparams))
+    tparams = TM.params_from_jax(cfg, jax.tree.map(np.asarray, jparams),
+                                 "cpu")
     return cfg, jcfg, tparams, jparams
 
 

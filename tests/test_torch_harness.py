@@ -107,7 +107,7 @@ def test_ssd_layer_family_ported():
     cfg = get_tiny("mamba2-370m")
     assert cfg.pattern == ("ssd",)
     params = M.init_params(cfg, torch.Generator().manual_seed(0))
-    cache = M.init_cache(cfg, 1, 8)
+    cache = M.init_cache(cfg, 1, 8, device="cpu")
     out = M.forward(cfg, params, tokens=torch.zeros((1, 8), dtype=torch.int32),
                     mode="prefill", cache=cache)
     assert tuple(out.logits.shape) == (1, 8, cfg.padded_vocab)

@@ -186,6 +186,97 @@ def test_chunk_cuda_kernel_segments_vs_plain():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("A", [16, 40, 64])
+def test_chunk_cuda_split_key_window_vs_plain(counts, A, dtype):
+    """A partial window of the path's kind: A 16-64 recomputed rows over
+    S 768 keys of llama3-8b's heads (H 32 / Hkv 8, D 128), which takes the
+    split-key route (partial rows, combine kernel)."""
+    dev = _need_cuda()
+    S, H, Hkv, D, C = 768, 32, 8, 128, 16
+    assert cops.num_splits(1, A, S, H, Hkv, getattr(torch, dtype)) > 1
+    dt = getattr(torch, dtype)
+    tol = F32 if dt == torch.float32 else BF16
+    ins = _chunk_inputs(A * 7, A, S, H, Hkv, D, C)
+    o, m = cops.chunk_attention(*_t(*ins, device=dev, dtype=dt),
+                                num_chunks=C)
+    torch.cuda.synchronize()
+    assert cops.chunk_attention.launches == 1
+    orf, mrf = cops.chunk_attention(*_t(*ins, dtype=dt), num_chunks=C)
+    np.testing.assert_allclose(_np(o), _np(orf), **tol)
+    np.testing.assert_allclose(_np(m), _np(mrf), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("A,S,window", [(50, 200, 0), (101, 333, 64)])
+def test_chunk_cuda_ragged_rows_g3_vs_plain(counts, A, S, window, dtype):
+    """G = 3 (21 rows x 3 heads per CTA, one vector of 64 idle), A not a
+    multiple of 21, S not a multiple of the 32-key tile, padding rows and
+    keys, two packed segments, with and without a sliding window."""
+    dev = _need_cuda()
+    H, Hkv, D, C = 12, 4, 64, 8
+    dt = getattr(torch, dtype)
+    tol = F32 if dt == torch.float32 else BF16
+    q, k, v, qpos, kpos, kch = _chunk_inputs(A + S, A, S, H, Hkv, D, C)
+    qpos[:3] = -1
+    qseg = (np.arange(A) >= A // 2).astype(np.int32)
+    kseg = (np.arange(S) >= S // 2).astype(np.int32)
+    kseg[kpos < 0] = -2
+    tq = _t(q, k, v, qpos, kpos, kch, device=dev, dtype=dt)
+    o, m = cops.chunk_attention(*tq, q_seg=_t(qseg, device=dev)[0],
+                                k_seg=_t(kseg, device=dev)[0],
+                                num_chunks=C, window=window)
+    torch.cuda.synchronize()
+    assert cops.chunk_attention.launches == 1
+    orf, mrf = cops.chunk_attention(*_t(q, k, v, qpos, kpos, kch, dtype=dt),
+                                    q_seg=_t(qseg)[0], k_seg=_t(kseg)[0],
+                                    num_chunks=C, window=window)
+    np.testing.assert_allclose(_np(o), _np(orf), **tol)
+    np.testing.assert_allclose(_np(m), _np(mrf), **tol)
+    assert float(o[:3].float().abs().sum()) == 0.0
+    assert float(m[:3].sum()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("A,S", [(32, 768), (256, 1024)])
+def test_chunk_cuda_two_launches_bit_identical(counts, A, S, dtype):
+    """No atomics: two launches on the same inputs give the same bytes,
+    on the split route (A 32, both types; A 256 in fp32) and with one
+    range (A 256 in bf16)."""
+    dev = _need_cuda()
+    dt = getattr(torch, dtype)
+    ins = _t(*_chunk_inputs(3, A, S, 32, 8, 128, 16), device=dev, dtype=dt)
+    o1, m1 = cops.chunk_attention(*ins, num_chunks=16)
+    o2, m2 = cops.chunk_attention(*ins, num_chunks=16)
+    torch.cuda.synchronize()
+    assert cops.chunk_attention.launches == 2
+    assert torch.equal(o1, o2) and torch.equal(m1, m2)
+
+
+@pytest.mark.cuda
+def test_chunk_cuda_wrapper_raises():
+    """Head dims other than 32 / 64 / 128, more than 64 heads per KV head,
+    too many chunks, mixed devices and int64 positions raise."""
+    dev = _need_cuda()
+    for D in (16, 48, 256):
+        ins = _t(*_chunk_inputs(1, 8, 40, 4, 2, D, 4), device=dev)
+        with pytest.raises(ValueError, match="head dim"):
+            cops.chunk_attention(*ins, num_chunks=4)
+    ins = _t(*_chunk_inputs(2, 8, 40, 4, 2, 32, 4), device=dev)
+    with pytest.raises(ValueError, match="num_chunks"):
+        cops.chunk_attention(*ins, num_chunks=65)
+    with pytest.raises(ValueError, match="on cpu"):
+        cops.chunk_attention(*ins[:5], ins[5].cpu(), num_chunks=4)
+    with pytest.raises(TypeError):
+        cops.chunk_attention(*ins[:3], ins[3].long(), *ins[4:], num_chunks=4)
+    big_g = _t(*_chunk_inputs(4, 2, 40, 65, 1, 32, 4), device=dev)
+    with pytest.raises(ValueError, match="H/Hkv"):
+        cops.chunk_attention(*big_g, num_chunks=4)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,S,H,Hkv,D,window", DECODE_CASES)
 def test_decode_cuda_kernel_vs_plain(counts, B, S, H, Hkv, D, window):
     dev = _need_cuda()

@@ -4,10 +4,12 @@ per CUDA thread, real barriers and warp shuffles) and held against the
 plain versions at 3e-5 on the parametrisations of ``tests/test_kernels.py``.
 
 This checks the sources' indexing, masking, padding, tile skipping and
-online-softmax logic, the SSD block's row tiling and causal skip, and
-the RoPE kernel's vector lanes and shared positions, on a host without a
-GPU; the card itself checks what
-``nvcc`` makes of them (``chip_smoke.py``)."""
+online-softmax logic (the chunk kernel's mma fragments, asynchronous
+copies and split-key combine included), the SSD block's row tiling and
+causal skip, and the RoPE kernel's vector lanes and shared positions, on
+a host without a GPU; the card itself checks what ``nvcc`` makes of them
+(``chip_smoke.py``). The shim's mma helpers are held against plain
+products, and the chunk source's tf32 rounding against numpy."""
 import ctypes
 import os
 import shutil
@@ -18,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.chunk_attention import ops as cops
 from repro_torch.kernels.chunk_attention.ref import chunk_attention_ref
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref,
@@ -54,7 +57,7 @@ def libs(tmp_path_factory):
         assert proc.returncode == 0, log
         loaded[name] = ctypes.CDLL(str(so))
     fc = loaded["chunk_attention"].chunk_attention_fwd
-    fc.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + \
+    fc.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + \
         [ctypes.c_void_p]
     fd = loaded["decode_attention"].decode_attention_fwd
     fd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + \
@@ -78,18 +81,22 @@ def _t(x, dtype=None):
     return t.to(dtype) if dtype is not None else t
 
 
-def _chunk(fc, q, k, v, qpos, kpos, kch, qseg, kseg, C, window):
-    """[A,H,D] / [S,Hkv,D] inputs through the emulated kernel (B=1)."""
+def _chunk(fc, q, k, v, qpos, kpos, kch, qseg, kseg, C, window,
+           nsplit=None):
+    """[A,H,D] / [S,Hkv,D] inputs through the emulated kernel (B=1), with
+    the wrapper's key split unless ``nsplit`` is given."""
     A, H, D = q.shape
     S, Hkv = k.shape[:2]
+    if nsplit is None:
+        nsplit = cops.num_splits(1, A, S, H, Hkv, q.dtype)
     ts = [x[None].contiguous() for x in (q, k, v, qpos, kpos, kch, qseg,
                                           kseg)]
     out = torch.empty_like(ts[0])
-    mass_part = torch.empty((1, Hkv, A, C))
+    work = torch.empty(cops.workspace_floats(1, A, H, Hkv, D, C, nsplit))
     mass = torch.empty((1, A, C))
-    err = fc(*[t.data_ptr() for t in ts], out.data_ptr(),
-             mass_part.data_ptr(), mass.data_ptr(), 1, A, S, H, Hkv, D, C,
-             window, int(q.dtype == torch.bfloat16), None)
+    err = fc(*[t.data_ptr() for t in ts], out.data_ptr(), work.data_ptr(),
+             mass.data_ptr(), 1, A, S, H, Hkv, D, C, window,
+             int(q.dtype == torch.bfloat16), nsplit, None)
     assert err == 0
     return out[0], mass[0]
 
@@ -137,6 +144,230 @@ def test_chunk_source_bf16_vs_plain(libs):
     assert o.dtype == torch.bfloat16
     torch.testing.assert_close(o.float(), o_r.float(), rtol=3e-2, atol=3e-2)
     torch.testing.assert_close(m, m_r, rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunk_source_split_routes_agree(libs, dtype):
+    """One input through the kernel with 1 (self-normalising CTAs, per-KV
+    -head mass reduce), 2, 3 and (fp32, 32-key tiles) 5 key ranges
+    (partial rows, fixed-order combine): every route equals the plain
+    version, and a route run twice gives the same bytes. S 150 leaves a
+    ragged last tile; G 3."""
+    rng = np.random.default_rng(21)
+    A, S, H, Hkv, D, C = 40, 150, 6, 2, 64, 12
+    dt = getattr(torch, dtype)
+    q = _t(rng.normal(size=(A, H, D)).astype(np.float32), dt)
+    k = _t(rng.normal(size=(S, Hkv, D)).astype(np.float32), dt)
+    v = _t(rng.normal(size=(S, Hkv, D)).astype(np.float32), dt)
+    qpos = np.sort(rng.choice(S, A, replace=False)).astype(np.int32)
+    qpos[-3:] = -1                                   # padding rows
+    kpos = np.arange(S, dtype=np.int32)
+    kch = (np.arange(S) * C // S).astype(np.int32)
+    zeros = np.zeros
+    ins = [q, k, v] + [_t(x) for x in (qpos, kpos, kch,
+                                       zeros(A, np.int32),
+                                       zeros(S, np.int32))]
+    o_r, m_r = chunk_attention_ref(*ins[:6], num_chunks=C)
+    tol = F32 if dtype == "float32" else dict(rtol=3e-2, atol=3e-2)
+    tiles = -(-S // (32 if dtype == "float32" else 64))
+    for ns in (n for n in (1, 2, 3, 5) if n <= tiles):
+        o, m = _chunk(libs[0], *ins, C, 0, nsplit=ns)
+        torch.testing.assert_close(o.float(), o_r.float(), **tol)
+        torch.testing.assert_close(m, m_r, **tol)
+        o2, m2 = _chunk(libs[0], *ins, C, 0, nsplit=ns)
+        assert torch.equal(o, o2) and torch.equal(m, m2)
+        assert float(o[-3:].float().abs().sum()) == 0.0
+        assert float(m[-3:].sum()) == 0.0
+
+
+def test_chunk_split_count_from_shapes():
+    """The path's shapes (llama3-8b, H 32 / Hkv 8): fp32 splits the keys
+    up to 3 x 132 CTAs, bf16 only up to 132 (one per SM); full-size
+    prefill runs one range; ranges are whole tiles, never empty."""
+    f32, b16 = torch.float32, torch.bfloat16
+    assert cops.num_splits(1, 160, 224, 32, 8, f32) == 4     # 80 CTAs
+    assert cops.num_splits(1, 256, 1024, 32, 8, f32) == 3    # 128 CTAs
+    assert cops.num_splits(1, 512, 768, 32, 8, f32) == 1     # 256 CTAs
+    assert cops.num_splits(1, 32, 768, 32, 8, f32) == 12     # 24 tiles, 2 each
+    assert cops.num_splits(1, 160, 224, 32, 8, b16) == 1
+    assert cops.num_splits(1, 256, 1024, 32, 8, b16) == 1
+    assert cops.num_splits(1, 32, 768, 32, 8, b16) == 6      # 12 tiles of 64
+    assert cops.num_splits(1, 16, 20, 4, 4, f32) == 1        # one tile
+    for args in ((1, 160, 192, 32, 8), (2, 50, 70, 6, 2), (1, 24, 800, 8, 1)):
+        for dt, bk in ((f32, 32), (b16, 64)):
+            ns = cops.num_splits(*args, dt)
+            tiles = -(-args[2] // bk)
+            per = -(-tiles // ns)
+            assert 1 <= ns <= tiles and (ns - 1) * per < tiles
+
+
+# The shim's mma helpers, called from one emulated warp, and the chunk
+# source's tf32 rounding (the source is included whole). Fragments
+# are placed here by the PTX ISA's layouts, written out independently of
+# the shim: groupID g = lane / 4, threadID_in_group t = lane % 4;
+# m16n8k8 tf32 A a0..a3 = (g, t) (g+8, t) (g, t+4) (g+8, t+4), B b0, b1 =
+# (t, g) (t+4, g); m16n8k16 bf16 A a0..a3 = (g, 2t..2t+1) (g+8, 2t..)
+# (g, 2t+8..) (g+8, 2t+8..), B b0, b1 = (2t..2t+1, g) (2t+8.., g); C c0..c3
+# = (g, 2t) (g, 2t+1) (g+8, 2t) (g+8, 2t+1).
+FRAG_SRC = r"""
+#include "@CHUNK_SOURCE@"
+static uint32_t bfpair(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
+}
+__global__ void tile_kernel(const float* A, const float* B, float* C,
+                            int bf16) {
+  const int lane = threadIdx.x, g = lane / 4, t = lane % 4;
+  uint32_t a[4], b[2];
+  if (bf16) {      // A [16][16], B [16][8]
+    for (int i = 0; i < 4; ++i) {
+      const int r = g + 8 * (i % 2), c = 2 * t + 8 * (i / 2);
+      a[i] = bfpair(A[r * 16 + c], A[r * 16 + c + 1]);
+    }
+    for (int i = 0; i < 2; ++i) {
+      const int kk = 2 * t + 8 * i;
+      b[i] = bfpair(B[kk * 8 + g], B[(kk + 1) * 8 + g]);
+    }
+  } else {         // A [16][8], B [8][8], values already tf32
+    for (int i = 0; i < 4; ++i)
+      a[i] = __float_as_uint(A[(g + 8 * (i % 2)) * 8 + t + 4 * (i / 2)]);
+    for (int i = 0; i < 2; ++i) b[i] = __float_as_uint(B[(t + 4 * i) * 8 + g]);
+  }
+  float d[4];
+  for (int e = 0; e < 4; ++e) d[e] = C[(g + 8 * (e / 2)) * 8 + 2 * t + e % 2];
+  if (bf16) mma_m16n8k16_bf16(d, a, b); else mma_m16n8k8_tf32(d, a, b);
+  for (int e = 0; e < 4; ++e) C[(g + 8 * (e / 2)) * 8 + 2 * t + e % 2] = d[e];
+}
+extern "C" int mma_tile(const float* A, const float* B, float* C, int bf16) {
+  LAUNCH(tile_kernel, dim3(1), dim3(32), 0, 0)(A, B, C, bf16);
+  return 0;
+}
+// bf16 fragments by ldmatrix: A [16][16] row-major (x4), B once as [k][n]
+// (x4.trans, as V is stored) and once as [n][k] (x4, as K is stored);
+// C1 = A B through the first, C2 through the second
+__global__ void ldm_kernel(const uint16_t* A, const uint16_t* Bkn,
+                           const uint16_t* Bnk, float* C1, float* C2) {
+  const int lane = threadIdx.x, mi = lane / 8, mr = lane % 8;
+  const int g = lane / 4, t = lane % 4;
+  uint32_t a[4], bt[4], bn[4];
+  ldmatrix_x4(a, A + (mr + 8 * (mi % 2)) * 16 + 8 * (mi / 2));
+  ldmatrix_x4_trans(bt, Bkn + (mr + 8 * (mi % 2)) * 8);
+  ldmatrix_x4(bn, Bnk + mr * 16 + 8 * (mi % 2));
+  float d1[4] = {0, 0, 0, 0}, d2[4] = {0, 0, 0, 0};
+  mma_m16n8k16_bf16(d1, a, bt);
+  mma_m16n8k16_bf16(d2, a, bn);
+  for (int e = 0; e < 4; ++e) {
+    C1[(g + 8 * (e / 2)) * 8 + 2 * t + e % 2] = d1[e];
+    C2[(g + 8 * (e / 2)) * 8 + 2 * t + e % 2] = d2[e];
+  }
+}
+extern "C" int ldm_tile(const uint16_t* A, const uint16_t* Bkn,
+                        const uint16_t* Bnk, float* C1, float* C2) {
+  LAUNCH(ldm_kernel, dim3(1), dim3(32), 0, 0)(A, Bkn, Bnk, C1, C2);
+  return 0;
+}
+extern "C" void tf32_round(const float* x, uint32_t* out, int n) {
+  for (int i = 0; i < n; ++i) out[i] = tf32_rna(x[i]);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def frag(tmp_path_factory):
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler (g++) for the emulated build")
+    out = tmp_path_factory.mktemp("frag")
+    src, so = out / "frag.cu", out / "libfrag.so"
+    src.write_text(FRAG_SRC.replace(
+        "@CHUNK_SOURCE@", str(build.source("chunk_attention"))))
+    proc = subprocess.run(
+        [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-x", "c++",
+         f"-I{EMU}", "-include", os.path.join(EMU, "cuda_emu.h"), str(src),
+         "-o", str(so), "-lpthread"], capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lib = ctypes.CDLL(str(so))
+    lib.mma_tile.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
+    lib.tf32_round.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    lib.ldm_tile.argtypes = [ctypes.c_void_p] * 5
+    return lib
+
+
+def _tf32_np(x):
+    """Round fp32 to tf32 (11 significant bits) to nearest, ties away from
+    zero, in float64 arithmetic: m * 2^e with |m| in [0.5, 1), m scaled to
+    11 bits and rounded half away from zero."""
+    m, e = np.frexp(np.asarray(x, np.float64))
+    r = np.sign(m) * np.floor(np.abs(m) * 2.0 ** 11 + 0.5)
+    return (r * np.exp2(e - 11.0)).astype(np.float32)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_emulated_mma_tile_vs_plain_product(frag, bf16):
+    """One 16x8xK tile through the shim's mma helper (fragments placed by
+    the ISA's layouts) == C + A @ B in float64 on the rounded operands:
+    products of tf32 / bf16 values are exact in fp32, so only the fp32
+    accumulation rounds."""
+    rng = np.random.default_rng(7 + bf16)
+    K = 16 if bf16 else 8
+    A = rng.normal(size=(16, K)).astype(np.float32)
+    B = rng.normal(size=(K, 8)).astype(np.float32)
+    C = rng.normal(size=(16, 8)).astype(np.float32)
+    if bf16:
+        Ar = torch.from_numpy(A).bfloat16().float().numpy()
+        Br = torch.from_numpy(B).bfloat16().float().numpy()
+    else:
+        A, B = _tf32_np(A), _tf32_np(B)
+        Ar, Br = A, B
+    want = C.astype(np.float64) + Ar.astype(np.float64) @ Br
+    got = C.copy()
+    frag.mma_tile(A.ctypes.data, B.ctypes.data, got.ctypes.data, int(bf16))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    # every element of A and B is read from its own lane and register
+    assert not np.allclose(got, C)
+
+
+def test_emulated_ldmatrix_fragments_vs_plain_product(frag):
+    """ldmatrix x4 (Q / K as stored, row-major) and x4.trans (V as stored,
+    key-major) in the shim place the elements where m16n8k16 expects them:
+    both routes give A @ B of the bf16 values."""
+    rng = np.random.default_rng(5)
+    A = torch.from_numpy(rng.normal(size=(16, 16)).astype(np.float32))
+    B = torch.from_numpy(rng.normal(size=(16, 8)).astype(np.float32))
+    Ab, Bb = A.bfloat16(), B.bfloat16()
+    bits = lambda t: np.ascontiguousarray(  # noqa: E731
+        t.contiguous().view(torch.int16).numpy())
+    a16, bkn, bnk = bits(Ab), bits(Bb), bits(Bb.t())
+    c1 = np.zeros((16, 8), np.float32)
+    c2 = np.zeros((16, 8), np.float32)
+    frag.ldm_tile(a16.ctypes.data, bkn.ctypes.data, bnk.ctypes.data,
+                  c1.ctypes.data, c2.ctypes.data)
+    want = Ab.double().numpy() @ Bb.double().numpy()
+    np.testing.assert_allclose(c1, want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(c2, want, rtol=1e-6, atol=1e-6)
+
+
+def test_source_tf32_rounding_vs_numpy(frag):
+    """The chunk source's tf32 rounding (cvt.rna.tf32.f32's function, in
+    integer operations) == numpy's round-half-away on 11 significant bits,
+    on random values, exact ties (the 13 dropped bits 0x1000) of both
+    signs, values just below and above a tie, and a carry into the
+    exponent."""
+    rng = np.random.default_rng(11)
+    base = rng.normal(size=4096).astype(np.float32) * \
+        np.exp2(rng.integers(-40, 40, 4096)).astype(np.float32)
+    u = base.view(np.uint32) & np.uint32(0xFFFFE000)
+    ties = np.concatenate([u | np.uint32(0x1000), u | np.uint32(0x0FFF),
+                           u | np.uint32(0x1001)]).view(np.float32)
+    carry = np.array([0x3FFFF000, 0xBFFFF000, 0x3F7FF000],
+                     np.uint32).view(np.float32)
+    x = np.concatenate([base, ties, carry, np.float32([1.0, -2.5])])
+    out = np.empty(x.size, np.uint32)
+    frag.tf32_round(x.ctypes.data, out.ctypes.data, x.size)
+    want = _tf32_np(x).view(np.uint32)
+    np.testing.assert_array_equal(out, want)
+    assert not np.any(out & np.uint32(0x1FFF))
 
 
 @pytest.mark.parametrize("B,S,H,Hkv,D,window", [

@@ -164,7 +164,7 @@ def test_step_roots_vs_reference(world):
     cfg, jcfg, tp, jp = world
     toks = _tokens(cfg, T=24, seed=9)
     B = toks.shape[0]
-    tc = TM.init_cache(cfg, B, 24)
+    tc = TM.init_cache(cfg, B, 24, device="cpu")
     jc = JM.init_cache(jcfg, B, 24)
     tl, tc = TS.make_prefill_step(cfg)(
         tp, {"tokens": torch.from_numpy(toks[:, :16]), "cache": tc})

@@ -43,7 +43,8 @@ def world():
     cfg = get_tiny("llama3-8b")
     jcfg = j_tiny("llama3-8b")
     jparams = JM.init_params(jcfg, jax.random.PRNGKey(0))
-    params = TM.params_from_jax(cfg, jax.tree.map(np.asarray, jparams))
+    params = TM.params_from_jax(cfg, jax.tree.map(np.asarray, jparams),
+                                "cpu")
     kb = KnowledgeBase(num_chunks=12, vocab_size=cfg.vocab_size, seed=0)
     return cfg, params, kb, jcfg, jparams
 

@@ -27,7 +27,8 @@ KW = dict(use_focus=False, force_recompute_fraction=0.25,
 def tiny_world():
     cfg = get_tiny("llama3-8b")
     jparams = JM.init_params(j_tiny("llama3-8b"), jax.random.PRNGKey(0))
-    params = TM.params_from_jax(cfg, jax.tree.map(np.asarray, jparams))
+    params = TM.params_from_jax(cfg, jax.tree.map(np.asarray, jparams),
+                                "cpu")
     rng = np.random.default_rng(0)
     V = cfg.vocab_size
     kb = [rng.integers(0, V, 24) for _ in range(6)]
