@@ -9,8 +9,9 @@ Phases (each prints its own line; any failure raises and exits non-zero):
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from ``src/repro_torch/kernels/*/csrc`` (one
    ``nvcc`` per source, all at once) and print the build seconds, the
-   registers ``ptxas`` reports, and the chunk kernel's shared memory and
-   resident CTAs per SM (at least 2 required);
+   registers ``ptxas`` reports, the chunk kernel's shared memory and
+   resident CTAs per SM (at least 2 required) and the decode kernels'
+   (G 4, D 128);
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, in fp32 (tolerance 3e-5, the reference's) and
    bf16 (3e-2), and time kernel, plain version and, where one exists,
@@ -19,10 +20,14 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    kernel's bound from the bytes and operations these inputs need (the
    chunk kernel's fp32 products as 3xTF32 at the TF32 rate, the CUDA-core
    figure beside it). Two chunk launches on the same inputs must give the
-   same bytes. The chunk kernel is measured again after engine A, on the
-   recorded inputs of A's most frequent ``(B, A, S)``, and timed at each
-   number of key ranges at the table's shape and every shape A launched,
-   beside the count ``num_splits`` picks (``sweep_chunk_splits``). RoPE
+   same bytes, and so must two launches of each decode kernel. The chunk
+   kernel is measured again after engine A, on the recorded inputs of
+   A's most frequent ``(B, A, S)``, and timed at each number of key
+   ranges at the table's shape and every shape A launched, beside the
+   count ``num_splits`` picks (``sweep_chunk_splits``); the decode
+   kernels likewise on the recorded inputs of A's most frequent ``(B,
+   S)`` and B's most frequent ``(B, NBmax, bs)`` (``DecodeRecorder``,
+   ``sweep_decode_splits``). RoPE
    is held at two shapes (K of one chunk over all layers, a 1024-token
    span), applying and removing, with one whole-stack call equal to one
    call per layer byte for byte and remove o apply within 2e-5 of x;
@@ -37,9 +42,11 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    ``cachecraft`` with a chunk store, ``attn_impl="kernel"``: chunk
    attention in the prefill windows, decode attention over the arena,
    the RoPE kernel removing RoPE from every stored chunk and re-applying
-   it to every reused one; logs the chunk calls by ``(B, A, S)``;
+   it to every reused one; logs the chunk calls by ``(B, A, S)`` and the
+   decode calls by ``(B, S)``;
 6. engine B: the same weights and workload with ``paged_decode=True,
-   attn_impl="paged_kernel"``: the paged kernel reads the pool in place;
+   attn_impl="paged_kernel"``: the paged kernel reads the pool in place
+   (its calls logged by ``(B, NBmax, bs)``);
 7. engine C: the same with ``attn_impl="dense"`` (plain PyTorch
    attention); A's and B's per-step decode logits are held against C's;
 8. server: the HTTP server (``serving/server.py``) around a fresh
@@ -52,8 +59,10 @@ Phases (each prints its own line; any failure raises and exits non-zero):
 
 Launch counts are set to 0 just before the mamba2 phase and engines A and
 B run and read just after (rope and the attention kernels of engine A in
-A, paged decode in B); the comparison launches of phase 3 do not count. Without CUDA, or without the repository's ``src/`` beside it, the
-script exits non-zero and prints no result.
+A, paged decode in B); the comparison launches of phase 3 and the
+replays after the engines do not count. Without CUDA, or without the
+repository's ``src/`` beside it, the script exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
@@ -113,6 +122,39 @@ def cuda_ms(fn, iters=20, warmup=3):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def device_ms(fn, iters=20, warmup=3, windows=3):
+    """Device time of one call of ``fn``: the durations of the kernels,
+    copies and memsets ``torch.profiler`` records over ``iters`` calls,
+    summed and divided by ``iters``; the median over ``windows`` profiled
+    windows, since a window now and then records no or too little device
+    activity. Unlike ``cuda_ms`` it leaves out the host's time between
+    launches, which a call that is cheap on the card cannot hide. None if
+    no window saw device activity."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    reads = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(float(ev.self_device_time_total)
+                 for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            reads.append(us / iters / 1e3)
+    return float(np.median(reads)) if reads else None
+
+
+def _fmt(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def bound(nbytes, flops, dtype):
@@ -385,112 +427,297 @@ def paged_inputs(rng, dev):
                 q_pos=torch.from_numpy(qpos).to(dev))
 
 
-def check_kernels(dev):
-    import numpy as np
+def _cast(d, dt):
+    import torch
+    return {n: (x.to(dt) if isinstance(x, torch.Tensor)
+                and x.is_floating_point() else x) for n, x in d.items()}
+
+
+def _err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def _decode_live(q_pos, k_pos, window):
+    """[B, S] bool: the keys the decode mask lets through."""
+    live = (k_pos >= 0) & (k_pos <= q_pos[:, None])
+    if window:
+        live &= (q_pos[:, None] - k_pos) < window
+    return live
+
+
+def _paged_gather(pi):
+    """The paged inputs' keys per request in block-row order: block ids
+    (-1 -> 0), positions [B, NBmax * bs] (-1 on -1 blocks)."""
+    import torch
+    bs = pi["k_blocks"].shape[1]
+    rows = pi["block_rows"].long()
+    safe = rows.clamp(min=0)
+    gpos = pi["kpos_blocks"][safe].reshape(rows.shape[0], -1)
+    gpos = torch.where((rows >= 0).repeat_interleave(bs, 1), gpos,
+                       torch.full_like(gpos, -1))
+    return safe, gpos
+
+
+def measure_decode(label, di):
+    """decode_attention on ``di`` (q, k, v, q_pos, k_pos as the wrapper
+    takes them, fp32, and ``window``) in fp32 and bf16: error against the
+    plain version, two launches byte for byte, kernel / plain / SDPA
+    times and the bound from the keys these inputs let through."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import ops as dops
-    from repro_torch.kernels.decode_attention.ref import (
-        decode_attention_ref, paged_decode_attention_ref)
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-    rng = np.random.default_rng(0)
-    rows = {}
-
-    def cast(d, dt):
-        return {n: (x.to(dt) if isinstance(x, torch.Tensor)
-                    and x.is_floating_point() else x) for n, x in d.items()}
-
-    def err(a, b):
-        return float((a.float() - b.float()).abs().max())
-
-    # ---- chunk attention, at the kernel table's shape ----
-    rows["chunk_attention"] = measure_chunk("table", chunk_inputs(rng, dev))
-
-    # ---- decode attention ----
-    di = decode_inputs(rng, dev)
+    window = di.get("window", 0)
     B, H, D = di["q"].shape
     S, Hkv = di["k"].shape[1:3]
-    live = (di["k_pos"] >= 0) & (di["k_pos"] <= di["q_pos"][:, None])
+    live = _decode_live(di["q_pos"], di["k_pos"], window)
     n_keys = int(live.sum())
     res = {}
     for dt_name in ("float32", "bfloat16"):
-        x = cast(di, getattr(torch, dt_name))
+        dt = getattr(torch, dt_name)
+        x = _cast(di, dt)
         args = (x["q"], x["k"], x["v"], x["q_pos"], x["k_pos"])
-        o = dops.decode_attention(*args)
+        o = dops.decode_attention(*args, window=window)
+        o2 = dops.decode_attention(*args, window=window)
         torch.cuda.synchronize()
-        e = err(o, decode_attention_ref(*args))
+        if not torch.equal(o, o2):
+            raise RuntimeError(f"decode_attention {label} {dt_name}: two "
+                               "launches on the same inputs differ")
+        e = _err(o, decode_attention_ref(*args, window=window))
         if not (e <= TOL[dt_name] and torch.isfinite(o).all()):
-            raise RuntimeError(f"decode_attention {dt_name}: max abs err "
-                               f"{e} > {TOL[dt_name]}")
+            raise RuntimeError(f"decode_attention {label} {dt_name}: max "
+                               f"abs err {e} > {TOL[dt_name]}")
         qh = x["q"][:, :, None]                          # [B, H, 1, D]
         kh = x["k"].transpose(1, 2).contiguous()
         vh = x["v"].transpose(1, 2).contiguous()
         lmask = live[:, None, None, :]
-        t_k = cuda_ms(lambda: dops.decode_attention(*args))
-        t_p = cuda_ms(lambda: decode_attention_ref(*args))
-        t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=lmask, enable_gqa=True))
+        kern = lambda: dops.decode_attention(  # noqa: E731
+            *args, window=window)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qh, kh, vh, attn_mask=lmask, enable_gqa=True)
+        t_k, t_l = cuda_ms(kern), cuda_ms(lib)
+        t_p = cuda_ms(lambda: decode_attention_ref(*args, window=window))
+        d_k, d_l = device_ms(kern), device_ms(lib)
         el = x["q"].element_size()
         nbytes = (2 * B * H * D + 2 * n_keys * Hkv * D) * el + \
             4 * (B + B * S)
         b_ms, b_by = bound(nbytes, 4 * D * H * n_keys, dt_name)
+        ns = dops.num_splits(B, S, Hkv, dt)
         res[dt_name] = dict(err=e, ms=t_k, plain_ms=t_p, library_ms=t_l,
-                            bound_ms=b_ms, bound_by=b_by)
-        log(f"kernel decode_attention {dt_name} B={B} S={S} H={H} "
-            f"Hkv={Hkv} D={D} live_keys={n_keys}: max_abs_err={e:.3e} "
-            f"(tol {TOL[dt_name]}) ms={t_k:.4f} plain_ms={t_p:.4f} "
-            f"library_ms={t_l:.4f} bound_ms={b_ms:.4f} ({b_by})")
-    rows["decode_attention"] = res
+                            device_ms=d_k, library_device_ms=d_l,
+                            bound_ms=b_ms, bound_by=b_by, splits=ns)
+        log(f"kernel decode_attention {label} {dt_name} B={B} S={S} H={H} "
+            f"Hkv={Hkv} D={D} window={window} live_keys={n_keys} "
+            f"splits={ns}: max_abs_err={e:.3e} (tol {TOL[dt_name]}) two "
+            f"launches bit-identical ms={t_k:.4f} device_ms={_fmt(d_k)} "
+            f"plain_ms={t_p:.4f} library_ms={t_l:.4f} library_device_ms="
+            f"{_fmt(d_l)} bound_ms={b_ms:.4f} ({b_by}) share={b_ms / t_k:.1%}"
+            f" of ms, {'-' if d_k is None else f'{b_ms / d_k:.1%}'} of "
+            "device_ms")
+    return res
 
-    # ---- paged decode attention ----
-    pi = paged_inputs(rng, dev)
+
+def measure_paged(label, pi):
+    """paged_decode_attention on ``pi`` (the wrapper's inputs, fp32, and
+    ``window``) in fp32 and bf16, as ``measure_decode``; the SDPA
+    yardstick runs on the same keys gathered densely beforehand (the
+    gather itself is not timed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention.ref import \
+        paged_decode_attention_ref
+
+    window = pi.get("window", 0)
     B, H, D = pi["q"].shape
     NB, bs, Hkv = pi["k_blocks"].shape[:3]
-    brows = pi["block_rows"].long()
-    safe = brows.clamp(min=0)
-    gpos = pi["kpos_blocks"][safe].reshape(B, -1)
-    gpos = torch.where((brows >= 0).repeat_interleave(bs, 1), gpos,
-                       torch.full_like(gpos, -1))
-    live = (gpos >= 0) & (gpos <= pi["q_pos"][:, None])
+    NBmax = pi["block_rows"].shape[1]
+    safe, gpos = _paged_gather(pi)
+    live = _decode_live(pi["q_pos"], gpos, window)
     n_keys = int(live.sum())
-    ref_blocks = torch.unique(brows[brows >= 0])
-    n_slots_needed = int(((pi["kpos_blocks"][ref_blocks] >= 0)).sum())
+    brows = pi["block_rows"]
+    ref_blocks = torch.unique(brows[brows >= 0].long())
+    n_slots_needed = int((pi["kpos_blocks"][ref_blocks] >= 0).sum())
     res = {}
     for dt_name in ("float32", "bfloat16"):
-        x = cast(pi, getattr(torch, dt_name))
+        dt = getattr(torch, dt_name)
+        x = _cast(pi, dt)
         args = (x["q"], x["k_blocks"], x["v_blocks"], x["kpos_blocks"],
                 x["block_rows"], x["q_pos"])
-        o = dops.paged_decode_attention(*args)
+        o = dops.paged_decode_attention(*args, window=window)
+        o2 = dops.paged_decode_attention(*args, window=window)
         torch.cuda.synchronize()
-        e = err(o, paged_decode_attention_ref(*args))
+        if not torch.equal(o, o2):
+            raise RuntimeError(f"paged_decode_attention {label} {dt_name}: "
+                               "two launches on the same inputs differ")
+        e = _err(o, paged_decode_attention_ref(*args, window=window))
         if not (e <= TOL[dt_name] and torch.isfinite(o).all()):
-            raise RuntimeError(f"paged_decode_attention {dt_name}: max abs "
-                               f"err {e} > {TOL[dt_name]}")
-        # yardstick: SDPA over the same keys gathered densely beforehand
-        # (the gather itself is not timed)
+            raise RuntimeError(f"paged_decode_attention {label} {dt_name}: "
+                               f"max abs err {e} > {TOL[dt_name]}")
         kg = x["k_blocks"][safe].reshape(B, -1, Hkv, D).transpose(1, 2) \
             .contiguous()
         vg = x["v_blocks"][safe].reshape(B, -1, Hkv, D).transpose(1, 2) \
             .contiguous()
         qh = x["q"][:, :, None]
         lmask = live[:, None, None, :]
-        t_k = cuda_ms(lambda: dops.paged_decode_attention(*args))
-        t_p = cuda_ms(lambda: paged_decode_attention_ref(*args))
-        t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qh, kg, vg, attn_mask=lmask, enable_gqa=True))
+        kern = lambda: dops.paged_decode_attention(  # noqa: E731
+            *args, window=window)
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qh, kg, vg, attn_mask=lmask, enable_gqa=True)
+        t_k, t_l = cuda_ms(kern), cuda_ms(lib)
+        t_p = cuda_ms(lambda: paged_decode_attention_ref(*args,
+                                                         window=window))
+        d_k, d_l = device_ms(kern), device_ms(lib)
         el = x["q"].element_size()
         nbytes = (2 * B * H * D + 2 * n_slots_needed * Hkv * D) * el + \
-            4 * (B + B * brows.shape[1] + int(ref_blocks.numel()) * bs)
+            4 * (B + B * NBmax + int(ref_blocks.numel()) * bs)
         b_ms, b_by = bound(nbytes, 4 * D * H * n_keys, dt_name)
+        ns = dops.num_splits(B, NBmax * bs, Hkv, dt, block=bs)
         res[dt_name] = dict(err=e, ms=t_k, plain_ms=t_p, library_ms=t_l,
-                            bound_ms=b_ms, bound_by=b_by)
-        log(f"kernel paged_decode_attention {dt_name} NB={NB} bs={bs} B={B} "
-            f"NBmax={brows.shape[1]} live_keys={n_keys}: max_abs_err={e:.3e}"
-            f" (tol {TOL[dt_name]}) ms={t_k:.4f} plain_ms={t_p:.4f} "
-            f"library_ms={t_l:.4f} bound_ms={b_ms:.4f} ({b_by})")
-    rows["paged_decode_attention"] = res
-    return rows
+                            device_ms=d_k, library_device_ms=d_l,
+                            bound_ms=b_ms, bound_by=b_by, splits=ns)
+        log(f"kernel paged_decode_attention {label} {dt_name} NB={NB} "
+            f"bs={bs} B={B} NBmax={NBmax} window={window} "
+            f"live_keys={n_keys} splits={ns}: max_abs_err={e:.3e} (tol "
+            f"{TOL[dt_name]}) two launches bit-identical ms={t_k:.4f} "
+            f"device_ms={_fmt(d_k)} plain_ms={t_p:.4f} library_ms="
+            f"{t_l:.4f} library_device_ms={_fmt(d_l)} bound_ms={b_ms:.4f} "
+            f"({b_by}) share={b_ms / t_k:.1%} of ms, "
+            f"{'-' if d_k is None else f'{b_ms / d_k:.1%}'} of device_ms")
+    return res
+
+
+def sweep_decode_splits(inputs, splits=(1, 2, 3, 4, 6, 8, 12, 16, 24, 32)):
+    """Times the decode kernels on each of ``inputs`` (label -> ("dense" |
+    "paged", inputs as ``measure_decode`` / ``measure_paged`` take them))
+    in fp32 and bf16 at each number of key ranges that gives whole,
+    non-empty ranges (``split_units``: tiles, or runs of pool blocks), by
+    the card's clock (``device_ms``) and by events, through the
+    wrapper with ``num_splits`` held at that count, and prints the count
+    ``num_splits`` picks beside the fastest. Each forced count is held
+    against the plain version. Returns {label: {dtype: {...}}}."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, paged_decode_attention_ref)
+
+    rule = dops.num_splits
+    res = {}
+    try:
+        for label, (kind, di) in inputs.items():
+            window = di.get("window", 0)
+            B = di["q"].shape[0]
+            for dt_name in ("float32", "bfloat16"):
+                dt = getattr(torch, dt_name)
+                x = _cast(di, dt)
+                if kind == "dense":
+                    fn = dops.decode_attention
+                    args = (x["q"], x["k"], x["v"], x["q_pos"], x["k_pos"])
+                    ref = decode_attention_ref(*args, window=window)
+                    S, Hkv = x["k"].shape[1:3]
+                    units, pick = dops.split_units(S, dt), rule(B, S, Hkv, dt)
+                else:
+                    fn = dops.paged_decode_attention
+                    args = (x["q"], x["k_blocks"], x["v_blocks"],
+                            x["kpos_blocks"], x["block_rows"], x["q_pos"])
+                    ref = paged_decode_attention_ref(*args, window=window)
+                    bs, Hkv = x["k_blocks"].shape[1:3]
+                    S = x["block_rows"].shape[1] * bs
+                    units = dops.split_units(S, dt, block=bs)
+                    pick = rule(B, S, Hkv, dt, block=bs)
+                # the counts the kernel takes: units split into ranges of
+                # ceil(units / n), none empty
+                counts = sorted({-(-units // -(-units // n)) for n in splits
+                                 if n <= units} | {pick})
+                ms, dms = {}, {}
+                for n in counts:
+                    dops.num_splits = lambda *a, n=n, **k: n  # noqa: E731
+                    o = fn(*args, window=window)
+                    torch.cuda.synchronize()
+                    e = _err(o, ref)
+                    if not e <= TOL[dt_name]:
+                        raise RuntimeError(
+                            f"{kind} decode {label} {dt_name} with {n} key "
+                            f"ranges: max abs err {e} > {TOL[dt_name]}")
+                    ms[n] = cuda_ms(lambda: fn(*args, window=window))
+                    dms[n] = device_ms(lambda: fn(*args, window=window))
+                dops.num_splits = rule
+                # the fastest on the card's own clock (device time), the
+                # host's share of a call being the same at every count
+                key = {n: t for n, t in dms.items() if t is not None} or ms
+                best = min(key, key=key.get)
+                res.setdefault(label, {})[dt_name] = dict(
+                    rule=pick, best=best, ms=ms, device_ms=dms)
+                log(f"decode split sweep {label} {dt_name}: num_splits "
+                    f"picks {pick} (device {_fmt(dms[pick])} ms, "
+                    f"{ms[pick]:.4f} ms), fastest {best} (device "
+                    f"{_fmt(dms[best])} ms, {ms[best]:.4f} ms); device ms "
+                    "by ranges " + " ".join(f"{n}:{_fmt(t)}"
+                                            for n, t in dms.items())
+                    + "; ms by ranges " + " ".join(
+                        f"{n}:{t:.4f}" for n, t in ms.items()))
+    finally:
+        dops.num_splits = rule
+    return res
+
+
+class DecodeRecorder:
+    """Wraps the decode wrappers' launch during a run: counts the calls by
+    (B, S) for the dense kernel and by (B, NBmax, bs) for the paged one,
+    and keeps a copy of the first call's inputs for each, so the path's
+    own shapes and data can be replayed after the run."""
+
+    def __init__(self, dops):
+        self.dops, self.orig = dops, dops._call
+        self.shapes = collections.Counter()
+        self.calls = {}
+
+    def __enter__(self):
+        def rec(what, entry, ptrs, ints, q, nsplit):
+            if entry == "decode_attention_fwd":
+                names = ("q", "k", "v", "q_pos", "k_pos")
+                key = ("dense", ints[0], ints[1])
+            else:
+                names = ("q", "k_blocks", "v_blocks", "kpos_blocks",
+                         "block_rows", "q_pos")
+                key = ("paged", ints[0], ints[2], ints[3])
+            self.shapes[key] += 1
+            if key not in self.calls:
+                d = {n: t.clone() for n, t in zip(names, ptrs)}
+                d["window"] = int(ints[-1])
+                self.calls[key] = d
+            return self.orig(what, entry, ptrs, ints, q, nsplit)
+        self.dops._call = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.dops._call = self.orig
+
+    def most_frequent(self, kind):
+        keys = [k for k in self.shapes if k[0] == kind]
+        return max(keys, key=lambda k: (self.shapes[k], k)) if keys \
+            else None
+
+
+def check_kernels(dev):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    rows = {}
+    # ---- chunk attention, at the kernel table's shape ----
+    rows["chunk_attention"] = measure_chunk("table", chunk_inputs(rng, dev))
+    # ---- decode attention, dense arena and paged pool ----
+    tables = {"dense table": ("dense", decode_inputs(rng, dev)),
+              "paged table": ("paged", paged_inputs(rng, dev))}
+    rows["decode_attention"] = measure_decode("table",
+                                              tables["dense table"][1])
+    rows["paged_decode_attention"] = measure_paged("table",
+                                                   tables["paged table"][1])
+    return rows, tables
 
 
 def ssd_inputs(rng, dev):
@@ -1130,9 +1357,22 @@ def main() -> int:
     if min(o["ctas_per_sm"] for o in occ.values()) < 2:
         raise RuntimeError(f"chunk_attention: fewer than 2 CTAs per SM: "
                            f"{occ}")
+    # the decode kernels' resources per CTA at llama3-8b's G 4, D 128
+    dlib = dops.bind(build.load("decode_attention"))
+    docc = {f"{kind} {dt}": dict(
+        smem_bytes=dlib.decode_attention_smem_bytes(128, 4, bf, paged),
+        ctas_per_sm=dlib.decode_attention_occupancy(128, 4, bf, paged))
+        for kind, paged in (("dense", 0), ("paged", 1))
+        for dt, bf in (("float32", 0), ("bfloat16", 1))}
+    log("decode_attention G=4 D=128 per CTA: " + json.dumps(docc)
+        + "; ptxas:\n  " + "\n  ".join(
+            ln.strip() for ln in blog["decode_attention"]["log"].splitlines()
+            if "Used" in ln or "Compiling entry" in ln or "spill" in ln))
+    if min(o["ctas_per_sm"] for o in docc.values()) < 1:
+        raise RuntimeError(f"decode_attention: does not fit an SM: {docc}")
 
     # phase 3: kernels vs plain versions
-    krows = check_kernels(dev)
+    krows, decode_tables = check_kernels(dev)
     krows["ssd_intra"] = check_ssd(dev)
     rope_rows = check_rope(dev)
     krows["rope"] = rope_rows["path"]
@@ -1168,7 +1408,8 @@ def main() -> int:
         dops.decode_attention.launches = 0
         dops.paged_decode_attention.launches = 0
         rops.rope.launches = 0
-        with ChunkRecorder(cops) as chunk_calls:
+        with ChunkRecorder(cops) as chunk_calls, \
+                DecodeRecorder(dops) as dec_calls:
             engines["A"], tr_a, tok_a, plan_a, c_a = run_engine(
                 "A", cfg, params, tmp, attn_impl="kernel")
         launches["chunk_attention"] = cops.chunk_attention.launches
@@ -1177,6 +1418,8 @@ def main() -> int:
         log("engine A chunk_attention calls by (B, A, S): " + ", ".join(
             f"{k}: {n}" for k, n in hist))
         launches["decode_attention"] = dops.decode_attention.launches
+        log("engine A decode_attention calls by (B, S): " + ", ".join(
+            f"{k[1:]}: {n}" for k, n in dec_calls.shapes.most_common()))
         # de-rope of every stored miss, re-rope of every injected hit and
         # every zero-copy pool-run load
         launches["rope"] = rops.rope.launches
@@ -1185,11 +1428,15 @@ def main() -> int:
             raise RuntimeError("engine A: no chunk reuse happened")
 
         dops.paged_decode_attention.launches = 0
-        engines["B"], tr_b, tok_b, _plan_b, c_b = run_engine(
-            "B", cfg, params, tmp, attn_impl="paged_kernel",
-            paged_decode=True)
+        with DecodeRecorder(dops) as paged_calls:
+            engines["B"], tr_b, tok_b, _plan_b, c_b = run_engine(
+                "B", cfg, params, tmp, attn_impl="paged_kernel",
+                paged_decode=True)
         launches["paged_decode_attention"] = \
             dops.paged_decode_attention.launches
+        log("engine B paged_decode_attention calls by (B, NBmax, bs): "
+            + ", ".join(f"{k[1:]}: {n}"
+                        for k, n in paged_calls.shapes.most_common()))
         if c_b.decode_gather_bytes != 0:
             raise RuntimeError("engine B gathered KV: "
                                f"{c_b.decode_gather_bytes} bytes")
@@ -1210,6 +1457,21 @@ def main() -> int:
         {"table": chunk_inputs(np.random.default_rng(0), dev)}
         | {f"path{list(k)}": chunk_calls.calls[k] for k, _ in hist})
     del chunk_calls
+    # the decode kernels at the path's most frequent shapes, on the inputs
+    # of the first call of each, and the key-split rule against the other
+    # counts there and at the table's shapes (not counted as path launches)
+    dkey = dec_calls.most_frequent("dense")
+    pkey = paged_calls.most_frequent("paged")
+    dec_path = measure_decode(f"path{list(dkey[1:])}", dec_calls.calls[dkey])
+    paged_path = measure_paged(f"path{list(pkey[1:])}",
+                               paged_calls.calls[pkey])
+    sweep_decode_splits(
+        decode_tables
+        | {f"dense path{list(k[1:])}": ("dense", d)
+           for k, d in dec_calls.calls.items()}
+        | {f"paged path{list(k[1:])}": ("paged", d)
+           for k, d in paged_calls.calls.items()})
+    del dec_calls, paged_calls
     log(f"launches on the main path: {json.dumps(launches)}")
     for name, n in launches.items():
         if n <= 0:
@@ -1267,6 +1529,33 @@ def main() -> int:
                            f"plain_ms_path{sfx}": r["plain_ms"],
                            f"library_ms_path{sfx}": r["library_ms"],
                            f"bound_ms_path{sfx}": r["bound_ms"]})
+    # the decode rows are at the kernel table's shapes; the path's most
+    # frequent shape beside them
+    for name, kind, shape, key, path in (
+            ("decode_attention", "dense", "table: B 4, S 1024, H 32/8, "
+             "D 128", "(B, S)", (dkey, dec_path)),
+            ("paged_decode_attention", "paged", "table: NB 512, bs 16, B 4, "
+             "NBmax 64, H 32/8, D 128", "(B, NBmax, bs)",
+             (pkey, paged_path))):
+        row = next(r for r in kernels if r["name"] == name)
+        row["shape"] = f"{shape}; path: {key} {list(path[0][1:])}"
+        for dt, sfx in (("float32", ""), ("bfloat16", "_bf16")):
+            r = path[1][dt]
+            row.update({f"max_abs_err_path{sfx}": r["err"],
+                        f"ms_path{sfx}": r["ms"],
+                        f"plain_ms_path{sfx}": r["plain_ms"],
+                        f"library_ms_path{sfx}": r["library_ms"],
+                        f"bound_ms_path{sfx}": r["bound_ms"],
+                        f"device_ms_path{sfx}": r["device_ms"],
+                        f"library_device_ms_path{sfx}":
+                            r["library_device_ms"],
+                        f"device_ms{sfx}": krows[name][dt]["device_ms"],
+                        f"library_device_ms{sfx}":
+                            krows[name][dt]["library_device_ms"],
+                        f"splits{sfx}": krows[name][dt]["splits"],
+                        f"splits_path{sfx}": r["splits"]})
+        row.update({f"smem_bytes_{dt}": docc[f"{kind} {dt}"]["smem_bytes"]
+                    for dt in ("float32", "bfloat16")})
     # rope's row is at the path's shape; the 1024-token span beside it
     kernels[-1]["shape"] = "[32, 48, 8, 128]; span1024 [32, 1024, 8, 128]"
     kernels[-1]["host_ms"] = rope_rows["path"]["float32"]["host_ms"]

@@ -180,8 +180,8 @@ def pack_cache(cfg: ModelConfig, k_np, v_np, pos_np, device):
     return {"groups": groups, "tail": tail}
 
 
-def pack_paged_cache(cfg: ModelConfig, k_pool, v_pool, pos_pool,
-                     device="cpu"):
+def pack_paged_cache(cfg: ModelConfig, k_pool, v_pool, pos_pool, *,
+                     device):
     """Pool block arenas (``KVPool.block_view()``: k/v [L, NB, bs, Hkv,
     D], pos [NB, bs]) -> the pool-twin decode cache with flat leaves
     ``{"kp": [NBf, Hkv, D], "vp", "ppos": [NBf]}`` per layer (grouped

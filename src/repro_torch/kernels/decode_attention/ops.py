@@ -3,8 +3,15 @@
 CPU tensors go through the plain versions (``ref.py``); CUDA tensors
 launch the CUDA kernels (``csrc/decode_attention.cu``) or raise: there
 is no fallback on the card. ``decode_attention.launches`` and
-``paged_decode_attention.launches`` count kernel launches (never the
-CPU path).
+``paged_decode_attention.launches`` count wrapper calls that launched
+the kernel (the combine included), never the CPU path.
+
+The kernels take one CTA per (request, KV head, key range): the keys are
+split into ``num_splits`` ranges, from the shapes and dtype alone, whose
+partial rows a second kernel combines in a fixed order
+(``workspace_floats`` of fp32 scratch). ``bind`` holds the C entry
+points' argument types, for the built library and for the CPU-emulated
+build the tests load.
 """
 from __future__ import annotations
 
@@ -19,31 +26,115 @@ from repro_torch.kernels.decode_attention.ref import (
 )
 
 _FLOATS = (torch.float32, torch.bfloat16)
-_MAX_D = 256          # 64-key K/V tiles of D fp32 stay in shared memory
-_MAX_GD = 2048        # G * D outputs per CTA (128 threads x MAXI)
+_HEAD_DIMS = (16, 32, 64, 128, 256)   # the source's instantiations
+_MAX_GD = 4096        # G * D outputs per CTA (MAX_GD in the source)
+_TK = {torch.float32: 32, torch.bfloat16: 64}   # keys per tile
+# CTAs a call should launch on the H100's 132 SMs: two per SM (a design
+# constant, not read from the device; the kernel fits three at G 4, D 128).
+# Chosen from chip_smoke.py's split sweep, which times every count by the
+# card's clock at the kernel table's and the serving path's shapes beside
+# this rule's pick: the fastest counts sat near 2 x 132 CTAs there
+# (PERF.md). Other shapes were not swept
+_TARGET_CTAS = 2 * 132
+_MAX_SPLIT = 16
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ABI = {
+    # q, k, v, q_pos, k_pos, out, work; B, S, H, Hkv, D, window, is_bf16,
+    # nsplit; stream
+    "decode_attention_fwd": ([_P] * 7 + [_I] * 8 + [_P], _I),
+    # q, k_blocks, v_blocks, kpos_blocks, block_rows, q_pos, out, work;
+    # B, NB, NBmax, bs, H, Hkv, D, window, is_bf16, nsplit; stream
+    "paged_decode_attention_fwd": ([_P] * 8 + [_I] * 10 + [_P], _I),
+    # D, G, is_bf16, paged
+    "decode_attention_smem_bytes": ([_I] * 4, ctypes.c_longlong),
+    "decode_attention_occupancy": ([_I] * 4, _I),   # not in emulated builds
+}
 
 
-def _fn(name, n_ptr, n_int):
-    fn = getattr(build.load("decode_attention"), name)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set argument and result types of every entry point ``lib`` has."""
+    for name, (args, res) in _ABI.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes, fn.restype = args, res
+    return lib
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("decode_attention")
+    if lib.decode_attention_fwd.argtypes is None:
+        bind(lib)
+    return lib
+
+
+def split_units(S: int, dtype=torch.float32, block: int = 0) -> int:
+    """The pieces a key range is made of: tiles of the S arena slots
+    (dense), or runs of pool blocks of one tile's keys (paged, ``block`` =
+    bs, S = NBmax * bs; one block where a block holds a tile or more). At
+    most this many ranges."""
+    if not block:
+        return -(-S // _TK[dtype])
+    run = max(1, _TK[dtype] // block)
+    return -(-(S // block) // run)
+
+
+def num_splits(B: int, S: int, Hkv: int, dtype=torch.float32,
+               block: int = 0) -> int:
+    """Key ranges of one call, from the shapes and dtype alone: enough
+    CTAs to reach ``_TARGET_CTAS`` where B x Hkv does not, at most
+    ``_MAX_SPLIT``, each of the same number of ``split_units`` (whole
+    tiles, or whole runs of pool blocks), none empty."""
+    units = split_units(S, dtype, block)
+    n = max(1, min(_TARGET_CTAS // (B * Hkv), units, _MAX_SPLIT))
+    per = -(-units // n)
+    return -(-units // per)
+
+
+def workspace_floats(B: int, H: int, D: int, nsplit: int) -> int:
+    """fp32 scratch of one launch: none without a split, else the partial
+    (acc [D], m, l) rows of every range and head."""
+    return 0 if nsplit == 1 else nsplit * B * H * (D + 2)
 
 
 def _check_heads(what, H, Hkv, D):
     if H % Hkv:
         raise ValueError(f"{what}: H={H} not a multiple of Hkv={Hkv}")
-    if D > _MAX_D or (H // Hkv) * D > _MAX_GD:
-        raise ValueError(f"{what}: head dim {D} must be <= {_MAX_D}, "
-                         f"with (H/Hkv)*D <= {_MAX_GD}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {D} not in {_HEAD_DIMS}")
+    if (H // Hkv) * D > _MAX_GD:
+        raise ValueError(f"{what}: (H/Hkv)*D = {(H // Hkv) * D} > "
+                         f"{_MAX_GD} outputs per CTA")
+
+
+def _check_aligned(what, **tensors):
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned "
+                             "(16-byte asynchronous copies)")
 
 
 def _device_of(q, what):
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: no kernel for device {q.device}")
     return q.device.type
+
+
+def _call(what, entry, ptrs, ints, q, nsplit):
+    """Launch ``entry`` with a fresh output like ``q`` and the split's
+    workspace; raise on a launch error."""
+    B, H, D = q.shape
+    out = torch.empty_like(q)
+    n_work = workspace_floats(B, H, D, nsplit)
+    work = torch.empty(n_work, dtype=torch.float32, device=q.device) \
+        if n_work else None
+    err = getattr(_lib(), entry)(
+        *[t.data_ptr() for t in ptrs], out.data_ptr(),
+        None if work is None else work.data_ptr(), *ints,
+        int(q.dtype == torch.bfloat16), nsplit,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, what)
+    return out
 
 
 def decode_attention(q, k, v, q_pos, k_pos, *, window: int = 0):
@@ -62,13 +153,12 @@ def decode_attention(q, k, v, q_pos, k_pos, *, window: int = 0):
     build.check_tensor(what, "q_pos", q_pos, (B,), (torch.int32,), dev)
     build.check_tensor(what, "k_pos", k_pos, (B, S), (torch.int32,), dev)
     _check_heads(what, H, Hkv, D)
-    out = torch.empty_like(q)
-    err = _fn("decode_attention_fwd", 6, 7)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-        k_pos.data_ptr(), out.data_ptr(), B, S, H, Hkv, D, int(window),
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, what)
+    _check_aligned(what, q=q, k=k, v=v)
+    if min(B, S) < 1:
+        raise ValueError(f"{what}: B={B}, S={S} must be >= 1")
+    out = _call(what, "decode_attention_fwd", (q, k, v, q_pos, k_pos),
+                (B, S, H, Hkv, D, int(window)), q,
+                num_splits(B, S, Hkv, q.dtype))
     decode_attention.launches += 1
     return out
 
@@ -96,14 +186,14 @@ def paged_decode_attention(q, k_blocks, v_blocks, kpos_blocks, block_rows,
                            ("q_pos", q_pos, (B,))):
         build.check_tensor(what, name, t, shape, (torch.int32,), dev)
     _check_heads(what, H, Hkv, D)
-    out = torch.empty_like(q)
-    err = _fn("paged_decode_attention_fwd", 7, 8)(
-        q.data_ptr(), k_blocks.data_ptr(), v_blocks.data_ptr(),
-        kpos_blocks.data_ptr(), block_rows.data_ptr(), q_pos.data_ptr(),
-        out.data_ptr(), B, NBmax, bs, H, Hkv, D, int(window),
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, what)
+    _check_aligned(what, q=q, k_blocks=k_blocks, v_blocks=v_blocks)
+    if min(B, NB, bs, NBmax) < 1:
+        raise ValueError(f"{what}: B={B}, NB={NB}, bs={bs}, NBmax={NBmax} "
+                         "must be >= 1")
+    out = _call(what, "paged_decode_attention_fwd",
+                (q, k_blocks, v_blocks, kpos_blocks, block_rows, q_pos),
+                (B, NB, NBmax, bs, H, Hkv, D, int(window)), q,
+                num_splits(B, NBmax * bs, Hkv, q.dtype, block=bs))
     paged_decode_attention.launches += 1
     return out
 

@@ -112,3 +112,22 @@ def test_ssd_layer_family_ported():
                     mode="prefill", cache=cache)
     assert tuple(out.logits.shape) == (1, 8, cfg.padded_vocab)
     assert bool(torch.isfinite(out.logits).all())
+
+
+def test_pack_paged_cache_requires_device():
+    """The pool-twin upload names its device: no host default (like
+    ``pack_cache`` and ``init_cache``), so a caller cannot build the
+    paged decode cache on the CPU by leaving the argument out."""
+    import numpy as np
+
+    from repro_torch.core.prefill import pack_paged_cache
+    cfg = get_tiny("llama3-8b")
+    L, NB, bs, Hkv, D = cfg.num_layers, 3, 4, cfg.num_kv_heads, cfg.head_dim_
+    k = np.random.default_rng(0).normal(size=(L, NB, bs, Hkv, D))
+    pos = np.arange(NB * bs, dtype=np.int32).reshape(NB, bs)
+    with pytest.raises(TypeError):
+        pack_paged_cache(cfg, k, k, pos)
+    cache = pack_paged_cache(cfg, k, k, pos, device="cpu")
+    leaves = cache["groups"] + cache["tail"]
+    assert leaves and all(c["kp"].device.type == "cpu" for c in leaves)
+    assert tuple(leaves[0]["kp"].shape[-3:]) == (NB * bs, Hkv, D)

@@ -277,36 +277,158 @@ def test_chunk_cuda_wrapper_raises():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,S,H,Hkv,D,window", DECODE_CASES)
-def test_decode_cuda_kernel_vs_plain(counts, B, S, H, Hkv, D, window):
+def test_decode_cuda_kernel_vs_plain(counts, B, S, H, Hkv, D, window,
+                                     dtype):
     dev = _need_cuda()
+    dt = getattr(torch, dtype)
     ins = _decode_inputs(S, B, S, H, Hkv, D)
-    o = dops.decode_attention(*_t(*ins, device=dev), window=window)
+    o = dops.decode_attention(*_t(*ins, device=dev, dtype=dt),
+                              window=window)
     assert dops.decode_attention.launches == 1
-    r = dops.decode_attention(*_t(*ins), window=window)
-    np.testing.assert_allclose(_np(o), _np(r), **F32)
+    r = dops.decode_attention(*_t(*ins, dtype=dt), window=window)
+    assert o.dtype == dt
+    np.testing.assert_allclose(_np(o), _np(r), **(F32 if dtype == "float32"
+                                                  else BF16))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,NB,bs,H,Hkv,D,window", PAGED_CASES)
-def test_paged_cuda_kernel_vs_plain(counts, B, NB, bs, H, Hkv, D, window):
+def test_paged_cuda_kernel_vs_plain(counts, B, NB, bs, H, Hkv, D, window,
+                                    dtype):
     dev = _need_cuda()
+    dt = getattr(torch, dtype)
     ins = _paged_inputs(NB * bs, B, NB, bs, H, Hkv, D)
-    o = dops.paged_decode_attention(*_t(*ins, device=dev), window=window)
+    o = dops.paged_decode_attention(*_t(*ins, device=dev, dtype=dt),
+                                    window=window)
     assert dops.paged_decode_attention.launches == 1
-    r = dops.paged_decode_attention(*_t(*ins), window=window)
-    np.testing.assert_allclose(_np(o), _np(r), **F32)
+    r = dops.paged_decode_attention(*_t(*ins, dtype=dt), window=window)
+    assert o.dtype == dt
+    np.testing.assert_allclose(_np(o), _np(r), **(F32 if dtype == "float32"
+                                                  else BF16))
+
+
+def _full_width_decode(seed):
+    """llama3-8b's decode shape (B 4, S 1024, H 32 / Hkv 8, D 128) with
+    per-request lengths 1000 / 700 / 300 / 0 and a window-free mask, plus
+    the same keys laid out as a pool of 16-slot blocks (reversed block
+    order, -1 padded rows)."""
+    B, S, H, Hkv, D, bs = 4, 1024, 32, 8, 128, 16
+    q, k, v, _, _ = _decode_inputs(seed, B, S, H, Hkv, D)
+    lens = np.array([1000, 700, 300, 0])
+    kpos = np.where(np.arange(S)[None] < lens[:, None], np.arange(S)[None],
+                    -1).astype(np.int32)
+    qpos = np.maximum(lens - 1, 0).astype(np.int32)
+    qpos[3] = -1
+    nblk = S // bs
+    order = np.arange(B * nblk).reshape(B, nblk)[:, ::-1]
+    kb = np.empty((B * nblk, bs, Hkv, D), np.float32)
+    vb = np.empty_like(kb)
+    pb = np.empty((B * nblk, bs), np.int32)
+    for b in range(B):
+        for j in range(nblk):
+            kb[order[b, j]] = k[b, j * bs:(j + 1) * bs]
+            vb[order[b, j]] = v[b, j * bs:(j + 1) * bs]
+            pb[order[b, j]] = kpos[b, j * bs:(j + 1) * bs]
+    rows = order.astype(np.int32).copy()
+    rows[2, 40:] = -1                       # past request 2's 300 keys
+    return (q, k, v, qpos, kpos), (q, kb, vb, pb, rows, qpos)
 
 
 @pytest.mark.cuda
-def test_cuda_wrapper_raises_instead_of_falling_back():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ns", [1, 2, 5, 11, 16])
+def test_decode_cuda_forced_splits_full_width(monkeypatch, counts, ns,
+                                              dtype):
+    """Every forced number of key ranges at the full-width shape, through
+    the wrappers (``num_splits`` held): dense and paged equal their plain
+    versions, and the combine route equals the one-range route within the
+    tolerance."""
     dev = _need_cuda()
+    dt = getattr(torch, dtype)
+    tol = F32 if dtype == "float32" else BF16
+    dense, paged = _full_width_decode(4)
+    rd = dops.decode_attention(*_t(*dense, dtype=dt))
+    rp = dops.paged_decode_attention(*_t(*paged, dtype=dt))
+    monkeypatch.setattr(dops, "num_splits", lambda *a, **k: ns)
+    od = dops.decode_attention(*_t(*dense, device=dev, dtype=dt))
+    op = dops.paged_decode_attention(*_t(*paged, device=dev, dtype=dt))
+    torch.cuda.synchronize()
+    assert dops.decode_attention.launches == 1
+    assert dops.paged_decode_attention.launches == 1
+    np.testing.assert_allclose(_np(od), _np(rd), **tol)
+    np.testing.assert_allclose(_np(op), _np(rp), **tol)
+    assert float(od[3].float().abs().sum()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_cuda_two_launches_bit_identical(counts, dtype):
+    """No atomics: two launches on the same inputs give the same bytes,
+    dense and paged, on the wrapper's split route."""
+    dev = _need_cuda()
+    dt = getattr(torch, dtype)
+    dense, paged = _full_width_decode(5)
+    td = _t(*dense, device=dev, dtype=dt)
+    tp = _t(*paged, device=dev, dtype=dt)
+    assert dops.num_splits(4, 1024, 8, dt) > 1
+    o1, o2 = dops.decode_attention(*td), dops.decode_attention(*td)
+    p1 = dops.paged_decode_attention(*tp)
+    p2 = dops.paged_decode_attention(*tp)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(p1, p2)
+    assert dops.decode_attention.launches == 2
+    assert dops.paged_decode_attention.launches == 2
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_raises_instead_of_falling_back(monkeypatch, counts):
+    """Int64 positions, a non-contiguous K, head dims outside 16 / 32 / 64
+    / 128 / 256, G * D > 4096, K/V or q off 16-byte alignment and mixed
+    devices raise; D 16 and G 16 x D 256 launch; the plain versions are
+    never reached with CUDA tensors."""
+    dev = _need_cuda()
+
+    def boom(*a, **k):
+        raise AssertionError("plain version reached with CUDA tensors")
+    monkeypatch.setattr(dops, "decode_attention_ref", boom)
+    monkeypatch.setattr(dops, "paged_decode_attention_ref", boom)
     q, k, v, qpos, kpos = _decode_inputs(1, 2, 40, 4, 2, 16)
     tq, tk, tv, tqp, tkp = _t(q, k, v, qpos, kpos, device=dev)
     with pytest.raises(TypeError):
         dops.decode_attention(tq, tk, tv, tqp.long(), tkp)
     with pytest.raises(ValueError):
         dops.decode_attention(tq, tk.transpose(1, 2), tv, tqp, tkp)
+    dops.decode_attention(tq, tk, tv, tqp, tkp)                  # D 16
+    with pytest.raises(ValueError, match="on cpu"):
+        dops.decode_attention(tq, tk, tv, tqp.cpu(), tkp)
+    off = torch.empty(tk.numel() + 1, device=dev)[1:].view(tk.shape)
+    off.copy_(tk)
+    with pytest.raises(ValueError, match="aligned"):
+        dops.decode_attention(tq, off, tv, tqp, tkp)
+    for D in (8, 48, 512):
+        ins = _t(*_decode_inputs(2, 2, 40, 4, 2, D), device=dev)
+        with pytest.raises(ValueError, match="head dim"):
+            dops.decode_attention(*ins)
+    big = _t(*_decode_inputs(3, 1, 40, 32, 1, 256), device=dev)
+    with pytest.raises(ValueError, match="4096"):
+        dops.decode_attention(*big)
+    g16 = _t(*_decode_inputs(3, 1, 40, 16, 1, 256), device=dev)
+    dops.decode_attention(*g16)                                   # G*D 4096
+    pq, pk, pv, ppos, prow, pqp = _t(*_paged_inputs(4, 2, 8, 4, 4, 2, 32),
+                                     device=dev)
+    with pytest.raises(TypeError):
+        dops.paged_decode_attention(pq, pk, pv, ppos, prow.long(), pqp)
+    offq = torch.empty(pq.numel() + 1, device=dev)[1:].view(pq.shape)
+    offq.copy_(pq)
+    with pytest.raises(ValueError, match="aligned"):
+        dops.paged_decode_attention(offq, pk, pv, ppos, prow, pqp)
+    dops.paged_decode_attention(pq, pk, pv, ppos, prow, pqp)
+    torch.cuda.synchronize()
+    assert dops.decode_attention.launches == 2
+    assert dops.paged_decode_attention.launches == 1
 
 
 @pytest.mark.cuda

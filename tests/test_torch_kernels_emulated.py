@@ -22,6 +22,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.chunk_attention import ops as cops
 from repro_torch.kernels.chunk_attention.ref import chunk_attention_ref
+from repro_torch.kernels.decode_attention import ops as dops
 from repro_torch.kernels.decode_attention.ref import (
     decode_attention_ref,
     paged_decode_attention_ref,
@@ -59,19 +60,15 @@ def libs(tmp_path_factory):
     fc = loaded["chunk_attention"].chunk_attention_fwd
     fc.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 + \
         [ctypes.c_void_p]
-    fd = loaded["decode_attention"].decode_attention_fwd
-    fd.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + \
-        [ctypes.c_void_p]
-    fp = loaded["decode_attention"].paged_decode_attention_fwd
-    fp.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + \
-        [ctypes.c_void_p]
+    dlib = dops.bind(loaded["decode_attention"])
+    fd, fp = dlib.decode_attention_fwd, dlib.paged_decode_attention_fwd
     fs = loaded["ssd"].ssd_intra_fwd
     fs.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
         [ctypes.c_void_p]
     fr = loaded["rope"].rope_fwd
     fr.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
         [ctypes.c_void_p]
-    for f in (fc, fd, fp, fs, fr):
+    for f in (fc, fs, fr):
         f.restype = ctypes.c_int
     return fc, fd, fp, fs, fr
 
@@ -370,6 +367,39 @@ def test_source_tf32_rounding_vs_numpy(frag):
     assert not np.any(out & np.uint32(0x1FFF))
 
 
+def _decode(fd, q, k, v, qp, kp, window, nsplit=None):
+    """[B,H,D] / [B,S,Hkv,D] inputs through the emulated dense kernel,
+    with the wrapper's key split unless ``nsplit`` is given."""
+    B, H, D = q.shape
+    S, Hkv = k.shape[1:3]
+    if nsplit is None:
+        nsplit = dops.num_splits(B, S, Hkv, q.dtype)
+    out = torch.empty_like(q)
+    work = torch.empty(max(1, dops.workspace_floats(B, H, D, nsplit)))
+    assert fd(q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
+              kp.data_ptr(), out.data_ptr(), work.data_ptr(), B, S, H, Hkv,
+              D, window, int(q.dtype == torch.bfloat16), nsplit,
+              None) == 0
+    return out
+
+
+def _paged(fp, q, kb, vb, kp, rw, qp, window, nsplit=None):
+    """Pool-block inputs through the emulated paged kernel, with the
+    wrapper's split over whole blocks unless ``nsplit`` is given."""
+    B, H, D = q.shape
+    NB, bs, Hkv = kb.shape[:3]
+    NBmax = rw.shape[1]
+    if nsplit is None:
+        nsplit = dops.num_splits(B, NBmax * bs, Hkv, q.dtype, block=bs)
+    out = torch.empty_like(q)
+    work = torch.empty(max(1, dops.workspace_floats(B, H, D, nsplit)))
+    assert fp(q.data_ptr(), kb.data_ptr(), vb.data_ptr(), kp.data_ptr(),
+              rw.data_ptr(), qp.data_ptr(), out.data_ptr(), work.data_ptr(),
+              B, NB, NBmax, bs, H, Hkv, D, window,
+              int(q.dtype == torch.bfloat16), nsplit, None) == 0
+    return out
+
+
 @pytest.mark.parametrize("B,S,H,Hkv,D,window", [
     (2, 64, 4, 2, 32, 0), (3, 100, 8, 2, 32, 0), (1, 48, 4, 4, 64, 16),
     (2, 130, 32, 8, 128, 0),
@@ -385,10 +415,7 @@ def test_decode_source_vs_plain(libs, B, S, H, Hkv, D, window):
     if B > 1:
         qpos[-1] = -1                               # masked batch row
     qp, kp = _t(qpos), _t(kpos)
-    out = torch.empty_like(q)
-    assert libs[1](q.data_ptr(), k.data_ptr(), v.data_ptr(), qp.data_ptr(),
-                   kp.data_ptr(), out.data_ptr(), B, S, H, Hkv, D, window,
-                   0, None) == 0
+    out = _decode(libs[1], q, k, v, qp, kp, window)
     torch.testing.assert_close(
         out, decode_attention_ref(q, k, v, qp, kp, window=window), **F32)
 
@@ -411,15 +438,178 @@ def test_paged_source_vs_plain(libs, B, NB, bs, H, Hkv, D, window, NBmax):
     rows[0, :2] = [-1, rows[0, 0]]                  # interior -1 entry
     qpos = rng.integers(1, 64, B).astype(np.int32)
     kp, rw, qp = _t(kpos), _t(rows), _t(qpos)
-    out = torch.empty_like(q)
-    assert libs[2](q.data_ptr(), kb.data_ptr(), vb.data_ptr(),
-                   kp.data_ptr(), rw.data_ptr(), qp.data_ptr(),
-                   out.data_ptr(), B, NBmax, bs, H, Hkv, D, window, 0,
-                   None) == 0
+    out = _paged(libs[2], q, kb, vb, kp, rw, qp, window)
     torch.testing.assert_close(
         out, paged_decode_attention_ref(q, kb, vb, kp, rw, qp,
                                         window=window), **F32)
 
+
+def _tol(dtype):
+    return F32 if dtype == "float32" else dict(rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_source_split_routes_agree(libs, dtype):
+    """One input through the dense kernel with 1 range (the CTA writes the
+    output) and 2, 3 and 7 ranges (partial rows, fixed-order combine):
+    every route equals nsplit 1 and the plain version, and a route run
+    twice gives the same bytes. Row 1 is masked (q_pos -1), row 2 has no
+    live key at all (every range empty: zeros), row 3's live keys sit in
+    the last range only; S 200 leaves a ragged last tile."""
+    rng = np.random.default_rng(31)
+    B, S, H, Hkv, D = 4, 200, 8, 2, 32
+    dt = getattr(torch, dtype)
+    q, k, v = (_t(rng.normal(size=s).astype(np.float32), dt)
+               for s in ((B, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    kpos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    kpos[0, 150:] = -1
+    kpos[2] = -1
+    kpos[3, :190] = -1
+    qpos = np.array([140, -1, 50, 199], np.int32)
+    qp, kp = _t(qpos), _t(kpos)
+    ref = decode_attention_ref(q, k, v, qp, kp)
+    one = _decode(libs[1], q, k, v, qp, kp, 0, nsplit=1)
+    tiles = -(-S // dops._TK[dt])
+    for ns in (n for n in (1, 2, 3, 7) if n <= tiles):
+        o = _decode(libs[1], q, k, v, qp, kp, 0, nsplit=ns)
+        torch.testing.assert_close(o.float(), ref.float(), **_tol(dtype))
+        torch.testing.assert_close(o.float(), one.float(), **_tol(dtype))
+        assert torch.equal(o, _decode(libs[1], q, k, v, qp, kp, 0,
+                                      nsplit=ns))
+        assert float(o[1:3].float().abs().sum()) == 0.0
+        assert torch.isfinite(o.float()).all()
+
+
+@pytest.mark.parametrize("ns", [1, 3, 5])
+def test_decode_source_window_across_ranges(libs, ns):
+    """A 40-key sliding window whose live keys straddle the boundary of
+    key ranges (32-key tiles in fp32: ranges of 2, 1 tiles at 3 and 5
+    splits), beside a row whose window sits inside one tile."""
+    rng = np.random.default_rng(7 + ns)
+    B, S, H, Hkv, D = 2, 160, 4, 1, 64
+    q = _t(rng.normal(size=(B, H, D)).astype(np.float32))
+    k = _t(rng.normal(size=(B, S, Hkv, D)).astype(np.float32))
+    v = _t(rng.normal(size=(B, S, Hkv, D)).astype(np.float32))
+    kp = _t(np.tile(np.arange(S, dtype=np.int32), (B, 1)))
+    qp = _t(np.array([83, 20], np.int32))
+    out = _decode(libs[1], q, k, v, qp, kp, 40, nsplit=ns)
+    torch.testing.assert_close(
+        out, decode_attention_ref(q, k, v, qp, kp, window=40), **F32)
+
+
+@pytest.mark.parametrize("ns", [1, 2])
+def test_decode_source_ranges_longer_than_metadata_window(libs, ns):
+    """Key ranges of 1100 and 576 keys, longer than the 512 keys whose
+    metadata one pass stages: the CTA walks several passes, dense and
+    paged (blocks of 20 slots, which do not divide a tile), with a
+    700-key window that starts in the first pass."""
+    rng = np.random.default_rng(1100 + ns)
+    B, S, H, Hkv, D, bs = 1, 1100, 2, 1, 16, 20
+    q = _t(rng.normal(size=(B, H, D)).astype(np.float32))
+    k = _t(rng.normal(size=(B, S, Hkv, D)).astype(np.float32))
+    v = _t(rng.normal(size=(B, S, Hkv, D)).astype(np.float32))
+    kp = _t(np.arange(S, dtype=np.int32)[None])
+    qp = _t(np.array([1050], np.int32))
+    ref = decode_attention_ref(q, k, v, qp, kp, window=700)
+    o = _decode(libs[1], q, k, v, qp, kp, 700, nsplit=ns)
+    torch.testing.assert_close(o, ref, **F32)
+    rw = _t(np.arange(S // bs, dtype=np.int32)[None])
+    kb, vb = (x.reshape(-1, bs, Hkv, D) for x in (k, v))
+    o = _paged(libs[2], q, kb, vb, kp.reshape(-1, bs), rw, qp, 700,
+               nsplit=ns)
+    torch.testing.assert_close(o, ref, **F32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bs", [4, 8, 16])
+def test_paged_source_block_sizes_and_splits(libs, bs, dtype):
+    """Pool blocks of 4, 8 and 16 slots: interior -1 entries in the block
+    rows, dead slots, a block shared by requests 0 and 1 (read by both,
+    written by neither), a masked row; the wrapper's split, 1 and 2
+    ranges and one range per run of blocks all equal the plain version,
+    and two launches give the same bytes."""
+    rng = np.random.default_rng(bs)
+    B, NB, NBmax, H, Hkv, D = 3, 40, 10, 8, 2, 32
+    dt = getattr(torch, dtype)
+    q, kb, vb = (_t(rng.normal(size=s).astype(np.float32), dt)
+                 for s in ((B, H, D), (NB, bs, Hkv, D), (NB, bs, Hkv, D)))
+    kpos = (np.arange(NB * bs).reshape(NB, bs) % 97).astype(np.int32)
+    kpos[rng.random((NB, bs)) < 0.15] = -1
+    perm = rng.permutation(NB)
+    rows = np.full((B, NBmax), -1, np.int32)
+    rows[0, :8] = perm[:8]
+    rows[0, 3] = -1                                 # interior -1 entry
+    rows[1, :6] = np.concatenate([perm[:2], perm[8:12]])   # shares 2
+    rows[1, 4] = -1
+    rows[2, :5] = perm[12:17]
+    qpos = np.array([90, 70, -1], np.int32)
+    kp, rw, qp = _t(kpos), _t(rows), _t(qpos)
+    ref = paged_decode_attention_ref(q, kb, vb, kp, rw, qp)
+    kb0, vb0 = kb.clone(), vb.clone()
+    units = dops.split_units(NBmax * bs, dt, block=bs)
+    for ns in sorted({1, 2, units} & set(range(1, units + 1))) + [None]:
+        o = _paged(libs[2], q, kb, vb, kp, rw, qp, 0, nsplit=ns)
+        torch.testing.assert_close(o.float(), ref.float(), **_tol(dtype))
+        assert torch.equal(o, _paged(libs[2], q, kb, vb, kp, rw, qp, 0,
+                                     nsplit=ns))
+        assert float(o[2].float().abs().sum()) == 0.0
+    assert torch.equal(kb, kb0) and torch.equal(vb, vb0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_source_g16_d256(libs, dtype):
+    """G 16 heads of D 256 per KV head (recurrentgemma-9b's G * D = 4096,
+    the cap of 2048 lifted), dense and paged, with a split."""
+    rng = np.random.default_rng(16)
+    B, S, H, Hkv, D = 2, 80, 16, 1, 256
+    dt = getattr(torch, dtype)
+    q, k, v = (_t(rng.normal(size=s).astype(np.float32), dt)
+               for s in ((B, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    kp = _t(np.tile(np.arange(S, dtype=np.int32), (B, 1)))
+    qp = _t(np.array([79, 33], np.int32))
+    o = _decode(libs[1], q, k, v, qp, kp, 0, nsplit=2)
+    torch.testing.assert_close(
+        o.float(), decode_attention_ref(q, k, v, qp, kp).float(),
+        **_tol(dtype))
+    bs = 8                                          # the same keys as blocks
+    kb, vb = (x.reshape(B * S // bs, bs, Hkv, D) for x in (k, v))
+    rw = _t(np.arange(B * S // bs, dtype=np.int32).reshape(B, S // bs))
+    o = _paged(libs[2], q, kb, vb, kp.reshape(-1, bs), rw, qp, 0, nsplit=2)
+    torch.testing.assert_close(
+        o.float(), decode_attention_ref(q, k, v, qp, kp).float(),
+        **_tol(dtype))
+
+
+def test_decode_split_count_from_shapes():
+    """The count depends on the shapes and dtype only: llama3-8b (Hkv 8)
+    at the kernel table's shapes (B 4, S 1024; paged NBmax 64 x bs 16) and
+    at the engines' (dense B 4, S 256-320; paged NBmax 16-24) splits up to
+    2 x 132 CTAs; a batch whose B x Hkv already fills that runs one range;
+    ranges are whole, non-empty tiles (dense) or runs of blocks holding a
+    tile's keys (paged)."""
+    f32, b16 = torch.float32, torch.bfloat16
+    ns = dops.num_splits
+    assert ns(4, 1024, 8, f32) == 8                 # 32 tiles, 4 each
+    assert ns(4, 1024, 8, b16) == 8                 # 16 tiles, 2 each
+    assert ns(4, 1024, 8, f32, block=16) == 8       # 32 runs of 2 blocks
+    assert ns(4, 1024, 8, b16, block=16) == 8       # 16 runs of 4 blocks
+    assert ns(4, 256, 8, f32) == 8 and ns(4, 320, 8, f32) == 5
+    assert ns(4, 256, 8, b16) == 4
+    assert ns(4, 384, 8, f32, block=16) == 6 and ns(4, 384, 8, b16,
+                                                    block=16) == 6
+    assert ns(64, 1024, 8, f32) == 1 and ns(50, 4096, 8, b16) == 1
+    assert ns(1, 20, 1, f32) == 1                   # one tile
+    assert dops.split_units(80, f32, block=20) == 4   # blocks over a tile
+    for B, S, Hkv, block in ((4, 1024, 8, 0), (2, 200, 2, 0),
+                             (1, 5000, 1, 0), (4, 1024, 8, 16),
+                             (3, 40, 2, 4), (1, 72, 1, 8), (2, 96, 1, 32),
+                             (1, 1100, 1, 20)):
+        for dt in (f32, b16):
+            n = ns(B, S, Hkv, dt, block=block)
+            units = dops.split_units(S, dt, block=block)
+            per = -(-units // n)            # the source's range length
+            assert 1 <= n <= units and (n - 1) * per < units
+            assert n == ns(B, S, Hkv, dt, block=block)
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("nC,L,H,P,N", SSD_CASES)
