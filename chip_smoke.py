@@ -10,8 +10,9 @@ Phases (each prints its own line; any failure raises and exits non-zero):
 2. build every CUDA kernel from ``src/repro_torch/kernels/*/csrc`` (one
    ``nvcc`` per source, all at once) and print the build seconds, the
    registers ``ptxas`` reports, the chunk kernel's shared memory and
-   resident CTAs per SM (at least 2 required) and the decode kernels'
-   (G 4, D 128);
+   resident CTAs per SM (at least 2 required), the decode kernels'
+   (G 4, D 128) and the SSD kernel's (mamba2-370m's L 128, N 128, P 64,
+   with the heads per CTA its rule picks);
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, in fp32 (tolerance 3e-5, the reference's) and
    bf16 (3e-2), and time kernel, plain version and, where one exists,
@@ -27,7 +28,12 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    count ``num_splits`` picks (``sweep_chunk_splits``); the decode
    kernels likewise on the recorded inputs of A's most frequent ``(B,
    S)`` and B's most frequent ``(B, NBmax, bs)`` (``DecodeRecorder``,
-   ``sweep_decode_splits``). RoPE
+   ``sweep_decode_splits``). The SSD kernel is held at mamba2-370m's
+   prefill shape (worst ratio to the allclose bound printed, two launches
+   byte for byte, events and device time, its bound on the route it takes
+   with the CUDA-core figure beside it) and timed at every number of
+   heads per CTA beside the rule's pick, each count giving the same bytes
+   (``sweep_ssd_heads``). RoPE
    is held at two shapes (K of one chunk over all layers, a 1024-token
    span), applying and removing, with one whole-stack call equal to one
    call per layer byte for byte and remove o apply within 2e-5 of x;
@@ -86,7 +92,9 @@ HBM_BPS = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 # the chunk kernel's fp32 products run as 3xTF32: three TF32 products for
 # each fp32 product, so its fp32 bound counts 3x the operations at the
-# TF32 rate (the CUDA-core figure is kept beside it)
+# TF32 rate (the CUDA-core figure is kept beside it); the SSD kernel's
+# per-head products likewise, and in bf16 as three bf16 parts at the bf16
+# rate
 TF32_PASSES = 3
 TOL = {"float32": 3e-5, "bfloat16": 3e-2}
 # A/B vs C decode logits: fp32 attention summed in another order (online
@@ -740,11 +748,30 @@ def ssd_inputs(rng, dev):
         C=f(rng.normal(size=(nC, L, N)).astype(np.float32)))
 
 
+def _ssd_bound(nC, L, H, P, N, nbytes, dt_name):
+    """The SSD block's bound on the route the kernel takes, and the
+    CUDA-core figure beside it: S = C B^T once per chunk and the decay
+    products on the CUDA cores in fp32; the two per-head products on the
+    tensor cores as three passes (3xTF32 for fp32 inputs, hi + mid + lo
+    bf16 parts for bf16). Returns (bound ms, by, CUDA-core ms, GFLOP of
+    one pass)."""
+    pairs = L * (L + 1) // 2            # causal (i >= j) pairs per chunk
+    core = nC * (2 * N * pairs + H * pairs)        # C B^T, decay * scores
+    tc = nC * (2 * H * P * pairs + 2 * H * P * N * L)   # y and states
+    rate = PEAK_FLOPS["tf32" if dt_name == "float32" else "bfloat16"]
+    t_ops = core / PEAK_FLOPS["float32"] + TF32_PASSES * tc / rate
+    t_b = nbytes / HBM_BPS
+    b_cores = max(t_b, (core + tc) / PEAK_FLOPS["float32"]) * 1e3
+    return (max(t_b, t_ops) * 1e3, "bytes" if t_b >= t_ops else
+            "operations", b_cores, (core + tc) / 1e9)
+
+
 def check_ssd(dev):
     """ssd_intra vs its plain version at the mamba2 path's shapes. The
     check is the reference's ``assert_allclose(rtol=tol, atol=tol)``:
     |y| reaches ~450 here, where fp32 sums taken in another order may
-    differ by more than tol in absolute terms."""
+    differ by more than tol in absolute terms. Two launches must give the
+    same bytes. Timed with CUDA events and in device time."""
     import numpy as np
     import torch
 
@@ -756,10 +783,14 @@ def check_ssd(dev):
     N = si["B"].shape[-1]
     res = {}
     for dt_name in ("float32", "bfloat16"):
-        args = [si[k].to(getattr(torch, dt_name))
-                for k in ("xdt", "log_a", "B", "C")]
+        dt = getattr(torch, dt_name)
+        args = [si[k].to(dt) for k in ("xdt", "log_a", "B", "C")]
         y, st = sops.ssd_intra(*args)
+        y2, st2 = sops.ssd_intra(*args)
         torch.cuda.synchronize()
+        if not (torch.equal(y, y2) and torch.equal(st, st2)):
+            raise RuntimeError(f"ssd_intra {dt_name}: two launches on the "
+                               "same inputs differ")
         yr, sr = ssd_intra_ref(*args)
         tol = TOL[dt_name]
         e, worst_ratio = 0.0, 0.0
@@ -768,30 +799,95 @@ def check_ssd(dev):
             e = max(e, float(d.max()))
             worst_ratio = max(worst_ratio,
                               float((d / (tol + tol * b.abs())).max()))
+        # the same ratio against fp32's 3e-5, which bf16 inputs also meet
+        # (both versions compute in fp32 from the same rounded inputs)
+        ratio32 = max(float(((a - b).abs() / (3e-5 + 3e-5 * b.abs())).max())
+                      for a, b in ((y, yr), (st, sr)))
         if not (worst_ratio <= 1.0 and torch.isfinite(y).all()
                 and torch.isfinite(st).all()):
             raise RuntimeError(f"ssd_intra {dt_name}: max abs err {e}, "
                                f"{worst_ratio:.3f}x the allclose bound "
                                f"(rtol = atol = {tol})")
         t_k = cuda_ms(lambda: sops.ssd_intra(*args))
+        d_k = device_ms(lambda: sops.ssd_intra(*args))
         t_p = cuda_ms(lambda: ssd_intra_ref(*args), iters=5)
         el = args[0].element_size()
         nbytes = (nC * L * H * P + nC * L * H + 2 * nC * L * N) * el + \
             4 * (nC * L * H * P + nC * H * P * N)
-        pairs = L * (L + 1) // 2        # causal (i >= j) pairs per chunk
-        flops = nC * (2 * N * pairs                # C B^T, once per chunk
-                      + H * pairs                  # decay * scores
-                      + 2 * H * P * pairs          # (.) @ xdt
-                      + 2 * H * P * N * L)         # chunk states
-        b_ms, b_by = bound(nbytes, flops, dt_name)
-        res[dt_name] = dict(err=e, ms=t_k, plain_ms=t_p, library_ms=None,
-                            bound_ms=b_ms, bound_by=b_by)
-        log(f"kernel ssd_intra {dt_name} nC={nC} L={L} H={H} P={P} N={N}: "
-            f"max_abs_err={e:.3e} (max |y| {float(yr.abs().max()):.2f}; "
-            f"{worst_ratio:.3f}x the allclose bound, rtol = atol = {tol}) "
-            f"ms={t_k:.4f} plain_ms={t_p:.4f} library_ms=none "
-            f"bound_ms={b_ms:.4f} ({b_by}; {flops / 1e9:.2f} GFLOP, "
+        b_ms, b_by, b_cores, gflop = _ssd_bound(nC, L, H, P, N, nbytes,
+                                               dt_name)
+        hg = sops.heads_per_cta(nC, L, H, P, N, dt)
+        res[dt_name] = dict(err=e, ms=t_k, device_ms=d_k, plain_ms=t_p,
+                            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                            bound_ms_cuda_cores=b_cores, heads_per_cta=hg,
+                            worst_ratio=worst_ratio, ratio_3e5=ratio32)
+        log(f"kernel ssd_intra {dt_name} nC={nC} L={L} H={H} P={P} N={N} "
+            f"heads_per_cta={hg}: max_abs_err={e:.3e} (max |y| "
+            f"{float(yr.abs().max()):.2f}; {worst_ratio:.4f}x the allclose "
+            f"bound, rtol = atol = {tol}; {ratio32:.4f}x at 3e-5) two "
+            f"launches identical ms={t_k:.4f} device_ms={_fmt(d_k)} "
+            f"plain_ms={t_p:.4f} library_ms=none bound_ms={b_ms:.4f} "
+            f"({b_by}, products as {TF32_PASSES} tensor-core passes; "
+            f"CUDA cores {b_cores:.4f}; {gflop:.2f} GFLOP a pass, "
             f"{nbytes / 1e6:.1f} MB)")
+    return res
+
+
+def sweep_ssd_heads(groups=(1, 2, 4, 8, 16, 32)):
+    """Times ssd_intra at the smoke shape with every number of heads per
+    CTA whose plan fits, through the wrapper with ``heads_per_cta`` held,
+    with CUDA events (and in device time), beside the count the rule
+    picks. Every count must give the rule's bytes. Returns {dtype:
+    {"rule", "best", "times": {hg: {...}}}}."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ssd import ops as sops
+
+    si = ssd_inputs(np.random.default_rng(1), torch.device("cuda"))
+    nC, L, H, P = si["xdt"].shape
+    N = si["B"].shape[-1]
+    rule = sops.heads_per_cta
+    slib = sops.bind(build.load("ssd"))
+    res = {}
+    try:
+        for dt_name in ("float32", "bfloat16"):
+            dt = getattr(torch, dt_name)
+            args = [si[k].to(dt) for k in ("xdt", "log_a", "B", "C")]
+            pick = rule(nC, L, H, P, N, dt)
+            want = sops.ssd_intra(*args)
+            row = {}
+            for hg in groups:
+                if hg > H or sops.smem_bytes(L, N, P, hg, dt) > \
+                        sops._SMEM_MAX:
+                    continue
+                sops.heads_per_cta = lambda *a, hg=hg: hg
+                got = sops.ssd_intra(*args)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise RuntimeError(f"ssd_intra {dt_name}: {hg} heads "
+                                       "per CTA differ from the rule's "
+                                       f"{pick}")
+                row[hg] = dict(
+                    device_ms=device_ms(lambda: sops.ssd_intra(*args)),
+                    ms=cuda_ms(lambda: sops.ssd_intra(*args)),
+                    ctas=nC * -(-H // hg),
+                    ctas_per_sm=slib.ssd_intra_occupancy(
+                        L, N, P, hg, int(dt == torch.bfloat16)))
+            sops.heads_per_cta = rule
+            # a profiled window now and then misses kernels; a call here
+            # is long enough that events time the card, so pick by them
+            best = min(row, key=lambda k: row[k]["ms"])
+            res[dt_name] = dict(rule=pick, best=best, times=row)
+            log(f"ssd_intra head-group sweep {dt_name} nC={nC} L={L} H={H} "
+                f"(rule {pick}, fastest {best}; same bytes at every count): "
+                + ", ".join(f"{hg}: events {r['ms']:.4f} ms dev "
+                            f"{_fmt(r['device_ms'])} ms ({r['ctas']} CTAs, "
+                            f"{r['ctas_per_sm']}/SM)"
+                            for hg, r in row.items()))
+    finally:
+        sops.heads_per_cta = rule
     return res
 
 
@@ -855,6 +951,9 @@ def check_rope(dev):
                 raise RuntimeError(f"rope {shape_name} {dt_name}: per-layer "
                                    "calls differ from the whole-stack call")
             t_k = cuda_ms(lambda: rops.rope(x, pos, theta=theta))
+            # device time alone: at the path's shape the events above
+            # mostly time the wrapper's host work
+            d_k = device_ms(lambda: rops.rope(x, pos, theta=theta))
             t_p = cuda_ms(lambda: rope_ref(
                 x.reshape(L * n, H, D), pos.repeat(L), theta=theta))
             # the wrapper's host time per call (checks, ctypes, enqueue;
@@ -872,14 +971,14 @@ def check_rope(dev):
             # cos / sin evaluations are not counted (bytes bound anyway)
             b_ms, b_by = bound(nbytes, 7 * x.numel() // 2, dt_name)
             res.setdefault(shape_name, {})[dt_name] = dict(
-                err=e, ms=t_k, plain_ms=t_p, library_ms=None, bound_ms=b_ms,
-                bound_by=b_by, host_ms=t_h)
+                err=e, ms=t_k, device_ms=d_k, plain_ms=t_p, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by, host_ms=t_h)
             log(f"kernel rope {shape_name} {dt_name} [{L}, {n}, {H}, {D}] "
                 f"pos {int(pos.min())}..{int(pos.max())}: max_abs_err="
                 f"{e:.3e} (tol {TOL[dt_name]}) per-layer == whole-stack "
-                f"ms={t_k:.4f} plain_ms={t_p:.4f} library_ms=none "
-                f"bound_ms={b_ms:.4f} ({b_by}; {nbytes / 1e6:.2f} MB) "
-                f"host_ms_per_call={t_h:.4f}")
+                f"ms={t_k:.4f} device_ms={_fmt(d_k)} plain_ms={t_p:.4f} "
+                f"library_ms=none bound_ms={b_ms:.4f} ({b_by}; "
+                f"{nbytes / 1e6:.2f} MB) host_ms_per_call={t_h:.4f}")
         back = rops.rope(rops.rope(x32, pos, theta=theta), pos, theta=theta,
                          inverse=True)
         rt = float((back - x32).abs().max())
@@ -1317,6 +1416,7 @@ def main() -> int:
     from repro_torch.kernels.chunk_attention import ops as cops
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.rope import ops as rops
+    from repro_torch.kernels.ssd import ops as sops
     from repro_torch.models import model as M
 
     t_all = time.perf_counter()
@@ -1371,9 +1471,27 @@ def main() -> int:
     if min(o["ctas_per_sm"] for o in docc.values()) < 1:
         raise RuntimeError(f"decode_attention: does not fit an SM: {docc}")
 
+    # the SSD kernel's resources per CTA at mamba2-370m's prefill shape,
+    # with the heads per CTA the rule picks there
+    slib = sops.bind(build.load("ssd"))
+    socc = {}
+    for dt, bf in (("float32", 0), ("bfloat16", 1)):
+        hg = sops.heads_per_cta(60, 128, 32, 64, 128, getattr(torch, dt))
+        socc[dt] = dict(
+            heads_per_cta=hg,
+            smem_bytes=slib.ssd_intra_smem_bytes(128, 128, 64, hg, bf),
+            ctas_per_sm=slib.ssd_intra_occupancy(128, 128, 64, hg, bf))
+    log("ssd_intra L=128 N=128 P=64 per CTA: " + json.dumps(socc)
+        + "; ptxas:\n  " + "\n  ".join(
+            ln.strip() for ln in blog["ssd"]["log"].splitlines()
+            if "Used" in ln or "Compiling entry" in ln or "spill" in ln))
+    if min(o["ctas_per_sm"] for o in socc.values()) < 1:
+        raise RuntimeError(f"ssd_intra: does not fit an SM: {socc}")
+
     # phase 3: kernels vs plain versions
     krows, decode_tables = check_kernels(dev)
     krows["ssd_intra"] = check_ssd(dev)
+    ssd_sweep = sweep_ssd_heads()
     rope_rows = check_rope(dev)
     krows["rope"] = rope_rows["path"]
 
@@ -1559,12 +1677,33 @@ def main() -> int:
     # rope's row is at the path's shape; the 1024-token span beside it
     kernels[-1]["shape"] = "[32, 48, 8, 128]; span1024 [32, 1024, 8, 128]"
     kernels[-1]["host_ms"] = rope_rows["path"]["float32"]["host_ms"]
+    kernels[-1]["device_ms"] = rope_rows["path"]["float32"]["device_ms"]
+    kernels[-1]["device_ms_bf16"] = \
+        rope_rows["path"]["bfloat16"]["device_ms"]
     for dt, sfx in (("float32", ""), ("bfloat16", "_bf16")):
         r = rope_rows["span1024"][dt]
         kernels[-1].update({f"max_abs_err_span1024{sfx}": r["err"],
                             f"ms_span1024{sfx}": r["ms"],
                             f"plain_ms_span1024{sfx}": r["plain_ms"],
                             f"bound_ms_span1024{sfx}": r["bound_ms"]})
+    # ssd_intra's row: device time, the bound's CUDA-core figure, the
+    # heads per CTA the rule picks and the sweep over every count
+    srow = next(r for r in kernels if r["name"] == "ssd_intra")
+    srow["shape"] = "nC 60, L 128, H 32, P 64, N 128"
+    srow["bound_note"] = ("per-head products counted as three tensor-core "
+                          "passes (3xTF32 at 495 TFLOP/s; bf16 hi + mid + "
+                          "lo at 989), C B^T and the decay at 67 TFLOP/s")
+    for dt, sfx in (("float32", ""), ("bfloat16", "_bf16")):
+        r = krows["ssd_intra"][dt]
+        srow.update({f"device_ms{sfx}": r["device_ms"],
+                     f"bound_ms_cuda_cores{sfx}": r["bound_ms_cuda_cores"],
+                     f"heads_per_cta{sfx}": r["heads_per_cta"],
+                     f"worst_ratio{sfx}": r["worst_ratio"],
+                     f"ctas_per_sm{sfx}": socc[dt]["ctas_per_sm"],
+                     f"smem_bytes{sfx}": socc[dt]["smem_bytes"],
+                     f"heads_sweep_ms{sfx}": {
+                         str(k): v["ms"]
+                         for k, v in ssd_sweep[dt]["times"].items()}})
     log(f"mamba2-370m: prefill {mamba['prefill_ms']:.1f} ms per call "
         f"(4 x 1920 tokens), decode step {mamba['decode_step_ms']:.2f} ms, "
         f"{mamba['decode_tokens_per_s']:.1f} tokens/s at batch 4 [{card}]")

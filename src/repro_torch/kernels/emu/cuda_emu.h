@@ -7,11 +7,12 @@
 //
 // Every CUDA thread of a block is a std::thread and blocks run one after
 // another: __syncthreads is a std::barrier over the block, warp shuffles
-// exchange through a per-warp buffer between two warp barriers, dynamic
-// shared memory is a per-block buffer filled with a poison byte. Device
-// pointers are host pointers. The kernel sources opt in through hooks
-// defined here when CPU_EMULATION is set and as inline PTX otherwise:
-// LAUNCH and dyn_smem, and for the chunk-attention kernel cp_async_cg16 /
+// exchange through a per-warp buffer between two warp barriers (xor for
+// float, up for double), dynamic shared memory is a per-block buffer
+// filled with a poison byte. Device pointers are host pointers. The kernel
+// sources opt in through hooks defined here when CPU_EMULATION is set and
+// as inline PTX otherwise: LAUNCH and dyn_smem, and for the chunk,
+// decode and SSD kernels cp_async_cg16 /
 // cp_async_ca4 / cp_async_commit / cp_async_wait (a synchronous 16- or
 // 4-byte copy or zero fill), ldmatrix x4 (plain and .trans) and the two
 // mma.sync shapes (each lane writes its
@@ -57,6 +58,7 @@ struct alignas(8) float2 { float x, y; };
 inline float4 make_float4(float x, float y, float z, float w) {
   return float4{x, y, z, w};
 }
+inline float2 make_float2(float x, float y) { return float2{x, y}; }
 
 // IEEE single operations rounded one by one (the host compiler, in ISO
 // C++ mode, does not contract them)
@@ -84,6 +86,7 @@ struct EmuBlock {
   std::unique_ptr<std::barrier<>> bar;
   std::vector<std::unique_ptr<std::barrier<>>> wbar;
   std::vector<float> shfl;
+  std::vector<double> shfld;
   std::vector<uint32_t> frag;   // per lane: mma A (4) and B (2) registers
   std::vector<const void*> rowp;   // per lane: ldmatrix row address
   std::atomic<int> orv{0};
@@ -114,6 +117,17 @@ inline float __shfl_xor_sync(unsigned, float v, int m) {
   B.shfl[threadIdx.x] = v;
   B.wbar[w]->arrive_and_wait();
   float r = B.shfl[w * 32 + (lane ^ m)];
+  B.wbar[w]->arrive_and_wait();
+  return r;
+}
+
+// lane l gets v of lane l - d (its own v where l < d)
+inline double __shfl_up_sync(unsigned, double v, int d) {
+  EmuBlock& B = *emu_cur;
+  int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  B.shfld[threadIdx.x] = v;
+  B.wbar[w]->arrive_and_wait();
+  double r = lane >= d ? B.shfld[w * 32 + lane - d] : v;
   B.wbar[w]->arrive_and_wait();
   return r;
 }
@@ -247,6 +261,7 @@ struct EmuLauncher {
           for (unsigned w = 0; w < (b.x + 31) / 32; ++w)
             blk.wbar.push_back(std::make_unique<std::barrier<>>(32));
           blk.shfl.assign(b.x, 0.f);
+          blk.shfld.assign(b.x, 0.0);
           blk.frag.assign(6 * b.x, 0u);
           blk.rowp.assign(b.x, nullptr);
           blk.smem.assign(sm + 16, 0xAB);

@@ -151,6 +151,19 @@ def _ssd_inputs(seed, nC, L, H, P, N, batch=0):
     return xdt, la, Bm, Cm
 
 
+def _ssd_model_inputs(seed, nC, L, H, P, N):
+    """The SSD block's inputs at the distributions mamba2 makes them
+    (chip_smoke.ssd_inputs): dt = softplus(N(0, 1)), A = -U(1, 8) per
+    head, log_a = dt * A, xdt = x * dt with x ~ N(0, 1), B/C ~ N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.normal(size=(nC, L, H)))).astype(np.float32)
+    A = -rng.uniform(1, 8, size=H).astype(np.float32)
+    xdt = rng.normal(size=(nC, L, H, P)).astype(np.float32) * dt[..., None]
+    Bm = rng.normal(size=(nC, L, N)).astype(np.float32)
+    Cm = rng.normal(size=(nC, L, N)).astype(np.float32)
+    return xdt, dt * A, Bm, Cm
+
+
 # ---------------- CUDA kernels vs plain versions (on the card) --------------
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -478,6 +491,45 @@ def test_ssd_cuda_wrapper_raises():
     big = _t(*_ssd_inputs(5, 1, 512, 1, 64, 128), device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         sops.ssd_intra(*big)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_cuda_head_groups_bit_identical(monkeypatch, counts, dtype):
+    """Every number of heads per CTA gives the same bytes (the scores are
+    formed the same way for each), H 6 leaving a partial last group."""
+    dev = _need_cuda()
+    dt = getattr(torch, dtype)
+    ins = _t(*_ssd_model_inputs(7, 3, 64, 6, 32, 32), device=dev, dtype=dt)
+    outs = {}
+    for hg in (1, 2, 4, 6):
+        monkeypatch.setattr(sops, "heads_per_cta", lambda *a, hg=hg: hg)
+        outs[hg] = sops.ssd_intra(*ins)
+    torch.cuda.synchronize()
+    assert sops.ssd_intra.launches == 4
+    for hg, (y, st) in outs.items():
+        assert torch.equal(y, outs[1][0]) and torch.equal(st, outs[1][1]), hg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_cuda_model_shape_within_bound(counts, dtype):
+    """mamba2-370m's prefill shape (nC 60, L 128, H 32, P 64, N 128) at the
+    model's distributions, with the wrapper's group size: within the
+    reference's allclose bound of the plain version on the card, and two
+    launches give the same bytes."""
+    dev = _need_cuda()
+    dt = getattr(torch, dtype)
+    ins = _t(*_ssd_model_inputs(1, 60, 128, 32, 64, 128), device=dev,
+             dtype=dt)
+    y, st = sops.ssd_intra(*ins)
+    y2, st2 = sops.ssd_intra(*ins)
+    yr, sr = sops.ssd_intra_ref(*ins)
+    torch.cuda.synchronize()
+    assert sops.ssd_intra.launches == 2
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+    np.testing.assert_allclose(_np(y), _np(yr), **F32)
+    np.testing.assert_allclose(_np(st), _np(sr), **F32)
 
 
 @pytest.mark.cuda

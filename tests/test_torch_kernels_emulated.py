@@ -28,9 +28,15 @@ from repro_torch.kernels.decode_attention.ref import (
     paged_decode_attention_ref,
 )
 from repro_torch.kernels.rope.ref import rope_ref
+from repro_torch.kernels.ssd import ops as sops
 from repro_torch.kernels.ssd.ref import ssd_intra_ref
 from repro_torch.models.layers import _inv_freq
-from test_torch_kernels_cuda import SSD_CASES, _rope_inputs, _ssd_inputs
+from test_torch_kernels_cuda import (
+    SSD_CASES,
+    _rope_inputs,
+    _ssd_inputs,
+    _ssd_model_inputs,
+)
 
 torch.set_num_threads(2)
 EMU = os.path.join(os.path.dirname(build.__file__), "emu")
@@ -62,13 +68,11 @@ def libs(tmp_path_factory):
         [ctypes.c_void_p]
     dlib = dops.bind(loaded["decode_attention"])
     fd, fp = dlib.decode_attention_fwd, dlib.paged_decode_attention_fwd
-    fs = loaded["ssd"].ssd_intra_fwd
-    fs.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + \
-        [ctypes.c_void_p]
+    fs = sops.bind(loaded["ssd"])
     fr = loaded["rope"].rope_fwd
     fr.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + \
         [ctypes.c_void_p]
-    for f in (fc, fs, fr):
+    for f in (fc, fr):
         f.restype = ctypes.c_int
     return fc, fd, fp, fs, fr
 
@@ -611,6 +615,28 @@ def test_decode_split_count_from_shapes():
             assert 1 <= n <= units and (n - 1) * per < units
             assert n == ns(B, S, Hkv, dt, block=block)
 
+def _ssd(fs, ins, hg=None):
+    """xdt, log_a, B, C (CPU tensors of one type) through the emulated
+    kernel with ``hg`` heads per CTA (the wrapper's rule when None)."""
+    nC, L, H, P = ins[0].shape
+    N = ins[2].shape[-1]
+    if hg is None:
+        hg = sops.heads_per_cta(nC, L, H, P, N, ins[0].dtype)
+    y = torch.empty((nC, L, H, P))
+    st = torch.empty((nC, H, P, N))
+    assert fs.ssd_intra_fwd(*[x.data_ptr() for x in ins], y.data_ptr(),
+                            st.data_ptr(), nC, L, H, P, N,
+                            int(ins[0].dtype == torch.bfloat16), hg,
+                            None) == 0
+    return y, st
+
+
+def _worst_ratio(pairs, tol):
+    """Largest |a - b| / (tol + tol |b|): <= 1 is allclose(rtol=atol=tol)."""
+    return max(float(((a - b).abs() / (tol + tol * b.abs())).max())
+               for a, b in pairs)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("nC,L,H,P,N", SSD_CASES)
 def test_ssd_source_vs_plain(libs, nC, L, H, P, N, dtype):
@@ -618,28 +644,97 @@ def test_ssd_source_vs_plain(libs, nC, L, H, P, N, dtype):
     up to the chunk); bf16 inputs, fp32 arithmetic in both versions."""
     dt = getattr(torch, dtype)
     ins = [_t(x, dt) for x in _ssd_inputs(nC * L + 2, nC, L, H, P, N)]
-    y = torch.empty((nC, L, H, P))
-    st = torch.empty((nC, H, P, N))
-    assert libs[3](*[x.data_ptr() for x in ins], y.data_ptr(),
-                   st.data_ptr(), nC, L, H, P, N, int(dt == torch.bfloat16),
-                   None) == 0
+    y, st = _ssd(libs[3], ins)
     yr, sr = ssd_intra_ref(*ins)
     torch.testing.assert_close(y, yr, **F32)
     torch.testing.assert_close(st, sr, **F32)
 
 
 def test_ssd_source_row_blocks_and_padding(libs):
-    """L 70 spans three row blocks of 32 (the last one ragged); P 6 and
-    N 5 leave padding columns in the staged tiles."""
+    """L 70 spans five 16-row strips (the last one ragged); P 6 and N 5
+    leave padding columns in the staged tiles and rows whose width is not
+    a multiple of 16 bytes (plain loads instead of cp.async)."""
     nC, L, H, P, N = 1, 70, 2, 6, 5
     ins = [_t(x) for x in _ssd_inputs(70, nC, L, H, P, N)]
-    y = torch.empty((nC, L, H, P))
-    st = torch.empty((nC, H, P, N))
-    assert libs[3](*[x.data_ptr() for x in ins], y.data_ptr(),
-                   st.data_ptr(), nC, L, H, P, N, 0, None) == 0
+    y, st = _ssd(libs[3], ins)
     yr, sr = ssd_intra_ref(*ins)
     torch.testing.assert_close(y, yr, **F32)
     torch.testing.assert_close(st, sr, **F32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nC,L,H,P,N", [(2, 32, 6, 16, 16),
+                                        (1, 70, 5, 6, 5)])
+def test_ssd_source_head_groups_bit_identical(libs, nC, L, H, P, N, dtype):
+    """The scores are formed the same way whatever the number of heads per
+    CTA, so every group size gives the same bytes (1, 2, 4 and H; with H
+    6 and 5 the last group is partial); and they hold the plain version."""
+    dt = getattr(torch, dtype)
+    ins = [_t(x, dt) for x in _ssd_inputs(nC + L + H, nC, L, H, P, N)]
+    y1, s1 = _ssd(libs[3], ins, hg=1)
+    for hg in (2, 4, H):
+        y, st = _ssd(libs[3], ins, hg=hg)
+        assert torch.equal(y, y1) and torch.equal(st, s1), hg
+    yr, sr = ssd_intra_ref(*ins)
+    torch.testing.assert_close(y1, yr, **F32)
+    torch.testing.assert_close(s1, sr, **F32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_source_full_width_slice(libs, dtype):
+    """mamba2-370m's widths (L 128, H 32, P 64, N 128) on two chunks, at
+    the model's distributions (chip_smoke.ssd_inputs), with the wrapper's
+    group size: within the reference's allclose bound (3e-5; bf16 inputs
+    are exact in fp32, so the same bound). The worst ratio to it is
+    printed (PERF.md); ~6 s per dtype under the emulator."""
+    dt = getattr(torch, dtype)
+    ins = [_t(x, dt) for x in _ssd_model_inputs(1, 2, 128, 32, 64, 128)]
+    y, st = _ssd(libs[3], ins)
+    yr, sr = ssd_intra_ref(*ins)
+    ratio = _worst_ratio(((y, yr), (st, sr)), 3e-5)
+    print(f"ssd_intra full-width slice {dtype}: worst ratio to the "
+          f"allclose bound {ratio:.3f}, max |y| {float(yr.abs().max()):.1f}")
+    assert ratio <= 1.0
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_source_two_launches_identical(libs, dtype):
+    dt = getattr(torch, dtype)
+    ins = [_t(x, dt) for x in _ssd_model_inputs(5, 1, 48, 4, 32, 32)]
+    y1, s1 = _ssd(libs[3], ins)
+    y2, s2 = _ssd(libs[3], ins)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+def test_ssd_smem_plan_matches_source(libs):
+    """ops.smem_bytes states the source's shared-memory plan exactly."""
+    for L, N, P in ((1, 8, 16), (7, 5, 6), (70, 5, 6), (128, 128, 64),
+                    (160, 64, 32), (33, 130, 70), (64, 128, 16)):
+        for hg in (1, 3, 8):
+            for dt in (torch.float32, torch.bfloat16):
+                assert libs[3].ssd_intra_smem_bytes(
+                    L, N, P, hg, int(dt == torch.bfloat16)) == \
+                    sops.smem_bytes(L, N, P, hg, dt)
+
+
+def test_ssd_heads_per_cta_rule():
+    """The group size is a function of the shapes alone; at mamba2-370m's
+    prefill shape it keeps a full wave of CTAs; it never exceeds H and
+    always fits a CTA; a lone chunk takes one head per CTA."""
+    f32, b16 = torch.float32, torch.bfloat16
+    for dt in (f32, b16):
+        hg = sops.heads_per_cta(60, 128, 32, 64, 128, dt)
+        assert hg == 8 and 60 * -(-32 // hg) >= 132
+        assert sops.heads_per_cta(1, 128, 32, 64, 128, dt) == 1
+        assert sops.heads_per_cta(3, 16, 4, 32, 16, dt) == 1
+        for nC, L, H, P, N in ((500, 128, 32, 64, 128), (2, 8, 2, 16, 8),
+                               (900, 160, 3, 6, 5), (400, 64, 1, 64, 64)):
+            hg = sops.heads_per_cta(nC, L, H, P, N, dt)
+            assert 1 <= hg <= H
+            assert sops.smem_bytes(L, N, P, hg, dt) <= sops._SMEM_MAX
+            assert hg == sops.heads_per_cta(nC, L, H, P, N, dt)
+    assert sops.smem_bytes(512, 128, 64, 1, f32) > sops._SMEM_MAX
 
 
 def _rope(fr, x, pos, theta, inverse):
