@@ -44,29 +44,41 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    prefill of all 2048 tokens and 8 greedy tokens; decode is held against
    the 2048-token prefill layer by layer (same inputs, 3e-4) and in the
    logits (against the model's own fp32 noise floor);
-5. engine A: full-width llama3-8b (random weights from a seed, fp32),
+5. training: full-width mamba2-370m (48 layers) and full-width
+   llama3-8b cut to 2 layers (its 32 would need ~128 GB of params,
+   grads and moments), each 8 AdamW steps from random weights on a
+   global batch of 4 x 1024 synthetic tokens in 2 microbatches (step
+   time by CUDA events after one warm-up step, tokens/s, peak memory,
+   the loss at every step; finite, and the last below the first); 3
+   straight steps == 2 + checkpoint save / restore + 1, byte for byte,
+   on mamba2-370m cut to 2 layers; ``python -m repro_torch.launch.train
+   --tiny --steps 20`` on the card, then a tiny ``kernel`` engine built
+   from its checkpoint (``EngineSpec(params_path=...)``) serving the
+   smoke's 12 requests; training launches no kernel (its counts stay 0);
+6. engine A: full-width llama3-8b (random weights from a seed, fp32),
    ``cachecraft`` with a chunk store, ``attn_impl="kernel"``: chunk
    attention in the prefill windows, decode attention over the arena,
    the RoPE kernel removing RoPE from every stored chunk and re-applying
    it to every reused one; logs the chunk calls by ``(B, A, S)`` and the
    decode calls by ``(B, S)``;
-6. engine B: the same weights and workload with ``paged_decode=True,
+7. engine B: the same weights and workload with ``paged_decode=True,
    attn_impl="paged_kernel"``: the paged kernel reads the pool in place
    (its calls logged by ``(B, NBmax, bs)``);
-7. engine C: the same with ``attn_impl="dense"`` (plain PyTorch
+8. engine C: the same with ``attn_impl="dense"`` (plain PyTorch
    attention); A's and B's per-step decode logits are held against C's;
-8. server: the HTTP server (``serving/server.py``) around a fresh
+9. server: the HTTP server (``serving/server.py``) around a fresh
    ``kernel`` engine, the same 12 requests submitted and streamed through
    ``ServeClient``, one cancelled after its 2nd token (``run_server``);
-9. a ``kernels`` JSON line (launches on the main paths, error, times,
-   bound), the mamba2 figures, per-engine TTFT / decode-step figures and
-   the server's;
-10. last line: ``{"ok": true, "device": {...}}``.
+10. a ``kernels`` JSON line (launches on the main paths, error, times,
+    bound), the mamba2 and training figures, per-engine TTFT /
+    decode-step figures and the server's;
+11. last line: ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 just before the mamba2 phase and engines A and
-B run and read just after (rope and the attention kernels of engine A in
-A, paged decode in B); the comparison launches of phase 3 and the
-replays after the engines do not count. Without CUDA, or without the
+Launch counts are set to 0 just before the mamba2 phase, the training
+runs, the engine serving the trained checkpoint and engines A and B, and
+read just after (rope and the attention kernels of engine A in A, paged
+decode in B); the comparison launches of phase 3 and the replays after
+the engines do not count. Without CUDA, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
 result.
 """
@@ -1172,7 +1184,284 @@ def run_mamba2(dev):
 
 
 # ---------------------------------------------------------------------------
-# phases 5-7: the engine on full-width llama3-8b
+# phase 5: training
+# ---------------------------------------------------------------------------
+# each training run: global batch 4 x 1024 tokens in 2 microbatches, 8
+# AdamW steps, the lr warming up over the first 2. Mamba2's peak lr is
+# higher: its init's grad norm (~1e5) clips every gradient element below
+# ~1e-3 under AdamW's eps, and at 3e-4 its loss fell less in 8 steps than
+# it varies between batches. TRAIN_HELD is a batch no step trains on.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 4, 1024, 2, 8
+TRAIN_LR = {"ssm": 3e-3, "dense": 3e-4}           # by model family
+TRAIN_HELD = 1000
+
+
+def _train_opt(cfg):
+    return dict(peak_lr=TRAIN_LR[cfg.family], warmup_steps=2,
+                total_steps=TRAIN_STEPS)
+
+
+def _train_setup(cfg, dev, seed=0):
+    """A fresh ``TrainState`` from ``seed`` on the card, its train step
+    and the synthetic data."""
+    import torch
+
+    from repro_torch.training import steps as TS
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    state = TS.init_train_state(cfg, gen)
+    step = TS.make_train_step(cfg, AdamWConfig(**_train_opt(cfg)),
+                              accum=TRAIN_ACCUM)
+    data = SyntheticLM(DataConfig(seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH,
+                                  vocab_size=cfg.vocab_size))
+
+    def batch(i):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch(i).items()}
+    return state, step, batch
+
+
+def _eval_loss(cfg, state, b):
+    import torch
+
+    from repro_torch.training import steps as TS
+    with torch.no_grad():
+        return float(TS.loss_fn(cfg, state.params, b)[0])
+
+
+def grad_norm_witness(cfg, state, b, seq=128):
+    """The global grad norm of ``state``'s params on the first sequence of
+    ``b`` cut to ``seq`` tokens, on the card and on the host's CPU (the
+    same params copied there, the plain path): the norm is the model's,
+    not the card's."""
+    import torch
+
+    from repro_torch.training import steps as TS
+    from repro_torch.training.optimizer import global_norm, tree_leaves, \
+        tree_map
+    b = {k: v[:1, :seq] for k, v in b.items()}
+    out = {}
+    for where, params in (("card", state.params), ("cpu", tree_map(
+            lambda x: x.detach().cpu().requires_grad_(), state.params))):
+        batch = {k: v.to(next(tree_leaves(params)).device)
+                 for k, v in b.items()}
+        loss = TS.loss_fn(cfg, params, batch)[0]
+        out[where] = float(global_norm(torch.autograd.grad(
+            loss, list(tree_leaves(params)))))
+        del loss, params
+    out["rel_gap"] = abs(out["card"] - out["cpu"]) / out["cpu"]
+    return out
+
+
+def train_run(cfg, dev, card):
+    """``TRAIN_STEPS`` train steps of ``cfg`` from random weights: each
+    step timed with CUDA events, the loss and grad norm of every step.
+    Requires finite losses, the last below the first, and a control: the
+    loss on the held-out batch ``TRAIN_HELD`` falls over the run by more
+    than the loss varies between the run's batches at the initial params.
+    Before training, the grad norm at the initial params on the card
+    against the host CPU (``grad_norm_witness``). Returns the figures
+    (step ms and tokens/s after one warm-up step, peak memory)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.training.optimizer import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, step, batch = _train_setup(cfg, dev)
+    n_params = sum(x.numel() for x in tree_leaves(state.params))
+    # parameters that enter a matrix product (the embedding is a lookup)
+    n_matmul = n_params - state.params["embed"].numel()
+    t0 = time.perf_counter()
+    witness = grad_norm_witness(cfg, state, batch(0))
+    init = [_eval_loss(cfg, state, batch(i)) for i in range(TRAIN_STEPS)]
+    held = batch(TRAIN_HELD)
+    held_before = _eval_loss(cfg, state, held)
+    control_s = time.perf_counter() - t0
+    losses, grad_norms, ms = [], [], []
+    for i in range(TRAIN_STEPS):
+        b = batch(i)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step(state, b)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        losses.append(float(m["loss"]))
+        grad_norms.append(float(m["grad_norm"]))
+    held_after = _eval_loss(cfg, state, held)
+    spread = max(init) - min(init)
+    peak = torch.cuda.max_memory_allocated(dev)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_ms = float(np.mean(ms[1:]))
+    figs = dict(
+        model=cfg.name, layers=cfg.num_layers, params=n_params,
+        batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, accum=TRAIN_ACCUM,
+        steps=TRAIN_STEPS, lr=_train_opt(cfg), losses=losses,
+        grad_norms=grad_norms, grad_norm_witness=witness,
+        init_losses=init, init_spread=spread, held_before=held_before,
+        held_after=held_after, held_drop=held_before - held_after,
+        control_s=control_s,
+        step_ms=step_ms, step_ms_min=float(np.min(ms[1:])),
+        step_ms_max=float(np.max(ms[1:])), step_ms_first=ms[0],
+        tokens_per_s=tokens / (step_ms / 1e3),
+        # the matrix products of forward and backward, 6 x params x
+        # tokens over the params that multiply (remat's second forward
+        # and attention's products not counted), and its share of the
+        # fp32 peak (TF32 is off)
+        model_tflops_per_s=6 * n_matmul * tokens / (step_ms / 1e3) / 1e12,
+        model_share_of_fp32_peak=6 * n_matmul * tokens / (step_ms / 1e3)
+        / PEAK_FLOPS["float32"],
+        peak_mem_gb=peak / 1e9)
+    log(f"train {cfg.name} ({cfg.num_layers} layers, {n_params / 1e9:.3f}B "
+        f"params fp32) [{card}]: " + json.dumps(figs))
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"train {cfg.name}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"train {cfg.name}: loss did not fall: {losses}")
+    if not held_before - held_after > spread:
+        raise RuntimeError(
+            f"train {cfg.name}: the held-out loss fell "
+            f"{held_before - held_after:.4f}, not more than the "
+            f"{spread:.4f} it varies between batches")
+    # the 48-layer mamba2 amplifies rounding (one ulp on the embeddings
+    # moves its logits by O(1)), so its card and CPU norms are held to
+    # the same magnitude only; the check at 2 layers is tight
+    if not witness["rel_gap"] < (0.5 if cfg.family == "ssm" and
+                                 cfg.num_layers > 2 else 1e-3):
+        raise RuntimeError(f"train {cfg.name}: grad norm card vs CPU "
+                           f"{witness}")
+    del state, step, m
+    return figs
+
+
+def train_resume_check(cfg, dev, tmp):
+    """3 straight steps == 2 steps + ``checkpoint.save`` / ``restore`` + 1,
+    byte for byte in every leaf (params, both moments, count, step)."""
+    import torch
+
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import steps as TS
+    from repro_torch.training.optimizer import tree_leaves
+
+    state, step, batch = _train_setup(cfg, dev)
+    witness = grad_norm_witness(cfg, state, batch(0))
+    log(f"grad norm at init, {cfg.name} ({cfg.num_layers} layers), one "
+        f"128-token sequence: {json.dumps(witness)}")
+    if not witness["rel_gap"] < 1e-3:
+        raise RuntimeError(f"resume: grad norm card vs CPU {witness}")
+    for i in range(3):
+        state, _ = step(state, batch(i))
+    straight = TS.state_to_tree(state)
+    half, step, _ = _train_setup(cfg, dev)
+    for i in range(2):
+        half, _ = step(half, batch(i))
+    t0 = time.perf_counter()
+    ckpt.save(TS.state_to_tree(half), tmp, 2)
+    del half
+    resumed = TS.tree_to_state(ckpt.restore(tmp), dev)
+    io_s = time.perf_counter() - t0
+    if int(resumed.step) != 2:
+        raise RuntimeError(f"resume: restored step {int(resumed.step)}")
+    resumed, _ = step(resumed, batch(2))
+    leaves = list(zip(tree_leaves(straight),
+                      tree_leaves(TS.state_to_tree(resumed))))
+    differ = sum(not torch.equal(a, b) for a, b in leaves)
+    nbytes = sum(os.path.getsize(os.path.join(tmp, "step_00000002", f))
+                 for f in os.listdir(os.path.join(tmp, "step_00000002")))
+    log(f"train resume {cfg.name} ({cfg.num_layers} layers): 3 straight "
+        f"steps vs 2 + save / restore + 1: {len(leaves) - differ}/"
+        f"{len(leaves)} leaves byte-identical; checkpoint {nbytes / 1e9:.2f} "
+        f"GB, save + restore {io_s:.1f} s")
+    if differ:
+        raise RuntimeError(f"resume: {differ} of {len(leaves)} leaves "
+                           "differ from the straight run")
+    return dict(leaves=len(leaves), checkpoint_gb=nbytes / 1e9,
+                save_restore_s=io_s, grad_norm_witness=witness)
+
+
+def run_training(dev, card):
+    """Phase 5: full-width mamba2-370m (48 layers) and llama3-8b cut to 2
+    layers trained for ``TRAIN_STEPS`` steps; the resume check on
+    full-width mamba2-370m cut to 2 layers; ``launch.train --tiny`` on the
+    card and a tiny engine serving its checkpoint (``params_path``,
+    ``attn_impl="kernel"``) the smoke's 12 requests. The in-process
+    training runs reach no kernel (the launch counts stay 0 through
+    them; ``launch.train`` runs in its own process, where these counts
+    cannot see it); the engine's kernel launches are counted on their
+    own. Returns the figures."""
+    import torch
+
+    from repro_torch.configs import get_config, get_tiny
+    from repro_torch.kernels.chunk_attention import ops as cops
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.rope import ops as rops
+    from repro_torch.kernels.ssd import ops as sops
+
+    counters = {"chunk_attention": cops.chunk_attention,
+                "decode_attention": dops.decode_attention,
+                "paged_decode_attention": dops.paged_decode_attention,
+                "rope": rops.rope, "ssd_intra": sops.ssd_intra}
+
+    def zero():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {n: fn.launches for n, fn in counters.items()}
+
+    t_all = time.perf_counter()
+    zero()
+    figs = {"mamba2-370m": train_run(get_config("mamba2-370m"), dev, card),
+            "llama3-8b/2": train_run(get_config("llama3-8b").replace(
+                num_layers=2), dev, card)}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
+        figs["resume"] = train_resume_check(
+            get_config("mamba2-370m").replace(num_layers=2), dev,
+            os.path.join(tmp, "resume"))
+        during = read()
+        if any(during.values()):
+            raise RuntimeError(f"training launched kernels: {during}")
+        gc.collect()
+        torch.cuda.empty_cache()
+        ckdir = os.path.join(tmp, "tiny")
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--tiny",
+             "--steps", "20", "--ckpt-dir", ckdir],
+            env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
+            text=True, timeout=600)
+        log(f"launch.train --tiny --steps 20 (exit {r.returncode}, "
+            f"{time.perf_counter() - t0:.1f}s): "
+            + " | ".join(r.stdout.strip().splitlines()[-3:]))
+        if r.returncode != 0 or "done: 20 steps on cuda" not in r.stdout:
+            raise RuntimeError(f"launch.train failed: {r.stderr[-3000:]}")
+        zero()
+        served = run_engine("T", get_tiny("llama3-8b"), None,
+                            tmp, params_path=ckdir, attn_impl="kernel")[0]
+        served_launches = read()
+    log(f"training phase: kernel launches in the in-process training "
+        f"runs {during}; serving "
+        f"the tiny checkpoint {served_launches}; "
+        f"{time.perf_counter() - t_all:.1f}s")
+    for name in ("chunk_attention", "decode_attention", "rope"):
+        if served_launches[name] <= 0:
+            raise RuntimeError(f"params_path engine: no {name} launch")
+    figs["served_from_checkpoint"] = dict(
+        completed=served["completed"], launches=served_launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return figs
+
+
+# ---------------------------------------------------------------------------
+# phases 6-8: the engine on full-width llama3-8b
 # ---------------------------------------------------------------------------
 def smoke_engine(tag, cfg, params, tmp, num_requests=12, max_new_tokens=8,
                  **spec_kw):
@@ -1498,7 +1787,10 @@ def main() -> int:
     # phase 4: mamba2-370m prefill and decode
     mamba, ssd_launches = run_mamba2(dev)
 
-    # phases 5-7: engines on full-width llama3-8b
+    # phase 5: training, and serving what it wrote
+    training = run_training(dev, card)
+
+    # phases 6-8: engines on full-width llama3-8b
     cfg = get_config("llama3-8b")
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
@@ -1562,7 +1854,7 @@ def main() -> int:
         engines["C"], tr_c, tok_c, plan_c, _c = run_engine(
             "C", cfg, params, tmp, attn_impl="dense")
 
-        # phase 8: the HTTP server around a fresh kernel engine
+        # phase 9: the HTTP server around a fresh kernel engine
         served = run_server(cfg, params, tmp, tok_a)
     # chunk_attention at the path's most frequent shape, on the inputs of
     # engine A's first call of that shape
@@ -1600,7 +1892,7 @@ def main() -> int:
     err_a = compare_logits("A(kernel)", tr_a, tok_a, tr_c, tok_c)
     err_b = compare_logits("B(paged_kernel)", tr_b, tok_b, tr_c, tok_c)
 
-    # phase 8: the kernels line, the mamba2 and the engine figures
+    # phase 10: the kernels line, the mamba2, training and engine figures
     sources = {
         "chunk_attention": (
             "src/repro_torch/kernels/chunk_attention/csrc/chunk_attention.cu",
@@ -1707,6 +1999,17 @@ def main() -> int:
     log(f"mamba2-370m: prefill {mamba['prefill_ms']:.1f} ms per call "
         f"(4 x 1920 tokens), decode step {mamba['decode_step_ms']:.2f} ms, "
         f"{mamba['decode_tokens_per_s']:.1f} tokens/s at batch 4 [{card}]")
+    for name in ("mamba2-370m", "llama3-8b/2"):
+        t = training[name]
+        log(f"train {name}: step {t['step_ms']:.1f} ms "
+            f"({t['step_ms_min']:.1f}-{t['step_ms_max']:.1f}), "
+            f"{t['tokens_per_s']:.0f} tokens/s, peak "
+            f"{t['peak_mem_gb']:.2f} GB, loss {t['losses'][0]:.4f} -> "
+            f"{t['losses'][-1]:.4f}, held-out {t['held_before']:.4f} -> "
+            f"{t['held_after']:.4f} (batches spread "
+            f"{t['init_spread']:.4f} at init), grad norm at init card "
+            f"{t['grad_norm_witness']['card']:.6g} / CPU "
+            f"{t['grad_norm_witness']['cpu']:.6g} [{card}]")
     log(f"engines: " + json.dumps({
         k: {m: v[m] for m in ("ttft_mean_ms", "ttft_p99_ms",
                               "prefill_pass_ms", "decode_step_ms",

@@ -112,6 +112,23 @@ def check(err: int, what: str):
                            f"{err}")
 
 
+def check_no_grad(what: str, **tensors):
+    """Raise if autograd would need a backward through ``what``: the
+    kernels compute forward only and write into fresh outputs that carry
+    no ``grad_fn``, so a gradient through them would be lost silently.
+    Run the call under ``torch.no_grad()``, or train through the model's
+    differentiable route (``mode="train"``)."""
+    import torch
+    if not torch.is_grad_enabled():
+        return
+    need = [n for n, t in tensors.items() if t.requires_grad]
+    if need:
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward, and input(s) "
+            f"{', '.join(need)} require grad; call it under "
+            "torch.no_grad() (training uses the differentiable route)")
+
+
 def check_tensor(what: str, name: str, t, shape, dtypes, device):
     """Raise unless ``t`` is what a kernel's C entry point takes: on
     ``device``, one of ``dtypes``, exactly ``shape``, contiguous."""

@@ -72,6 +72,7 @@ def _launch(q, k, v, q_pos, k_pos, k_chunk, q_seg, k_seg, num_chunks,
     B, A, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     dev = q.device
+    build.check_no_grad(_WHAT, q=q, k=k, v=v)
     build.check_tensor(_WHAT, "q", q, (B, A, H, D), _FLOATS, dev)
     for name, t in (("k", k), ("v", v)):
         build.check_tensor(_WHAT, name, t, (B, S, Hkv, D), (q.dtype,),

@@ -146,6 +146,7 @@ def decode_attention(q, k, v, q_pos, k_pos, *, window: int = 0):
     B, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     dev = q.device
+    build.check_no_grad(what, q=q, k=k, v=v)
     build.check_tensor(what, "q", q, (B, H, D), _FLOATS, dev)
     for name, t in (("k", k), ("v", v)):
         build.check_tensor(what, name, t, (B, S, Hkv, D), (q.dtype,),
@@ -177,6 +178,7 @@ def paged_decode_attention(q, k_blocks, v_blocks, kpos_blocks, block_rows,
     NB, bs, Hkv = k_blocks.shape[:3]
     NBmax = block_rows.shape[1]
     dev = q.device
+    build.check_no_grad(what, q=q, k_blocks=k_blocks, v_blocks=v_blocks)
     build.check_tensor(what, "q", q, (B, H, D), _FLOATS, dev)
     for name, t in (("k_blocks", k_blocks), ("v_blocks", v_blocks)):
         build.check_tensor(what, name, t, (NB, bs, Hkv, D), (q.dtype,),

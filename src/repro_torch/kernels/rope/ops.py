@@ -66,6 +66,7 @@ def rope(x, pos, *, theta: float, inverse: bool = False):
     if x.device.type != "cuda":
         raise ValueError(f"{what}: no kernel for device {x.device}")
     dev = x.device
+    build.check_no_grad(what, x=x)
     build.check_tensor(what, "x", x, shape, _FLOATS, dev)
     build.check_tensor(what, "pos", pos, pos.shape, (torch.int32,), dev)
     out = torch.empty_like(x)

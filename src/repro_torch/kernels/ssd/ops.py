@@ -109,6 +109,8 @@ def ssd_intra(xdt, log_a, B_mat, C_mat):
         y, st = ssd_intra_ref(xdt, log_a, B_mat, C_mat)
     elif xdt.device.type == "cuda":
         dev = xdt.device
+        build.check_no_grad(what, xdt=xdt, log_a=log_a, B_mat=B_mat,
+                            C_mat=C_mat)
         build.check_tensor(what, "xdt", xdt, (nC, L, H, P), _FLOATS, dev)
         build.check_tensor(what, "log_a", log_a, (nC, L, H), (xdt.dtype,),
                            dev)

@@ -20,7 +20,14 @@ contract and ``ServeClient`` there)::
     curl -s localhost:8763/stats
 
 Runs on the GPU unless ``--device cpu``. ``--full`` serves the full-size
-config (random weights from ``--seed``); the default is the tiny one.
+config; the default is the tiny one. Weights are random from ``--seed``,
+or the trained ones of ``--params <ckpt-dir>`` (a checkpoint of
+``launch/train.py``; the latest step, from the same ``--arch`` and
+``--full``)::
+
+    python -m repro_torch.launch.train --tiny --steps 200 \
+        --ckpt-dir results/train_ckpt
+    python -m repro_torch.launch.serve --params results/train_ckpt
 """
 from __future__ import annotations
 
@@ -56,6 +63,8 @@ def make_parser() -> argparse.ArgumentParser:
     ap.add_argument("--tier-dtypes", default=None,
                     help='per-tier storage codecs, e.g. "cpu=int8"')
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--params", default=None,
+                    help="checkpoint dir with trained params")
     ap.add_argument("--device", default="cuda", help="cuda or cpu")
     ap.add_argument("--requests", type=int, default=24)
     ap.add_argument("--qpm", type=float, default=240)

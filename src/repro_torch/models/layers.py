@@ -5,10 +5,10 @@ The ported subset of ``repro/models/layers.py``: RMS norm, RoPE
 (apply and remove), position masks with segment ids, the dense GQA
 attention oracle with the Cache-Craft chunk-mass statistic, one-token
 decode attention, the SwiGLU FFN, and the Mamba2 pieces (causal depthwise
-conv, chunked SSD prefill through the ``ssd_intra`` kernel, one-step SSD
-decode). Every function keeps the JAX signature and layout (``[B, T, H,
-D]``), so the tests feed both packages the same numpy arrays and compare
-like with like.
+conv, chunked SSD prefill through the ``ssd_intra`` kernel and its
+differentiable training route, one-step SSD decode). Every function
+keeps the JAX signature and layout (``[B, T, H, D]``), so the tests feed
+both packages the same numpy arrays and compare like with like.
 
 All attention helpers take explicit *position vectors* for Q and K
 rather than assuming a triangular layout: that is what lets Cache-Craft's
@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.kernels.ssd.ref import ssd_intra_ref
 
 NEG_INF = -1e30
 
@@ -172,14 +173,21 @@ def causal_conv1d(x, w, state=None):
     return y.to(x.dtype), xp[:, -(W - 1):] if W > 1 else state
 
 
-def ssd_chunked(x, dt, A_log, B_mat, C_mat, D, chunk: int, state0=None):
+def ssd_chunked(x, dt, A_log, B_mat, C_mat, D, chunk: int, state0=None,
+                train: bool = False):
     """SSD forward (state-space duality, chunked).
 
     x [B,S,H,P], dt [B,S,H] (already softplus'ed), A_log [H], B_mat/C_mat
     [B,S,N], D [H]. Returns (y [B,S,H,P], state [B,H,P,N] fp32). The
-    intra-chunk term and the chunk states come from the ``ssd_intra``
-    kernel (its plain version on CPU tensors); the inter-chunk recurrence
-    and the ``D`` skip run here."""
+    inter-chunk recurrence and the ``D`` skip run here. The intra-chunk
+    term and the chunk states come from the ``ssd_intra`` kernel (its
+    plain version on CPU tensors) when serving; with ``train=True`` they
+    come from the same function written in differentiable tensor ops
+    (``ssd_intra_ref``: the reference's einsums, with the per-segment
+    ``_segsum``), on any device. That is the reference's own training
+    route (its ``ssd_chunked`` never reaches the Pallas kernel), chosen by
+    the caller's mode, not a fallback: the kernel has no backward, and
+    its wrapper raises rather than drop the gradient."""
     Bsz, S, H, Pd = x.shape
     N = B_mat.shape[-1]
     L = min(chunk, S)
@@ -195,7 +203,14 @@ def ssd_chunked(x, dt, A_log, B_mat, C_mat, D, chunk: int, state0=None):
     # B and C arrive as column slices of the in-projection
     Bc = B_mat.float().contiguous().reshape(Bsz, nC, L, N)
     Cc = C_mat.float().contiguous().reshape(Bsz, nC, L, N)
-    y_intra, chunk_state = ssd_ops.ssd_intra(xc, lac, Bc, Cc)
+    if train:
+        y_intra, chunk_state = (t.unflatten(0, (Bsz, nC)) for t in
+                                ssd_intra_ref(xc.flatten(0, 1),
+                                              lac.flatten(0, 1),
+                                              Bc.flatten(0, 1),
+                                              Cc.flatten(0, 1)))
+    else:
+        y_intra, chunk_state = ssd_ops.ssd_intra(xc, lac, Bc, Cc)
 
     # inter-chunk recurrence over chunk states
     cum = torch.cumsum(lac, dim=2)                        # [B,nC,L,H]

@@ -10,7 +10,9 @@ reference's four execution modes:
                   scattered in, and Q attends across the merged KV with a
                   position mask
   mode="decode"   single-token step against the cache (arena or pool twin)
-  mode="train"    full causal forward without a cache
+  mode="train"    full causal forward without a cache, differentiable:
+                  remat per layer group (``cfg.remat``) and the SSD
+                  intra-chunk term in tensor ops, not the kernel
 
 Parameters are a plain dict of tensors in the reference's layout:
 ``groups`` is a list (one entry per pattern position) of dicts whose
@@ -34,6 +36,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import backend as AB
 from repro_torch.models import layers as L
@@ -338,7 +341,7 @@ def _ssd_block(ctx: Ctx, p, x, state):
         s0 = state["s"] if (state is not None and ctx.mode == "partial") \
             else None
         y, s = L.ssd_chunked(xh, dt, p["A_log"], Bm, Cm, p["D"],
-                             cfg.ssd_chunk, s0)
+                             cfg.ssd_chunk, s0, train=ctx.mode == "train")
     y = y.reshape(B_, T, di)
     y = L.rms_norm(y, p["out_norm"], cfg.norm_eps) * F.silu(z)
     out = _proj(y, p["out_proj"])
@@ -379,11 +382,19 @@ class ModelOutput:
     cache: Optional[dict] = None
     stats: Optional[torch.Tensor] = None      # [L, B, T, C] row chunk mass
     key_stats: Optional[torch.Tensor] = None  # [L, B, T] mass received/key
+    # the MoE load-balancing loss, summed over layers: 0 for the ported
+    # families (the MoE FFN comes with ROADMAP A8)
+    aux_loss: float = 0.0
     hidden: Optional[torch.Tensor] = None
 
 
 def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
-    return params["embed"].to(torch_dtype(cfg.dtype))[tokens.long()]
+    # F.embedding rather than indexing: its backward sums the rows of a
+    # repeated token in a fixed order on the CPU too (an indexed gather's
+    # backward accumulates across threads there), so a train step gives
+    # the same bytes every run
+    return F.embedding(tokens.long(), params["embed"].to(
+        torch_dtype(cfg.dtype)))
 
 
 def lm_head(cfg: ModelConfig, params: Params, h: torch.Tensor):
@@ -404,26 +415,45 @@ def run_stack(cfg: ModelConfig, params: Params, h: torch.Tensor, ctx: Ctx,
     g1 = cfg.n_groups if g1 is None else g1
     want_cache = cache is not None
     stats_list, kstats_list = [], []
+    # per-layer views of the stacked [G, ...] leaves, made by one unbind
+    # per leaf: in training their gradients meet in one stack into the
+    # stacked leaf (indexing x[g] per layer would add a full-size zero
+    # gradient per layer)
+    layers = [{n: x.unbind(0) for n, x in pg.items()}
+              for pg in params["groups"]] if g1 > g0 else []
 
-    def one(kind, p, st):
-        nonlocal h
-        h, _st, rm, km = apply_block(ctx, kind, p, h, st)
-        if collect_stats:
-            stats_list.append(rm)
-            kstats_list.append(km)
-
-    for g in range(g0, g1):
+    def group(h, g):
+        masses = []
         for pi, kind in enumerate(pattern):
-            pg = params["groups"][pi]
-            p = {n: x[g] for n, x in pg.items()}
+            p = {n: xs[g] for n, xs in layers[pi].items()}
             st = ({n: x[g] for n, x in cache["groups"][pi].items()}
                   if want_cache else None)
-            one(kind, p, st)
+            h, _st, rm, km = apply_block(ctx, kind, p, h, st)
+            masses.append((rm, km))
+        return h, masses
+
+    def keep(masses):
+        if collect_stats:
+            stats_list.extend(rm for rm, _ in masses)
+            kstats_list.extend(km for _, km in masses)
+
+    # remat per layer group in training, as the reference's jax.checkpoint:
+    # only the group's input is kept, its activations are recomputed in
+    # the backward pass (train mode has no cache to write twice)
+    remat = cfg.remat and ctx.mode == "train"
+    for g in range(g0, g1):
+        if remat:
+            h, masses = checkpoint(group, h, g, use_reentrant=False)
+        else:
+            h, masses = group(h, g)
+        keep(masses)
     if tail:
         for i in range(cfg.n_tail):
             kind = cfg.layer_kinds[cfg.n_groups * len(pattern) + i]
-            one(kind, params["tail"][i],
+            h, _st, rm, km = apply_block(
+                ctx, kind, params["tail"][i], h,
                 cache["tail"][i] if want_cache else None)
+            keep([(rm, km)])
 
     new_cache = None
     if want_cache:

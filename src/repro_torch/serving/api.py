@@ -11,9 +11,10 @@ benches and the tests all go through it)::
 registries (``repro_torch.models.backend.BACKENDS``), so a typo fails at
 construction with a message naming the field. ``cfg`` / ``params`` /
 ``store`` can be injected; otherwise they are built from the spec:
-``arch`` / ``tiny`` resolve the model config, ``seed`` random-inits the
-parameters on ``device`` with a torch generator, and ``store`` (a
-``StoreSpec``) builds the tiered chunk store.
+``arch`` / ``tiny`` resolve the model config, ``params_path`` restores
+trained parameters onto ``device`` (else ``seed`` random-inits them
+there with a torch generator), and ``store`` (a ``StoreSpec``) builds
+the tiered chunk store.
 
 ``device`` defaults to ``"cuda"``; without a GPU the caller must pass
 ``device="cpu"`` (the port never falls back on its own).
@@ -58,6 +59,9 @@ class EngineSpec:
     arch: str = "llama3-8b"
     tiny: bool = True
     seed: int = 0
+    # a checkpoint directory (``training/checkpoint.py``, written by
+    # either package) whose ``params`` to serve instead of random ones
+    params_path: Optional[str] = None
     # recompute strategy + executor behavior
     strategy: str = "cachecraft"
     use_focus: bool = True
@@ -148,6 +152,7 @@ class EngineSpec:
             arch=get("arch", cls.arch),
             tiny=not get("full", False),
             seed=get("seed", cls.seed),
+            params_path=get("params", None),
             strategy=get("strategy", cls.strategy),
             use_focus=not get("no_focus", False),
             force_recompute_fraction=get("recompute", None),
@@ -195,12 +200,17 @@ def build_cfg(spec: EngineSpec):
 
 
 def build_params(spec: EngineSpec, cfg):
-    """Random-init from ``seed`` directly on ``spec.device``."""
+    """Restore ``params_path`` onto ``spec.device``, or random-init from
+    ``seed`` directly there. Restored params carry no grad."""
     import torch
 
     from repro_torch import device as devmod
     from repro_torch.models import model as M
-    gen = torch.Generator(device=devmod.resolve(spec.device))
+    dev = devmod.resolve(spec.device)
+    if spec.params_path:
+        from repro_torch.training import checkpoint as ckpt
+        return ckpt.restore(spec.params_path, device=dev)["params"]
+    gen = torch.Generator(device=dev)
     gen.manual_seed(spec.seed)
     return M.init_params(cfg, gen)
 

@@ -1,1 +1,1 @@
-"""Step functions of the port (the serving-side roots so far)."""
+"""Training of the port: data, AdamW, checkpoints and the step functions."""

@@ -39,7 +39,11 @@ def test_port_imports_no_jax_and_no_reference():
                      "repro_torch.kernels.rope.ops",
                      "repro_torch.serving.server",
                      "repro_torch.training.steps",
-                     "repro_torch.launch.serve"):
+                     "repro_torch.training.optimizer",
+                     "repro_torch.training.checkpoint",
+                     "repro_torch.training.data",
+                     "repro_torch.launch.serve",
+                     "repro_torch.launch.train"):
             assert must in sys.modules, must
         print(len(names))
     """)

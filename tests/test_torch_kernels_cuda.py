@@ -623,3 +623,121 @@ def test_rope_cuda_whole_stack_equals_per_layer(counts, inverse):
     torch.cuda.synchronize()
     assert torch.equal(whole, layers)
     assert rops.rope.launches == 7
+
+
+# ---------------- no backward through a kernel; the training route ----------
+def _grad_calls(dev):
+    """One call of each wrapper on small CUDA inputs, the first argument
+    the float input the test makes require grad."""
+    q, k, v, qp, kp, kch = _t(*_chunk_inputs(0, 16, 64, 4, 2, 32, 8),
+                              device=dev)
+    dq, dk, dv, dqp, dkp = _t(*_decode_inputs(1, 2, 64, 4, 2, 32),
+                              device=dev)
+    pq, pk, pv, ppos, prow, pqp = _t(*_paged_inputs(2, 2, 8, 4, 4, 2, 32),
+                                     device=dev)
+    x, pos = _t(*_rope_inputs(3, 32, 4, 32), device=dev)
+    sx, sla, sB, sC = _t(*_ssd_inputs(4, 2, 16, 4, 32, 16), device=dev)
+    return {
+        "chunk_attention": (q, lambda t: cops.chunk_attention(
+            t, k, v, qp, kp, kch, num_chunks=8)),
+        "decode_attention": (dq, lambda t: dops.decode_attention(
+            t, dk, dv, dqp, dkp)),
+        "paged_decode_attention": (pq, lambda t: dops.paged_decode_attention(
+            t, pk, pv, ppos, prow, pqp)),
+        "rope": (x, lambda t: rops.rope(t, pos, theta=1e4)),
+        "ssd_intra": (sx, lambda t: sops.ssd_intra(t, sla, sB, sC)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["chunk_attention", "decode_attention",
+                                  "paged_decode_attention", "rope",
+                                  "ssd_intra"])
+def test_cuda_wrapper_raises_when_input_requires_grad(counts, name):
+    """The kernels write fresh outputs with no grad_fn: with grad mode on
+    and an input that requires grad, the wrapper raises (naming itself)
+    instead of returning an output whose gradient would be lost. Under
+    torch.no_grad the same call launches."""
+    dev = _need_cuda()
+    t, call = _grad_calls(dev)[name]
+    fn = getattr({"chunk_attention": cops, "decode_attention": dops,
+                  "paged_decode_attention": dops, "rope": rops,
+                  "ssd_intra": sops}[name], name)
+    with pytest.raises(RuntimeError, match=f"{name}.*no backward"):
+        call(t.clone().requires_grad_(True))
+    assert fn.launches == 0
+    with torch.no_grad():
+        call(t.clone().requires_grad_(True))
+    call(t)
+    torch.cuda.synchronize()
+    assert fn.launches == 2
+
+
+def _mamba2_layer(seed):
+    """Full-width mamba2-370m: one ssd layer's params (non-zero norms and
+    dt_bias, so every one matters) and its input, B 1 x T 256 (two
+    chunks of 128), on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+    cfg = get_config("mamba2-370m").replace(num_layers=1)
+    params = TM.init_params(cfg, torch.Generator().manual_seed(seed))
+    p = {n: x[0].clone() for n, x in params["groups"][0].items()}
+    g = torch.Generator().manual_seed(seed + 1)
+    for n in ("ln1", "out_norm", "dt_bias"):
+        p[n] = 0.1 * torch.randn(p[n].shape, generator=g)
+    h = torch.randn((1, 256, cfg.d_model), generator=g)
+    cot = torch.randn((1, 256, cfg.d_model), generator=g)
+    return cfg, p, h, cot
+
+
+@pytest.mark.cuda
+def test_mamba2_layer_grad_cuda_equals_cpu(counts):
+    """One full-width mamba2-370m ssd layer in train mode: its gradient
+    (params and input) on the card equals the CPU's, fp32, rtol 1e-4
+    (atol 1e-4 of each leaf's largest entry); no kernel launches."""
+    from repro_torch.models import model as TM
+    dev = _need_cuda()
+    cfg, p, h, cot = _mamba2_layer(0)
+    grads = []
+    for device in ("cpu", dev):
+        pd = {n: x.to(device).requires_grad_(True) for n, x in p.items()}
+        hd = h.to(device).requires_grad_(True)
+        ctx = TM.Ctx(cfg=cfg, mode="train", positions=torch.arange(
+            256, dtype=torch.int32, device=device)[None])
+        out = TM.apply_block(ctx, "ssd", pd, hd, None)[0]
+        names = sorted(pd)
+        gs = torch.autograd.grad((out * cot.to(device)).sum(),
+                                 [hd] + [pd[n] for n in names])
+        grads.append(dict(zip(["h"] + names, gs)))
+    torch.cuda.synchronize()
+    assert sops.ssd_intra.launches == 0
+    for n, gc in grads[0].items():
+        a, b = _np(gc), _np(grads[1][n])
+        assert np.isfinite(b).all(), n
+        np.testing.assert_allclose(b, a, rtol=1e-4,
+                                   atol=1e-4 * np.abs(a).max(), err_msg=n)
+
+
+@pytest.mark.cuda
+def test_ssd_train_route_equals_kernel(counts):
+    """ssd_chunked's training route (differentiable tensor ops) and its
+    serving route (the ssd_intra kernel) on the same full-width inputs
+    (B 2 x 512 tokens, H 32, P 64, N 128, chunk 128): within the kernel's
+    3e-5 bound, so training and serving compute one function."""
+    dev = _need_cuda()
+    rng = np.random.default_rng(21)
+    Bsz, S, H, P, N = 2, 512, 32, 64, 128
+    x = rng.normal(size=(Bsz, S, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.normal(size=(Bsz, S, H)))).astype(np.float32)
+    A_log = np.log(rng.uniform(1, 8, size=H)).astype(np.float32)
+    Bm = rng.normal(size=(Bsz, S, N)).astype(np.float32)
+    Cm = rng.normal(size=(Bsz, S, N)).astype(np.float32)
+    D = np.ones(H, np.float32)
+    ins = _t(x, dt, A_log, Bm, Cm, D, device=dev)
+    y_k, s_k = TL.ssd_chunked(*ins, 128)
+    assert sops.ssd_intra.launches == 1
+    y_t, s_t = TL.ssd_chunked(*ins, 128, train=True)
+    torch.cuda.synchronize()
+    assert sops.ssd_intra.launches == 1
+    np.testing.assert_allclose(_np(y_t), _np(y_k), **F32)
+    np.testing.assert_allclose(_np(s_t), _np(s_k), **F32)
