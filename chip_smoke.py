@@ -10,9 +10,10 @@ Phases (each prints its own line; any failure raises and exits non-zero):
 2. build every CUDA kernel from ``src/repro_torch/kernels/*/csrc`` (one
    ``nvcc`` per source, all at once) and print the build seconds, the
    registers ``ptxas`` reports, the chunk kernel's shared memory and
-   resident CTAs per SM (at least 2 required), the decode kernels'
-   (G 4, D 128) and the SSD kernel's (mamba2-370m's L 128, N 128, P 64,
-   with the heads per CTA its rule picks);
+   resident CTAs per SM (at least 2 required at D 128, 1 at gemma3's D
+   256), the decode kernels' (G 4, D 128) and the SSD kernel's
+   (mamba2-370m's L 128, N 128, P 64, with the heads per CTA its rule
+   picks);
 3. hold each kernel against its plain PyTorch version on the card at the
    main path's shapes, in fp32 (tolerance 3e-5, the reference's) and
    bf16 (3e-2), and time kernel, plain version and, where one exists,
@@ -22,6 +23,9 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    chunk kernel's fp32 products as 3xTF32 at the TF32 rate, the CUDA-core
    figure beside it). Two chunk launches on the same inputs must give the
    same bytes, and so must two launches of each decode kernel. The chunk
+   and decode kernels are held and timed again at gemma3-4b's shapes (D
+   256, G 2, the 1024-key window; chunk A 512 x S 2048, decode B 4 x S
+   2048, paged NBmax 128). The chunk
    kernel is measured again after engine A, on the recorded inputs of
    A's most frequent ``(B, A, S)``, and timed at each number of key
    ranges at the table's shape and every shape A launched, beside the
@@ -69,16 +73,37 @@ Phases (each prints its own line; any failure raises and exits non-zero):
 9. server: the HTTP server (``serving/server.py``) around a fresh
    ``kernel`` engine, the same 12 requests submitted and streamed through
    ``ServeClient``, one cancelled after its 2nd token (``run_server``);
-10. a ``kernels`` JSON line (launches on the main paths, error, times,
-    bound), the mamba2 and training figures, per-engine TTFT /
-    decode-step figures and the server's;
-11. last line: ``{"ok": true, "device": {...}}``.
+10. families (fp32, random weights from seed 0, its seconds printed):
+    llama3-8b once more, one 4096-token ``M.prefill`` on ``auto`` (its
+    blocked-flash branch) against ``kernel``; then, its weights freed,
+    gemma3-4b (34 layers, 29 of them ``local`` with a 1024-key window)
+    and granite-moe-1b-a400m (24 MoE layers) at full width and depth
+    through engines A and C on the smoke workload (12/12, identical
+    plans, A's decode logits within 2e-3 of C's, A's chunk / decode /
+    rope launches counted from 0, and each of the three kernels held
+    against its plain version and timed on the recorded inputs of A's
+    most frequent call shape: gemma3's D 256 with its window and rope at
+    theta 1e6, granite's G 2, D 64); gemma3-4b again on 4 requests past
+    its window (5 chunks of 205-245 tokens each), where the window must
+    mask (query, key) pairs in A's chunk calls and keys in its decode
+    calls; gemma3-4b's model roots on a 2048-token prompt (prefill on
+    ``kernel``, ``auto`` and ``dense`` within 2e-3, then 8 decode steps
+    on the ring cache against the full-length one within 1e-4, and a
+    ring without its oldest live key, a planted fault, beyond 1e-4);
+    phi3.5-moe-42b-a6.6b at full width cut to 2 layers (its 32 are ~168
+    GB in fp32), a 1024-token prefill and 8 decode steps, ``kernel``
+    against ``dense`` (``run_families``);
+11. a ``kernels`` JSON line (launches on the main paths, error, times,
+    bound, the D 256 rows and each family's path shape beside them), the mamba2 and training figures,
+    per-engine TTFT / decode-step figures, the server's and the
+    families';
+12. last line: ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before the mamba2 phase, the training
-runs, the engine serving the trained checkpoint and engines A and B, and
-read just after (rope and the attention kernels of engine A in A, paged
-decode in B); the comparison launches of phase 3 and the replays after
-the engines do not count. Without CUDA, or without the
+runs, the engine serving the trained checkpoint, engines A and B and
+each family's engine A, and read just after (rope and the attention
+kernels of engine A in A, paged decode in B); the comparison launches
+of phase 3 and the replays after the engines do not count. Without CUDA, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
 result.
 """
@@ -111,8 +136,17 @@ TF32_PASSES = 3
 TOL = {"float32": 3e-5, "bfloat16": 3e-2}
 # A/B vs C decode logits: fp32 attention summed in another order (online
 # softmax over 64-key tiles vs one dense softmax), carried through 32
-# layers; logits are O(1) (unit-variance unembedding)
+# layers; logits are O(1) (unit-variance unembedding). The families phase
+# holds its twins to the same bound: kernel vs dense, and auto's blocked
+# flash vs kernel
 LOGIT_TOL = 2e-3
+# gemma3-4b's ring cache vs the full-length one, 8 decode steps from the
+# same prefill on the same route: the live keys are the same, held in
+# another slot order, so only the order of the decode's fp32 sums
+# differs. On the H100 these read 1.04e-5 (kernel) and 1.20e-5 (dense
+# decode on the ring), and the ring without its oldest live key at the
+# first step (a planted fault) 0.145 (PERF.md)
+RING_TOL = 1e-4
 # mamba2, decode (plain fp32 recurrence) vs prefill (ssd_intra kernel):
 # - per layer, same input through both paths: the reference's 3e-4
 #   (tests/test_equivalence.py); the block outputs are O(1);
@@ -216,6 +250,51 @@ def chunk_inputs(rng, dev):
     return dict(q=f(1, A, H, D), k=f(1, S, Hkv, D), v=f(1, S, Hkv, D),
                 q_pos=i(qpos), k_pos=i(kpos), k_chunk=i(kch), q_seg=i(qseg),
                 k_seg=i(kseg), C=C, window=0)
+
+
+def chunk_inputs_d256(rng, dev):
+    """gemma3-4b's prefill window on its ``local`` layers: A 512 query
+    rows (scattered positions) over S 2048 keys of one request, H 8 / Hkv
+    4 / D 256, C 16 chunks of 128 keys, the 1024-key window."""
+    import numpy as np
+    import torch
+    A, S, H, Hkv, D, C = 512, 2048, 8, 4, 256, 16
+    kpos = np.arange(S, dtype=np.int32)
+    qpos = np.sort(rng.choice(S, A, replace=False)).astype(np.int32)
+    kch = np.minimum(kpos // 128, C - 1).astype(np.int32)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.normal(size=s).astype(np.float32)).to(dev)
+    i = lambda x: torch.from_numpy(x)[None].to(dev)  # noqa: E731
+    return dict(q=f(1, A, H, D), k=f(1, S, Hkv, D), v=f(1, S, Hkv, D),
+                q_pos=i(qpos), k_pos=i(kpos), k_chunk=i(kch),
+                q_seg=i(np.zeros(A, np.int32)),
+                k_seg=i(np.zeros(S, np.int32)), C=C, window=1024)
+
+
+def time_head_dim_halves(ci):
+    """What D 256's plan costs against D 128's: the kernel on ``ci`` as
+    given, and on its first 128 columns (the D 128 instantiation, one
+    warp per query block, two CTAs per SM), by events, fp32 and bf16.
+    Returns {dtype: {"ms_d256", "ms_d128", "ratio"}}."""
+    import torch
+
+    from repro_torch.kernels.chunk_attention import ops as cops
+
+    out = {}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        kw = dict(q_seg=ci["q_seg"], k_seg=ci["k_seg"], num_chunks=ci["C"],
+                  window=ci["window"])
+        ints = (ci["q_pos"], ci["k_pos"], ci["k_chunk"])
+        full = [ci[n].to(dt) for n in ("q", "k", "v")]
+        half = [x[..., :128].contiguous() for x in full]
+        ms = {f"ms_d{x[0].shape[-1]}": cuda_ms(
+            lambda x=x: cops.chunk_attention(*x, *ints, **kw))
+            for x in (full, half)}
+        out[dt_name] = dict(ms, ratio=ms["ms_d256"] / ms["ms_d128"])
+    log("chunk_attention at gemma3's shape, D 256 against its first 128 "
+        "columns (D 128): " + json.dumps(out))
+    return out
 
 
 def measure_chunk(label, ci):
@@ -365,20 +444,37 @@ def sweep_chunk_splits(inputs, splits=(1, 2, 3, 4, 6, 8, 12, 16)):
     return res
 
 
+def _window_masked(q_pos, k_pos, window, q_seg=None, k_seg=None):
+    """The (query, key) pairs that the window alone masks: both live, in
+    the same segment, the key not after the query and ``window`` or more
+    positions before it. q_pos [..., A], k_pos [..., S]."""
+    qp, kp = q_pos[..., :, None], k_pos[..., None, :]
+    m = (qp >= 0) & (kp >= 0) & (kp <= qp) & (qp - kp >= window)
+    if q_seg is not None:
+        m &= q_seg[..., :, None] == k_seg[..., None, :]
+    return int(m.sum())
+
+
 class ChunkRecorder:
     """Wraps the chunk wrapper's launch during a run: counts the calls by
     (B, A, S) and keeps a copy of the first call's inputs for each, so the
-    path's own shapes and data can be replayed after the run."""
+    path's own shapes and data can be replayed after the run; sums the
+    (query, key) pairs that the window alone masked over every call with
+    a window (``window_masked``)."""
 
     def __init__(self, cops):
         self.cops, self.orig, self.calls = cops, cops._launch, {}
         self.shapes = collections.Counter()
+        self.window_masked = 0
 
     def __enter__(self):
         def rec(q, k, v, q_pos, k_pos, k_chunk, q_seg, k_seg, num_chunks,
                 window):
             key = (q.shape[0], q.shape[1], k.shape[1])
             self.shapes[key] += 1
+            if window:
+                self.window_masked += _window_masked(q_pos, k_pos, window,
+                                                     q_seg, k_seg)
             if key not in self.calls:
                 self.calls[key] = dict(
                     q=q.float().clone(), k=k.float().clone(),
@@ -395,31 +491,34 @@ class ChunkRecorder:
         self.cops._launch = self.orig
 
 
-def decode_inputs(rng, dev):
+def decode_inputs(rng, dev, S=1024, H=32, Hkv=8, D=128,
+                  lens=(1000, 800, 600, 300), window=0):
     """B 4 requests over an arena of S 1024 slots, H 32 / Hkv 8 / D 128;
-    per-request lengths 1000 / 800 / 600 / 300, slots past them -1."""
+    per-request lengths 1000 / 800 / 600 / 300, slots past them -1 (the
+    table; gemma3's D 256 row passes its own shape and window)."""
     import numpy as np
     import torch
-    B, S, H, Hkv, D = 4, 1024, 32, 8, 128
-    lens = np.array([1000, 800, 600, 300])
+    B = len(lens)
+    lens = np.array(lens)
     kpos = np.where(np.arange(S)[None] < lens[:, None],
                     np.arange(S)[None], -1).astype(np.int32)
     f = lambda *s: torch.from_numpy(  # noqa: E731
         rng.normal(size=s).astype(np.float32)).to(dev)
     return dict(q=f(B, H, D), k=f(B, S, Hkv, D), v=f(B, S, Hkv, D),
                 q_pos=torch.from_numpy((lens - 1).astype(np.int32)).to(dev),
-                k_pos=torch.from_numpy(kpos).to(dev))
+                k_pos=torch.from_numpy(kpos).to(dev), window=window)
 
 
-def paged_inputs(rng, dev):
+def paged_inputs(rng, dev, H=32, Hkv=8, D=128, nblk=(64, 50, 30, 10),
+                 window=0):
     """Pool of NB 512 blocks x bs 16 slots (H 32 / Hkv 8 / D 128), B 4
-    requests with 64 / 50 / 30 / 10 blocks (-1 padded to NBmax 64),
-    request 1 sharing request 0's first 10 blocks, each request's last
-    block half empty and 5% dead interior slots (pos -1)."""
+    requests with 64 / 50 / 30 / 10 blocks (-1 padded to NBmax, the
+    longest), request 1 sharing request 0's first 10 blocks, each
+    request's last block half empty and 5% dead interior slots (pos -1)
+    (the table; gemma3's D 256 row passes its own shape and window)."""
     import numpy as np
     import torch
-    NB, bs, B, NBmax, H, Hkv, D = 512, 16, 4, 64, 32, 8, 128
-    nblk = [64, 50, 30, 10]
+    NB, bs, B, NBmax = 512, 16, len(nblk), max(nblk)
     perm = rng.permutation(NB)
     rows = np.full((B, NBmax), -1, np.int32)
     kpos = np.full((NB, bs), -1, np.int32)
@@ -444,7 +543,7 @@ def paged_inputs(rng, dev):
                 v_blocks=f(NB, bs, Hkv, D),
                 kpos_blocks=torch.from_numpy(kpos).to(dev),
                 block_rows=torch.from_numpy(rows).to(dev),
-                q_pos=torch.from_numpy(qpos).to(dev))
+                q_pos=torch.from_numpy(qpos).to(dev), window=window)
 
 
 def _cast(d, dt):
@@ -689,18 +788,24 @@ class DecodeRecorder:
     """Wraps the decode wrappers' launch during a run: counts the calls by
     (B, S) for the dense kernel and by (B, NBmax, bs) for the paged one,
     and keeps a copy of the first call's inputs for each, so the path's
-    own shapes and data can be replayed after the run."""
+    own shapes and data can be replayed after the run; sums the keys that
+    the window alone masked over every dense call with a window
+    (``window_masked``)."""
 
     def __init__(self, dops):
         self.dops, self.orig = dops, dops._call
         self.shapes = collections.Counter()
         self.calls = {}
+        self.window_masked = 0
 
     def __enter__(self):
         def rec(what, entry, ptrs, ints, q, nsplit):
             if entry == "decode_attention_fwd":
                 names = ("q", "k", "v", "q_pos", "k_pos")
                 key = ("dense", ints[0], ints[1])
+                if ints[-1]:
+                    self.window_masked += _window_masked(
+                        ptrs[3][:, None], ptrs[4], ints[-1])
             else:
                 names = ("q", "k_blocks", "v_blocks", "kpos_blocks",
                          "block_rows", "q_pos")
@@ -723,6 +828,41 @@ class DecodeRecorder:
             else None
 
 
+class RopeRecorder:
+    """Wraps the RoPE wrapper during a run: counts the calls by (x's
+    shape, theta) and keeps a copy of the first call's inputs for each
+    (x as fp32), so the path's own shapes and data can be replayed after
+    the run. The wrapper counts its launches on the module's ``rope``, so
+    the count moves to the stand-in and back."""
+
+    def __init__(self, rops):
+        self.rops, self.orig = rops, rops.rope
+        self.shapes = collections.Counter()
+        self.calls = {}
+
+    def __enter__(self):
+        orig = self.orig
+
+        def rec(x, pos, *, theta, inverse=False):
+            key = (tuple(x.shape), float(theta))
+            self.shapes[key] += 1
+            if key not in self.calls:
+                self.calls[key] = (x.float().clone(), pos.clone(),
+                                   float(theta))
+            return orig(x, pos, theta=theta, inverse=inverse)
+        rec.launches = orig.launches
+        self.rops.rope = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.orig.launches = self.rops.rope.launches
+        self.rops.rope = self.orig
+
+    def most_frequent(self):
+        return max(self.shapes, key=lambda k: (self.shapes[k], k)) \
+            if self.shapes else None
+
+
 def check_kernels(dev):
     import numpy as np
 
@@ -737,6 +877,16 @@ def check_kernels(dev):
                                               tables["dense table"][1])
     rows["paged_decode_attention"] = measure_paged("table",
                                                    tables["paged table"][1])
+    # ---- gemma3-4b's shapes: D 256, G 2, the 1024-key window ----
+    ci = chunk_inputs_d256(rng, dev)
+    rows["chunk_attention_d256"] = measure_chunk("d256", ci)
+    for dt, r in time_head_dim_halves(ci).items():
+        rows["chunk_attention_d256"][dt]["ms_d128_half"] = r["ms_d128"]
+    rows["decode_attention_d256"] = measure_decode("d256", decode_inputs(
+        rng, dev, S=2048, H=8, Hkv=4, D=256, lens=(2000, 1600, 1200, 600),
+        window=1024))
+    rows["paged_decode_attention_d256"] = measure_paged("d256", paged_inputs(
+        rng, dev, H=8, Hkv=4, D=256, nblk=(128, 100, 60, 20), window=1024))
     return rows, tables
 
 
@@ -926,79 +1076,87 @@ def rope_inputs(rng, dev):
     return out
 
 
-def check_rope(dev):
-    """rope vs its plain version at the RPE path's shapes, fp32 (3e-5) and
-    bf16 (3e-2), applying and removing; one whole-stack call vs one call
-    per layer (byte for byte, the streamed == eager contract); remove o
-    apply == id (2e-5). No single PyTorch call computes RoPE, so there is
-    no library yardstick. The bound counts x read and out written once,
-    plus the positions and the frequencies."""
-    import numpy as np
+def measure_rope(label, x32, pos, theta):
+    """rope on ``x32`` ([L, n, H, D] fp32, ``pos [n]`` shared by the
+    layers) against its plain version, fp32 (3e-5) and bf16 (3e-2),
+    applying and removing; one whole-stack call vs one call per layer
+    (byte for byte, the streamed == eager contract); remove o apply == id
+    (2e-5). No single PyTorch call computes RoPE, so there is no library
+    yardstick. The bound counts x read and out written once, plus the
+    positions and the frequencies."""
     import torch
 
     from repro_torch.kernels.rope import ops as rops
     from repro_torch.kernels.rope.ref import rope_ref
 
-    theta = 5e5                        # llama3-8b's rope_theta
+    L, n, H, D = x32.shape
     res = {}
-    for shape_name, (x32, pos) in rope_inputs(np.random.default_rng(2),
-                                              dev).items():
-        L, n, H, D = x32.shape
-        for dt_name in ("float32", "bfloat16"):
-            x = x32.to(getattr(torch, dt_name))
-            e = 0.0
-            for inverse in (False, True):
-                o = rops.rope(x, pos, theta=theta, inverse=inverse)
-                torch.cuda.synchronize()
-                r = rope_ref(x.reshape(L * n, H, D), pos.repeat(L),
-                             theta=theta, inverse=inverse).reshape(x.shape)
-                e = max(e, float((o.float() - r.float()).abs().max()))
-                if not (e <= TOL[dt_name] and torch.isfinite(o).all()):
-                    raise RuntimeError(f"rope {shape_name} {dt_name} "
-                                       f"inverse={inverse}: max abs err "
-                                       f"{e} > {TOL[dt_name]}")
-            per_layer = torch.cat([rops.rope(x[l:l + 1].contiguous(), pos,
-                                             theta=theta) for l in range(L)])
-            if not torch.equal(per_layer, rops.rope(x, pos, theta=theta)):
-                raise RuntimeError(f"rope {shape_name} {dt_name}: per-layer "
-                                   "calls differ from the whole-stack call")
-            t_k = cuda_ms(lambda: rops.rope(x, pos, theta=theta))
-            # device time alone: at the path's shape the events above
-            # mostly time the wrapper's host work
-            d_k = device_ms(lambda: rops.rope(x, pos, theta=theta))
-            t_p = cuda_ms(lambda: rope_ref(
-                x.reshape(L * n, H, D), pos.repeat(L), theta=theta))
-            # the wrapper's host time per call (checks, ctypes, enqueue;
-            # no sync): where it exceeds the kernel's device time, the
-            # event-timed ms above is the host's, not the card's
+    for dt_name in ("float32", "bfloat16"):
+        x = x32.to(getattr(torch, dt_name))
+        e = 0.0
+        for inverse in (False, True):
+            o = rops.rope(x, pos, theta=theta, inverse=inverse)
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(50):
-                rops.rope(x, pos, theta=theta)
-            t_h = (time.perf_counter() - t0) / 50 * 1e3
-            torch.cuda.synchronize()
-            el = x.element_size()
-            nbytes = 2 * x.numel() * el + 4 * n + 4 * D // 2
-            # per (t, h, i) pair: the angle and 6 products / sums; the
-            # cos / sin evaluations are not counted (bytes bound anyway)
-            b_ms, b_by = bound(nbytes, 7 * x.numel() // 2, dt_name)
-            res.setdefault(shape_name, {})[dt_name] = dict(
-                err=e, ms=t_k, device_ms=d_k, plain_ms=t_p, library_ms=None,
-                bound_ms=b_ms, bound_by=b_by, host_ms=t_h)
-            log(f"kernel rope {shape_name} {dt_name} [{L}, {n}, {H}, {D}] "
-                f"pos {int(pos.min())}..{int(pos.max())}: max_abs_err="
-                f"{e:.3e} (tol {TOL[dt_name]}) per-layer == whole-stack "
-                f"ms={t_k:.4f} device_ms={_fmt(d_k)} plain_ms={t_p:.4f} "
-                f"library_ms=none bound_ms={b_ms:.4f} ({b_by}; "
-                f"{nbytes / 1e6:.2f} MB) host_ms_per_call={t_h:.4f}")
-        back = rops.rope(rops.rope(x32, pos, theta=theta), pos, theta=theta,
-                         inverse=True)
-        rt = float((back - x32).abs().max())
-        log(f"kernel rope {shape_name}: remove o apply vs x max abs diff "
-            f"{rt:.3e} (tol 2e-5)")
-        if not rt <= 2e-5:
-            raise RuntimeError(f"rope {shape_name}: round trip {rt} > 2e-5")
+            r = rope_ref(x.reshape(L * n, H, D), pos.repeat(L),
+                         theta=theta, inverse=inverse).reshape(x.shape)
+            e = max(e, float((o.float() - r.float()).abs().max()))
+            if not (e <= TOL[dt_name] and torch.isfinite(o).all()):
+                raise RuntimeError(f"rope {label} {dt_name} inverse="
+                                   f"{inverse}: max abs err {e} > "
+                                   f"{TOL[dt_name]}")
+        per_layer = torch.cat([rops.rope(x[l:l + 1].contiguous(), pos,
+                                         theta=theta) for l in range(L)])
+        if not torch.equal(per_layer, rops.rope(x, pos, theta=theta)):
+            raise RuntimeError(f"rope {label} {dt_name}: per-layer calls "
+                               "differ from the whole-stack call")
+        t_k = cuda_ms(lambda: rops.rope(x, pos, theta=theta))
+        # device time alone: at the path's shape the events above mostly
+        # time the wrapper's host work
+        d_k = device_ms(lambda: rops.rope(x, pos, theta=theta))
+        t_p = cuda_ms(lambda: rope_ref(
+            x.reshape(L * n, H, D), pos.repeat(L), theta=theta))
+        # the wrapper's host time per call (checks, ctypes, enqueue; no
+        # sync): where it exceeds the kernel's device time, the
+        # event-timed ms above is the host's, not the card's
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(50):
+            rops.rope(x, pos, theta=theta)
+        t_h = (time.perf_counter() - t0) / 50 * 1e3
+        torch.cuda.synchronize()
+        el = x.element_size()
+        nbytes = 2 * x.numel() * el + 4 * n + 4 * D // 2
+        # per (t, h, i) pair: the angle and 6 products / sums; the cos /
+        # sin evaluations are not counted (bytes bound anyway)
+        b_ms, b_by = bound(nbytes, 7 * x.numel() // 2, dt_name)
+        res[dt_name] = dict(err=e, ms=t_k, device_ms=d_k, plain_ms=t_p,
+                            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                            host_ms=t_h)
+        log(f"kernel rope {label} {dt_name} [{L}, {n}, {H}, {D}] theta "
+            f"{theta:g} pos {int(pos.min())}..{int(pos.max())}: "
+            f"max_abs_err={e:.3e} (tol {TOL[dt_name]}) per-layer == "
+            f"whole-stack ms={t_k:.4f} device_ms={_fmt(d_k)} plain_ms="
+            f"{t_p:.4f} library_ms=none bound_ms={b_ms:.4f} ({b_by}; "
+            f"{nbytes / 1e6:.2f} MB) host_ms_per_call={t_h:.4f}")
+    back = rops.rope(rops.rope(x32, pos, theta=theta), pos, theta=theta,
+                     inverse=True)
+    rt = float((back - x32).abs().max())
+    log(f"kernel rope {label}: remove o apply vs x max abs diff {rt:.3e} "
+        "(tol 2e-5)")
+    if not rt <= 2e-5:
+        raise RuntimeError(f"rope {label}: round trip {rt} > 2e-5")
     return res
+
+
+def check_rope(dev):
+    """rope at llama3-8b's RPE path shapes (``rope_inputs``), as
+    ``measure_rope``."""
+    import numpy as np
+
+    theta = 5e5                        # llama3-8b's rope_theta
+    return {name: measure_rope(name, x32, pos, theta)
+            for name, (x32, pos) in rope_inputs(np.random.default_rng(2),
+                                                dev).items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1464,10 +1622,11 @@ def run_training(dev, card):
 # phases 6-8: the engine on full-width llama3-8b
 # ---------------------------------------------------------------------------
 def smoke_engine(tag, cfg, params, tmp, num_requests=12, max_new_tokens=8,
-                 **spec_kw):
+                 kb_kw=None, **spec_kw):
     """A fresh engine with its own chunk store on the card, and the smoke
     workload (12 requests of 5 chunks from a 24-chunk knowledge base,
-    arriving at once, 8 new tokens each)."""
+    arriving at once, 8 new tokens each; ``kb_kw`` overrides the knowledge
+    base's chunk lengths)."""
     from repro_torch.serving.api import EngineSpec, StoreSpec, \
         build_engine, build_store
     from repro_torch.serving.rag import KnowledgeBase
@@ -1479,7 +1638,8 @@ def smoke_engine(tag, cfg, params, tmp, num_requests=12, max_new_tokens=8,
                       sched=SchedulerConfig(max_decode_batch=4),
                       trace_decode=True, device="cuda", **spec_kw)
     eng = build_engine(spec, cfg=cfg, params=params, store=store)
-    kb = KnowledgeBase(num_chunks=24, vocab_size=cfg.vocab_size, seed=0)
+    kb = KnowledgeBase(num_chunks=24, vocab_size=cfg.vocab_size, seed=0,
+                       **(kb_kw or {}))
     reqs = generate(kb, WorkloadConfig(num_requests=num_requests, qpm=1e9,
                                        k_chunks=5,
                                        max_new_tokens=max_new_tokens))
@@ -1487,11 +1647,11 @@ def smoke_engine(tag, cfg, params, tmp, num_requests=12, max_new_tokens=8,
 
 
 def run_engine(tag, cfg, params, tmp, num_requests=12, max_new_tokens=8,
-               **spec_kw):
+               kb_kw=None, **spec_kw):
     import numpy as np
 
     eng, store, reqs = smoke_engine(tag, cfg, params, tmp, num_requests,
-                                    max_new_tokens, **spec_kw)
+                                    max_new_tokens, kb_kw, **spec_kw)
     t0 = time.perf_counter()
     stats = eng.run(reqs)
     wall = time.perf_counter() - t0
@@ -1501,6 +1661,7 @@ def run_engine(tag, cfg, params, tmp, num_requests=12, max_new_tokens=8,
     out = dict(
         completed=stats.completed, failed=stats.failed,
         prefill_tokens_total=stats.prefill_tokens_total,
+        prompt_tokens_max=max(r.prefill_tokens_total for r in reqs),
         prefill_tokens_computed=stats.prefill_tokens_computed,
         prefill_batches=stats.prefill_batches,
         prefill_batch_max=stats.prefill_batch_max,
@@ -1681,6 +1842,302 @@ def compare_logits(tag, trace, tokens, ref_trace, ref_tokens):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# the families phase: gemma3's local layers, the MoE FFN, long prompts
+# ---------------------------------------------------------------------------
+def _free():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _max_diff(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def family_engines(tag, cfg, params, tmp, num_requests=12, kb_kw=None):
+    """Engines A (``kernel``) and C (``dense``) over the smoke workload
+    (``num_requests`` and ``kb_kw`` as ``smoke_engine`` takes them): all
+    complete on both, identical plans (hits, computed tokens), A's decode
+    logits within LOGIT_TOL of C's. A's chunk, decode and rope calls are
+    recorded. Returns A's and C's figures, A's kernel launches (counted
+    from 0 over A's run), the logit gap, the (query, key) pairs and decode
+    keys the window alone masked in A, and the recorders."""
+    from repro_torch.kernels.chunk_attention import ops as cops
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.rope import ops as rops
+
+    cops.chunk_attention.launches = 0
+    dops.decode_attention.launches = 0
+    rops.rope.launches = 0
+    with ChunkRecorder(cops) as cc, DecodeRecorder(dops) as dc, \
+            RopeRecorder(rops) as rc:
+        fig_a, tr_a, tok_a, plan_a, _ = run_engine(
+            f"{tag}-A", cfg, params, tmp, num_requests=num_requests,
+            kb_kw=kb_kw, attn_impl="kernel")
+    launches = {"chunk_attention": cops.chunk_attention.launches,
+                "decode_attention": dops.decode_attention.launches,
+                "rope": rops.rope.launches}
+    masked = {"chunk_attention": cc.window_masked,
+              "decode_attention": dc.window_masked}
+    log(f"{tag} engine A launches: {json.dumps(launches)}; pairs masked by "
+        f"the window alone: {json.dumps(masked)}; calls by shape: chunk "
+        f"(B, A, S) {dict(cc.shapes.most_common())}, decode (B, S) "
+        f"{ {k[1:]: n for k, n in dc.shapes.most_common()} }, rope (x, "
+        f"theta) {dict(rc.shapes.most_common())}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"{tag}: {name} was not launched in engine A")
+    if fig_a["prefill_tokens_computed"] >= fig_a["prefill_tokens_total"]:
+        raise RuntimeError(f"{tag}: no chunk reuse happened in engine A")
+    fig_c, tr_c, tok_c, plan_c, _ = run_engine(
+        f"{tag}-C", cfg, params, tmp, num_requests=num_requests,
+        kb_kw=kb_kw, attn_impl="dense")
+    if plan_a != plan_c:
+        diff = {r: (plan_a[r], plan_c[r]) for r in plan_a
+                if plan_a[r] != plan_c[r]}
+        raise RuntimeError(f"{tag}: plans A vs C differ: {diff}")
+    log(f"{tag} plans A vs C (hits, computed tokens) identical for "
+        f"{len(plan_a)}/{len(plan_a)} requests")
+    err = compare_logits(f"{tag} A(kernel)", tr_a, tok_a, tr_c, tok_c)
+    return dict(A=fig_a, C=fig_c, launches=launches, logit_err=err,
+                window_masked=masked, recorders=(cc, dc, rc))
+
+
+def measure_family_path(tag, cc, dc, rc):
+    """Each kernel a family's engine A ran, held against its plain version
+    and timed on the recorded inputs of A's first call at its most
+    frequent shape (``measure_chunk``, ``measure_decode``,
+    ``measure_rope``; these launches are not path launches). Returns
+    {kernel: {"shape", "calls", "float32", "bfloat16"}}."""
+    ck = max(cc.shapes, key=lambda k: (cc.shapes[k], k))
+    dk = dc.most_frequent("dense")
+    rk = rc.most_frequent()
+    ci, di = cc.calls[ck], dc.calls[dk]
+    x, pos, theta = rc.calls[rk]
+    B, A, H, D = ci["q"].shape
+    S, Hkv = ci["k"].shape[1:3]
+    out = {
+        "chunk_attention": dict(
+            shape=f"B {B}, A {A}, S {S}, H {H}/{Hkv}, D {D}, C {ci['C']}, "
+                  f"window {ci['window']}",
+            calls=cc.shapes[ck],
+            **measure_chunk(f"{tag} path{list(ck)}", ci)),
+        "decode_attention": dict(
+            shape=f"B {dk[1]}, S {dk[2]}, H {H}/{Hkv}, D {D}, window "
+                  f"{di['window']}",
+            calls=dc.shapes[dk],
+            **measure_decode(f"{tag} path{list(dk[1:])}", di)),
+        "rope": dict(
+            shape=f"{list(rk[0])}, theta {theta:g}", calls=rc.shapes[rk],
+            **measure_rope(f"{tag} path", x, pos, theta)),
+    }
+    return out
+
+
+def _prompt(cfg, T, dev, seed=1):
+    import numpy as np
+    import torch
+    toks = np.random.default_rng(seed).integers(0, cfg.vocab_size, (1, T))
+    return torch.from_numpy(toks.astype(np.int32)).to(dev)
+
+
+def prefill_agree(tag, cfg, params, toks, impls, ref_impl, **kw):
+    """``M.prefill`` of ``toks`` on ``ref_impl`` and each of ``impls``;
+    every one's logits within LOGIT_TOL of the reference's. Returns the
+    gaps and every output, the reference's included, with its logits cut
+    to the last position."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    ref = M.prefill(cfg, params, toks, attn_impl=ref_impl, **kw)
+    gaps, outs = {}, {}
+    for impl in impls:
+        out = M.prefill(cfg, params, toks, attn_impl=impl, **kw)
+        torch.cuda.synchronize()
+        gaps[impl] = _max_diff(out.logits, ref.logits)
+        if not (torch.isfinite(out.logits).all()
+                and gaps[impl] <= LOGIT_TOL):
+            raise RuntimeError(f"{tag}: prefill on {impl} vs {ref_impl} "
+                               f"max abs logit diff {gaps[impl]} (tol "
+                               f"{LOGIT_TOL})")
+        out.logits = out.logits[:, -1:]
+        outs[impl] = out
+    ref.logits = ref.logits[:, -1:]
+    outs[ref_impl] = ref
+    log(f"{tag}: {toks.shape[1]}-token prefill max abs logit diff vs "
+        f"{ref_impl}: " + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+        + f" (tol {LOGIT_TOL})")
+    return gaps, outs
+
+
+def decode_agree(tag, cfg, params, caches, first, T, steps=8,
+                 tol=LOGIT_TOL, controls=()):
+    """``steps`` decode steps on each of ``caches`` (label -> (cache,
+    attn_impl)), fed the same tokens: greedy from the first cache's
+    logits, from ``first`` on. Every other run's logits within ``tol`` of
+    the first's at every step, but for the labels in ``controls`` (caches
+    with a planted fault), whose largest gap must exceed ``tol``. Returns
+    the largest gap per label."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    labels = list(caches)
+    tok, gaps = first, {k: 0.0 for k in labels[1:]}
+    for s in range(steps):
+        pos = torch.full((1,), T + s, dtype=torch.int32, device=tok.device)
+        lg = {k: M.decode_step(cfg, params, tok, pos, c,
+                               attn_impl=impl).logits
+              for k, (c, impl) in caches.items()}
+        if not torch.isfinite(lg[labels[0]]).all():
+            raise RuntimeError(f"{tag}: decode step {s}: bad logits")
+        for k in labels[1:]:
+            gaps[k] = max(gaps[k], _max_diff(lg[k], lg[labels[0]]))
+        tok = lg[labels[0]][:, -1].argmax(-1).to(torch.int32)
+    for k, g in gaps.items():
+        if (g > tol) != (k in controls):
+            what = "a planted fault must exceed" if k in controls else "tol"
+            raise RuntimeError(f"{tag}: decode {k} vs {labels[0]} max abs "
+                               f"logit diff {g} ({what} {tol})")
+    log(f"{tag}: {steps} decode steps, max abs logit diff vs {labels[0]}: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in gaps.items())
+        + f" (tol {tol}; planted faults, which must exceed it: "
+        f"{', '.join(controls) or 'none'})")
+    return gaps
+
+
+def _params(cfg, dev, seed=0):
+    import torch
+
+    from repro_torch.models import model as M
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = M.init_params(cfg, gen)
+    n = sum(x.numel() for x in [params["embed"], params["unembed"],
+                                params["final_norm"]]
+            + [x for g in params["groups"] + params["tail"]
+               for x in g.values()])
+    log(f"params: {cfg.name} {n / 1e9:.3f}B fp32 ({cfg.num_layers} layers "
+        f"{''.join(k[0] for k in cfg.layer_kinds)}, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim_}, d_ff "
+        f"{cfg.d_ff}, experts {cfg.num_experts}/{cfg.experts_per_token}, "
+        f"window {cfg.window}, vocab {cfg.vocab_size})")
+    return params
+
+
+def run_long_prompt(cfg, params, dev):
+    """The paper's model on the default route past 2^21 score elements:
+    one 4096-token ``M.prefill`` on ``auto`` (its blocked-flash branch)
+    against ``kernel``."""
+    toks = _prompt(cfg, 4096, dev)
+    gaps, _ = prefill_agree(f"{cfg.name} long prompt", cfg, params, toks,
+                            ["auto"], "kernel")
+    return gaps["auto"]
+
+
+def run_families(dev, tmp):
+    """gemma3-4b and granite-moe-1b-a400m at full width and depth through
+    engines A and C, with their kernels held on A's own inputs; gemma3-4b
+    again on requests past its window; gemma3-4b's model roots on a
+    prompt longer than its window (prefill on kernel / auto / dense, 8
+    decode steps on the ring cache against the full-length one and
+    against a planted fault); phi3.5-moe-42b-a6.6b at full width cut to
+    2 layers (prefill 1 x 1024 and 8 decode steps, kernel against
+    dense)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    t0 = time.perf_counter()
+    out = {}
+    cfg = get_config("gemma3-4b")
+    params = _params(cfg, dev)
+    out["gemma3-4b"] = family_engines("gemma3-4b", cfg, params, tmp)
+    out["gemma3-4b"]["path"] = measure_family_path(
+        "gemma3-4b", *out["gemma3-4b"].pop("recorders"))
+    # requests past the window: 5 chunks of at least window / 5 tokens
+    # each, so that the window masks keys in the prefill windows and in
+    # decode on the engine's path (the arena and pool hold local layers
+    # at full length, the mask applies the window)
+    n = -(-cfg.window // 5)
+    out["gemma3-4b long"] = family_engines(
+        "gemma3-4b long", cfg, params, tmp, num_requests=4,
+        kb_kw=dict(chunk_len_min=n, chunk_len_max=n + 40))
+    out["gemma3-4b long"].pop("recorders")
+    masked = out["gemma3-4b long"]["window_masked"]
+    if min(masked.values()) <= 0:
+        raise RuntimeError("gemma3-4b long: the window masked nothing in "
+                           f"engine A: {masked}")
+    T = 2048
+    toks = _prompt(cfg, T, dev)
+    # ring caches (the default): local layers keep the last 1024 tokens
+    gaps, outs = prefill_agree("gemma3-4b", cfg, params, toks,
+                               ["kernel", "auto"], "dense",
+                               cache_len=T + 8)
+    ring = outs["kernel"].cache
+    del outs["auto"], outs["dense"]
+    if ring["groups"][cfg.pattern.index("local")]["k"].shape[2] != \
+            cfg.window:
+        raise RuntimeError("gemma3-4b: the local layers' cache is not a "
+                           f"ring of {cfg.window} slots")
+    full = M.prefill(cfg, params, toks, attn_impl="kernel",
+                     cache_len=T + 8, ring=False).cache
+    first = outs["kernel"].logits[:, -1].argmax(-1).to(toks.dtype)
+
+    def clone(c):
+        return {part: [{n: x.clone() for n, x in g.items()} for g in gs]
+                for part, gs in c.items()}
+    ring2, lost = clone(ring), clone(ring)
+    # the planted fault: each local layer's ring without its oldest live
+    # key at the first decode step (position T - window + 1, in slot
+    # (T + 1) % window), which is what a decode write one slot off does
+    for kind, g in zip(list(cfg.pattern) * (cfg.n_groups > 0)
+                       + list(cfg.layer_kinds[cfg.n_groups
+                                              * len(cfg.pattern):]),
+                       lost["groups"] + lost["tail"]):
+        if kind == "local":
+            g["pos"][..., (T + 1) % cfg.window] = -1
+    dgaps = decode_agree("gemma3-4b ring vs full cache", cfg, params,
+                         {"full": (full, "kernel"), "ring": (ring, "kernel"),
+                          "ring dense": (ring2, "dense"),
+                          "ring without its oldest live key":
+                              (lost, "kernel")},
+                         first, T, tol=RING_TOL,
+                         controls=("ring without its oldest live key",))
+    out["gemma3-4b roots"] = dict(prefill=gaps, decode=dgaps)
+    del params, outs, full, ring, ring2, lost
+    _free()
+
+    cfg = get_config("granite-moe-1b-a400m")
+    params = _params(cfg, dev)
+    out["granite-moe-1b-a400m"] = family_engines("granite-moe-1b-a400m", cfg,
+                                                 params, tmp)
+    out["granite-moe-1b-a400m"]["path"] = measure_family_path(
+        "granite-moe-1b-a400m", *out["granite-moe-1b-a400m"].pop("recorders"))
+    del params
+    _free()
+
+    cfg = get_config("phi3.5-moe-42b-a6.6b").replace(num_layers=2)
+    params = _params(cfg, dev)
+    T = 1024
+    toks = _prompt(cfg, T, dev)
+    gaps, outs = prefill_agree("phi3.5-moe-42b-a6.6b/2", cfg, params, toks,
+                               ["kernel"], "dense", cache_len=T + 8)
+    first = outs["dense"].logits[:, -1].argmax(-1).to(toks.dtype)
+    dgaps = decode_agree("phi3.5-moe-42b-a6.6b/2", cfg, params,
+                         {"dense": (outs["dense"].cache, "dense"),
+                          "kernel": (outs["kernel"].cache, "kernel")},
+                         first, T)
+    out["phi3.5-moe-42b-a6.6b/2"] = dict(prefill=gaps, decode=dgaps)
+    del params, outs
+    _free()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"families phase: {out['seconds']:.1f}s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1746,6 +2203,16 @@ def main() -> int:
     if min(o["ctas_per_sm"] for o in occ.values()) < 2:
         raise RuntimeError(f"chunk_attention: fewer than 2 CTAs per SM: "
                            f"{occ}")
+    # gemma3-4b's D 256 (two warps per query block): one CTA per SM; a
+    # key range of 64 tiles in fp32, 32 in bf16 (S 2048)
+    occ256 = {dt: dict(
+        smem_bytes=clib.chunk_attention_smem_bytes(256, 16, bf, tiles),
+        ctas_per_sm=clib.chunk_attention_occupancy(256, 16, bf, tiles))
+        for dt, bf, tiles in (("float32", 0, 64), ("bfloat16", 1, 32))}
+    log("chunk_attention D=256 C=16 per CTA: " + json.dumps(occ256))
+    if min(o["ctas_per_sm"] for o in occ256.values()) < 1:
+        raise RuntimeError(f"chunk_attention: D 256 does not fit an SM: "
+                           f"{occ256}")
     # the decode kernels' resources per CTA at llama3-8b's G 4, D 128
     dlib = dops.bind(build.load("decode_attention"))
     docc = {f"{kind} {dt}": dict(
@@ -1856,6 +2323,13 @@ def main() -> int:
 
         # phase 9: the HTTP server around a fresh kernel engine
         served = run_server(cfg, params, tmp, tok_a)
+
+        # phase 10: the families. First the paper's model once more, on
+        # a prompt past auto's 2^21 score elements, then its weights go
+        long_gap = run_long_prompt(cfg, params, dev)
+        del params
+        _free()
+        families = run_families(dev, tmp)
     # chunk_attention at the path's most frequent shape, on the inputs of
     # engine A's first call of that shape
     path_shape = hist[0][0]
@@ -1892,7 +2366,8 @@ def main() -> int:
     err_a = compare_logits("A(kernel)", tr_a, tok_a, tr_c, tok_c)
     err_b = compare_logits("B(paged_kernel)", tr_b, tok_b, tr_c, tok_c)
 
-    # phase 10: the kernels line, the mamba2, training and engine figures
+    # phase 11: the kernels line, the mamba2, training, engine and family
+    # figures
     sources = {
         "chunk_attention": (
             "src/repro_torch/kernels/chunk_attention/csrc/chunk_attention.cu",
@@ -1966,6 +2441,40 @@ def main() -> int:
                         f"splits_path{sfx}": r["splits"]})
         row.update({f"smem_bytes_{dt}": docc[f"{kind} {dt}"]["smem_bytes"]
                     for dt in ("float32", "bfloat16")})
+    # gemma3-4b's D 256 shapes beside the chunk and decode rows (the
+    # decode ones also by the card's clock)
+    for name in ("chunk_attention", "decode_attention",
+                 "paged_decode_attention"):
+        row = next(r for r in kernels if r["name"] == name)
+        for dt, sfx in (("float32", ""), ("bfloat16", "_bf16")):
+            r = krows[f"{name}_d256"][dt]
+            row.update({f"{k}_d256{sfx}": r[k] for k in (
+                "err", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "device_ms", "library_device_ms",
+                "ms_d128_half") if k in r})
+    kernels[0]["shape_d256"] = ("A 512, S 2048, H 8/4, D 256, C 16, "
+                                "window 1024")
+    kernels[0]["ctas_per_sm_d256"] = {dt: o["ctas_per_sm"]
+                                      for dt, o in occ256.items()}
+    kernels[1]["shape_d256"] = "B 4, S 2048, H 8/4, D 256, window 1024"
+    kernels[2]["shape_d256"] = ("NB 512, bs 16, B 4, NBmax 128, H 8/4, "
+                                "D 256, window 1024")
+    # each family's engine A: its launches, and the kernel held and timed
+    # on the recorded inputs of A's most frequent call shape
+    for row in kernels:
+        fam = {}
+        for tag in ("gemma3-4b", "granite-moe-1b-a400m"):
+            r = families[tag]["path"].get(row["name"])
+            if r is None:
+                continue
+            fam[tag] = dict(shape=r["shape"], calls_at_shape=r["calls"],
+                            launches=families[tag]["launches"][row["name"]])
+            for dt, sfx in (("float32", ""), ("bfloat16", "_bf16")):
+                fam[tag].update({f"{k}{sfx}": r[dt][k] for k in (
+                    "err", "ms", "device_ms", "plain_ms", "library_ms",
+                    "bound_ms", "bound_by") if k in r[dt]})
+        if fam:
+            row["families"] = fam
     # rope's row is at the path's shape; the 1024-token span beside it
     kernels[-1]["shape"] = "[32, 48, 8, 128]; span1024 [32, 1024, 8, 128]"
     kernels[-1]["host_ms"] = rope_rows["path"]["float32"]["host_ms"]
@@ -2019,6 +2528,20 @@ def main() -> int:
         f"cancelled after {served['cancelled_tokens']} tokens, TTFT (wall) "
         f"mean {served['ttft_wall_mean_ms']:.1f} ms p99 "
         f"{served['ttft_wall_p99_ms']:.1f} ms, wall {served['wall_s']:.1f} s")
+    log(f"families [{card}]: " + json.dumps({
+        k: {"A": {m: v["A"][m] for m in ("ttft_mean_ms", "decode_step_ms",
+                                         "prefill_tokens_computed",
+                                         "prefill_tokens_total",
+                                         "prompt_tokens_max")},
+            "C_decode_step_ms": v["C"]["decode_step_ms"],
+            "launches": v["launches"], "logit_err": v["logit_err"],
+            "window_masked": v["window_masked"]}
+        for k, v in families.items()
+        if k in ("gemma3-4b", "gemma3-4b long", "granite-moe-1b-a400m")}))
+    log(f"long prompts vs their twins: llama3-8b 4096 auto vs kernel "
+        f"{long_gap:.3e}; gemma3-4b roots {families['gemma3-4b roots']}; "
+        f"phi3.5-moe/2 {families['phi3.5-moe-42b-a6.6b/2']}; families "
+        f"{families['seconds']:.1f}s")
     log(f"end-to-end vs dense: A max abs logit diff {err_a:.3e}, "
         f"B {err_b:.3e}; total {time.perf_counter() - t_all:.1f}s")
     log(card)    # nvidia-smi's name, power.limit line, verbatim

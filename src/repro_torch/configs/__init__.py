@@ -1,11 +1,14 @@
 """Architecture registry of the port: the configs whose layer families
-the port runs so far (the paper's own LLaMA-3 models, dense GQA, and
-mamba2, the Mamba2 SSD family).
+the port runs so far: dense GQA (the paper's own LLaMA-3 models,
+llama3.2-3b, deepseek-7b/67b, musicgen-medium over precomputed frame
+embeddings), gemma3's sliding-window ``local`` layers, the MoE FFN
+(granite-moe, phi3.5-moe) and mamba2, the Mamba2 SSD family.
 
 ``get_config(name)`` returns the full production config;
 ``get_tiny(name)`` returns a reduced same-family config for CPU smoke
-tests (small widths/depths, tiny vocab). The other architectures of
-the reference registry come over with their layer families.
+tests (small widths/depths, few experts, tiny vocab). recurrentgemma-9b
+(RG-LRU) and llama-3.2-vision-90b (cross-attention) of the reference
+registry come over with their layer families.
 """
 from __future__ import annotations
 
@@ -13,15 +16,31 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-ARCHS = ("llama3-8b", "llama3-70b", "mamba2-370m")
+ARCHS = (
+    "llama3.2-3b",
+    "gemma3-4b",
+    "deepseek-67b",
+    "deepseek-7b",
+    "granite-moe-1b-a400m",
+    "phi3.5-moe-42b-a6.6b",
+    "musicgen-medium",
+    "mamba2-370m",
+)
 
 # the paper's own evaluation models (LLaMA-3 family)
 PAPER_ARCHS = ("llama3-8b", "llama3-70b")
 
 _MODULES = {
+    "llama3.2-3b": "llama3_2_3b",
+    "gemma3-4b": "gemma3_4b",
+    "deepseek-67b": "deepseek_67b",
+    "deepseek-7b": "deepseek_7b",
+    "granite-moe-1b-a400m": "granite_moe_1b",
+    "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
+    "musicgen-medium": "musicgen_medium",
+    "mamba2-370m": "mamba2_370m",
     "llama3-8b": "llama3_8b",
     "llama3-70b": "llama3_70b",
-    "mamba2-370m": "mamba2_370m",
 }
 
 

@@ -535,7 +535,7 @@ class CacheCraftExecutor:
             t_w0 = time.perf_counter()
             # the window writes its cache slices in place, so no
             # write-back of the returned window follows
-            h, _win_cache, stats, kstats = self._window(
+            h, _win_cache, stats, kstats, _aux = self._window(
                 h, positions, layout_sid_t, cache, slots, seg_ids,
                 kv_seg_t, pack_qidx, pack_kidx, g0=g0, g1=g1,
                 tail=is_last and cfg.n_tail > 0, collect=collect_stats)
@@ -747,7 +747,7 @@ class CacheCraftExecutor:
         seg_t = self._dev(seg_layout[None])
         h = M.embed_tokens(cfg, self.params, self._dev(act_tok[None]))
         cache = pack_cache(cfg, k_np, v_np, pos_layout, self.device)
-        _h, new_cache, _stats, _kstats = self._window(
+        _h, new_cache, _stats, _kstats, _aux = self._window(
             h, act_pos, self._dev(layout_sid[None]), cache, act_pos,
             seg_t, seg_t, None, None, g0=0, g1=min(G, 1), tail=G == 0,
             collect=False)

@@ -54,6 +54,15 @@
 //    which keeps every fragment load free of bank conflicts.
 //  * 64-key tiles in bf16 (87 KB of shared memory per CTA at D 128) and
 //    32-key tiles in fp32 (100 KB): two CTAs per SM either way.
+//  * D 256 (gemma3): a warp holding all 256 output columns would need 128
+//    accumulator registers on top of the scores and spill, so each query
+//    block has two warps, one per half of the columns (8 warps a CTA).
+//    Both form the same scores (Q.K^T over all of D, the same
+//    instructions on the same operands, so the same bits) and the same
+//    softmax; each multiplies P by its half of V, and the first also keeps
+//    the chunk mass. The shared memory (Q and two stages of K/V, 201 KB in
+//    fp32, 171 KB in bf16) leaves one CTA per SM. D <= 128 keeps one warp
+//    per query block and its code unchanged.
 //  * A grid that fills the card: where query blocks x KV heads x batch
 //    give fewer CTAs than the dtype's target (3 x 132 in fp32, 132 in
 //    bf16; ops.num_splits, from the shapes alone), the keys are split into
@@ -138,8 +147,7 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int NR = 64;        // query vectors (row x head) per CTA
-constexpr int WARPS = 4;      // 16 query vectors each
-constexpr int THREADS = 32 * WARPS;
+constexpr int WARPS = 4;      // query blocks of 16 vectors per CTA
 constexpr int MAXC = 64;      // chunk-mass columns held in registers
 
 template <typename T> struct IsBf16 { static constexpr bool v = false; };
@@ -207,6 +215,15 @@ template <typename T>
 __host__ __device__ constexpr int keys_per_tile() {
   return IsBf16<T>::v ? 64 : 32;
 }
+// warps per query block, each with D / column_groups output columns
+template <int D>
+__host__ __device__ constexpr int column_groups() {
+  return D > 128 ? 2 : 1;
+}
+template <int D>
+__host__ __device__ constexpr int threads_per_cta() {
+  return 32 * WARPS * column_groups<D>();
+}
 // shared-memory row stride in elements: D plus 16 bytes
 template <typename T, int D>
 __host__ __device__ constexpr int row_stride() {
@@ -224,21 +241,28 @@ size_t smem_bytes(int C, int tiles_per_split) {
 
 // CTM: chunk-mass column tiles held in registers (C <= 8 CTM)
 template <typename T, int D, int CTM>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(threads_per_cta<D>(),
+                                  column_groups<D>() == 1 ? 2 : 1)
 chunk_attention_kernel(ChunkParams p) {
   constexpr bool BF = IsBf16<T>::v;
   constexpr int BK = keys_per_tile<T>();
   constexpr int RS = row_stride<T, D>();
   constexpr int VEC = 16 / (int)sizeof(T);   // elements per 16-byte copy
   constexpr int CPR = D / VEC;               // 16-byte copies per row
-  constexpr int NTD = D / 8;                 // output column tiles
+  constexpr int CG = column_groups<D>();
+  constexpr int THREADS = threads_per_cta<D>();
+  constexpr int NTD = D / 8 / CG;            // this warp's output col tiles
   constexpr int NTK = BK / 8;                // score column tiles
   const int C = p.C, G = p.H / p.Hkv, CT = (C + 7) / 8;
   const int BQ = NR / G;            // query rows per CTA
   const int nrow = BQ * G;          // live query vectors (<= NR)
   const int qb = blockIdx.x, hkv = blockIdx.y;
   const int b = blockIdx.z / p.nsplit, sp = blockIdx.z % p.nsplit;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int warp = tid / 32 % WARPS;          // query block
+  const int cg = tid / 32 / WARPS;            // column group
+  const int d0 = cg * (D / CG);               // its first output column
+  const bool keeps_mass = CG == 1 || cg == 0;
   const int gi = lane / 4, ti = lane % 4;     // fragment row / column
 
   T* q_s = reinterpret_cast<T*>(dyn_smem());            // [NR][RS]
@@ -474,10 +498,11 @@ chunk_attention_kernel(ChunkParams p) {
 #pragma unroll
         for (int n = 0; n < NTD; n += 2) {
           uint32_t bb[4];
-          ldmatrix_x4_trans(bb, va + 16 * kk * RS + 8 * n);
+          ldmatrix_x4_trans(bb, va + 16 * kk * RS + d0 + 8 * n);
           mma_m16n8k16_bf16(o[n], a, bb);
           mma_m16n8k16_bf16(o[n + 1], a, bb + 2);
         }
+        if (!keeps_mass) continue;
         // mass: P = hi + lo, both bf16, against the exact one-hot
         uint32_t alo[4];
 #pragma unroll
@@ -514,7 +539,7 @@ chunk_attention_kernel(ChunkParams p) {
         const int k0 = 8 * j + 2 * ti;
 #pragma unroll
         for (int n = 0; n < NTD; ++n) {
-          const int d = 8 * n + gi;
+          const int d = d0 + 8 * n + gi;
           uint32_t bb[2], bs[2];
           split_tf32(vf[k0 * RS + d], bb[0], bs[0]);
           split_tf32(vf[(k0 + 1) * RS + d], bb[1], bs[1]);
@@ -522,6 +547,7 @@ chunk_attention_kernel(ChunkParams p) {
           mma_m16n8k8_tf32(o[n], ab, bs);
           mma_m16n8k8_tf32(o[n], ab, bb);
         }
+        if (!keeps_mass) continue;
         const int c0 = kc[k0], c1 = kc[k0 + 1];
 #pragma unroll
         for (int n = 0; n < CTM; ++n) {
@@ -559,13 +585,13 @@ chunk_attention_kernel(ChunkParams p) {
         T* orow = out + ((size_t)(b * p.A + a) * p.H + hkv * G + g) * D;
 #pragma unroll
         for (int n = 0; n < NTD; ++n) {
-          orow[8 * n + 2 * ti] = from_f<T>(o[n][2 * i] * inv_l);
-          orow[8 * n + 2 * ti + 1] = from_f<T>(o[n][2 * i + 1] * inv_l);
+          orow[d0 + 8 * n + 2 * ti] = from_f<T>(o[n][2 * i] * inv_l);
+          orow[d0 + 8 * n + 2 * ti + 1] = from_f<T>(o[n][2 * i + 1] * inv_l);
         }
       }
 #pragma unroll
       for (int n = 0; n < CTM; ++n)
-        if (n < CT) {
+        if (keeps_mass && n < CT) {
           ms_s[r * CP + 8 * n + 2 * ti] = ms[n][2 * i] * inv_l;
           ms_s[r * CP + 8 * n + 2 * ti + 1] = ms[n][2 * i + 1] * inv_l;
         }
@@ -591,15 +617,16 @@ chunk_attention_kernel(ChunkParams p) {
       if (r >= nrow || a >= p.A) continue;
       const size_t row =
           ((size_t)(sp * p.B + b) * p.A + a) * p.H + hkv * G + g;
-      if (ti == 0) {
+      if (ti == 0 && keeps_mass) {
         m_part[row] = m_r[i];
         l_part[row] = l_r[i];
       }
 #pragma unroll
       for (int n = 0; n < NTD; ++n) {
-        o_part[row * D + 8 * n + 2 * ti] = o[n][2 * i];
-        o_part[row * D + 8 * n + 2 * ti + 1] = o[n][2 * i + 1];
+        o_part[row * D + d0 + 8 * n + 2 * ti] = o[n][2 * i];
+        o_part[row * D + d0 + 8 * n + 2 * ti + 1] = o[n][2 * i + 1];
       }
+      if (!keeps_mass) continue;
 #pragma unroll
       for (int n = 0; n < CTM; ++n)
 #pragma unroll
@@ -708,7 +735,7 @@ int launch(const ChunkParams& p, float* mass, cudaStream_t stream) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((p.A + BQ - 1) / BQ, p.Hkv, p.B * p.nsplit);
-  LAUNCH(kern, grid, dim3(THREADS), smem, stream)(p);
+  LAUNCH(kern, grid, dim3(threads_per_cta<D>()), smem, stream)(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (p.nsplit == 1) {
@@ -726,26 +753,28 @@ int launch(const ChunkParams& p, float* mass, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// f(kernel, shared memory bytes) for the (dtype, D) instantiation
+// f(kernel, shared memory bytes, threads) for the (dtype, D) instantiation
+template <typename T, int D, typename F>
+int with_instance(int C, int tiles_per_split, F f) {
+  return f(kernel_for<T, D>(C), smem_bytes<T, D>(C, tiles_per_split),
+           threads_per_cta<D>());
+}
 template <typename F>
 int with_kernel(int is_bf16, int D, int C, int tiles_per_split, F f) {
+  const int t = tiles_per_split;
   if (is_bf16) {
     switch (D) {
-      case 32: return f(kernel_for<__nv_bfloat16, 32>(C),
-                        smem_bytes<__nv_bfloat16, 32>(C, tiles_per_split));
-      case 64: return f(kernel_for<__nv_bfloat16, 64>(C),
-                        smem_bytes<__nv_bfloat16, 64>(C, tiles_per_split));
-      case 128: return f(kernel_for<__nv_bfloat16, 128>(C),
-                         smem_bytes<__nv_bfloat16, 128>(C, tiles_per_split));
+      case 32: return with_instance<__nv_bfloat16, 32>(C, t, f);
+      case 64: return with_instance<__nv_bfloat16, 64>(C, t, f);
+      case 128: return with_instance<__nv_bfloat16, 128>(C, t, f);
+      case 256: return with_instance<__nv_bfloat16, 256>(C, t, f);
     }
   } else {
     switch (D) {
-      case 32: return f(kernel_for<float, 32>(C),
-                        smem_bytes<float, 32>(C, tiles_per_split));
-      case 64: return f(kernel_for<float, 64>(C),
-                        smem_bytes<float, 64>(C, tiles_per_split));
-      case 128: return f(kernel_for<float, 128>(C),
-                         smem_bytes<float, 128>(C, tiles_per_split));
+      case 32: return with_instance<float, 32>(C, t, f);
+      case 64: return with_instance<float, 64>(C, t, f);
+      case 128: return with_instance<float, 128>(C, t, f);
+      case 256: return with_instance<float, 256>(C, t, f);
     }
   }
   return -1;
@@ -757,8 +786,8 @@ int with_kernel(int is_bf16, int D, int C, int tiles_per_split, F f) {
 // int tensors are int32; is_bf16 selects bf16 (1) or fp32 (0) q/k/v/out.
 // ``work`` is fp32 scratch of ops.workspace_floats(...) elements, ``nsplit``
 // the number of key ranges (ops.num_splits; at most one per key tile of
-// 64 keys in bf16, 32 in fp32). D must be 32, 64 or 128, H / Hkv <= 64,
-// C <= 64. Returns the cudaError_t of the launches (0 = success).
+// 64 keys in bf16, 32 in fp32). D must be 32, 64, 128 or 256, H / Hkv <=
+// 64, C <= 64. Returns the cudaError_t of the launches (0 = success).
 extern "C" int chunk_attention_fwd(
     const void* q, const void* k, const void* v, const void* qpos,
     const void* kpos, const void* kchunk, const void* qseg, const void* kseg,
@@ -790,9 +819,11 @@ extern "C" int chunk_attention_fwd(
     case 32: return launch<float, 32>(p, m, st);
     case 64: return launch<float, 64>(p, m, st);
     case 128: return launch<float, 128>(p, m, st);
+    case 256: return launch<float, 256>(p, m, st);
     case 33: return launch<__nv_bfloat16, 32>(p, m, st);
     case 65: return launch<__nv_bfloat16, 64>(p, m, st);
     case 129: return launch<__nv_bfloat16, 128>(p, m, st);
+    case 257: return launch<__nv_bfloat16, 256>(p, m, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -802,7 +833,7 @@ extern "C" int chunk_attention_fwd(
 extern "C" long long chunk_attention_smem_bytes(int D, int C, int is_bf16,
                                                 int tiles_per_split) {
   return with_kernel(is_bf16, D, C, tiles_per_split,
-                     [](void (*)(ChunkParams), size_t smem) {
+                     [](void (*)(ChunkParams), size_t smem, int) {
                        return (int)smem;
                      });
 }
@@ -813,13 +844,14 @@ extern "C" long long chunk_attention_smem_bytes(int D, int C, int is_bf16,
 extern "C" int chunk_attention_occupancy(int D, int C, int is_bf16,
                                          int tiles_per_split) {
   return with_kernel(is_bf16, D, C, tiles_per_split,
-                     [](void (*kern)(ChunkParams), size_t smem) {
+                     [](void (*kern)(ChunkParams), size_t smem,
+                        int threads) {
                        int n = -1;
                        cudaFuncSetAttribute(
                            kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
                        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                           &n, kern, THREADS, smem);
+                           &n, kern, threads, smem);
                        return n;
                      });
 }

@@ -6,7 +6,9 @@ no fallback on the card. ``chunk_attention.launches`` counts kernel
 launches (never the CPU path).
 
 The kernel takes 64 query vectors (row x head of one KV head) per CTA and
-32 keys per tile; where that gives fewer CTAs than fill the card, the keys
+32 keys per tile in fp32, 64 in bf16 (at D 256 with two warps per 16
+vectors, each owning half of the output columns); where that gives fewer
+CTAs than fill the card, the keys
 are split into ``num_splits`` ranges whose partial rows a second kernel
 combines in a fixed order (``workspace_floats`` of fp32 scratch).
 """
@@ -21,7 +23,7 @@ from repro_torch.kernels.chunk_attention.ref import chunk_attention_ref
 
 _WHAT = "chunk_attention"
 _FLOATS = (torch.float32, torch.bfloat16)
-_HEAD_DIMS = (32, 64, 128)   # the source's instantiations
+_HEAD_DIMS = (32, 64, 128, 256)   # the source's instantiations
 _NR = 64              # query vectors per CTA (NR in the source); H/Hkv <= it
 _BK = {torch.float32: 32, torch.bfloat16: 64}   # keys per tile
 _MAX_C = 64           # chunk-mass column tiles held in registers (8 x 8)

@@ -44,11 +44,17 @@ Backends
 ``paged_kernel``  the CUDA paged-decode kernel over the same contract
                   (allclose, not bitwise: its online softmax reduces in
                   block order).
-``auto``          dense for small / stat-collecting / packed shapes;
-                  its blocked-flash branch is not ported yet.
-``flash``, ``flash_skip``, ``flash_cp``, ``sharded``
+``flash``         blocked online-softmax loop (``layers.gqa_attend_flash``;
+                  ``flash_skip``: the balanced causal schedule). Both
+                  fall back to the dense oracle under ``collect_stats``
+                  or packing (no mass statistic, no segment mask), as
+                  the reference does.
+``auto``          dense for small / stat-collecting / packed shapes,
+                  flash beyond 2^21 score elements (the reference's
+                  rule).
+``flash_cp``, ``sharded``
                   registered so that a spec naming them fails with the
-                  ROADMAP item that ports them.
+                  ROADMAP item that ports them (both need a mesh).
 
 Paged attend contract
 ---------------------
@@ -159,15 +165,34 @@ def _impl_dense(ctx, window, packed, q, k_all, v_all, kv_pos):
                        ctx.kv_seg if packed else None, k_chunk)
 
 
+def _flash(ctx, window, packed, q, k_all, v_all, kv_pos, causal_skip=False):
+    if ctx.collect_stats or packed:
+        # flash has no mass statistic / segment mask: stats collection
+        # and packed rows fall back to the dense oracle
+        return _impl_dense(ctx, window, packed, q, k_all, v_all, kv_pos)
+    out = L.gqa_attend_flash(q, k_all, v_all, ctx.positions, kv_pos,
+                             window, causal_skip=causal_skip)
+    return out, None, None
+
+
+def _impl_flash(ctx, window, packed, q, k_all, v_all, kv_pos):
+    return _flash(ctx, window, packed, q, k_all, v_all, kv_pos)
+
+
+def _impl_flash_skip(ctx, window, packed, q, k_all, v_all, kv_pos):
+    return _flash(ctx, window, packed, q, k_all, v_all, kv_pos,
+                  causal_skip=True)
+
+
+def _impl_flash_cp(ctx, window, packed, q, k_all, v_all, kv_pos):
+    _not_ported("flash_cp (context-parallel over a device mesh)", "A10")
+
+
 def _impl_auto(ctx, window, packed, q, k_all, v_all, kv_pos):
     if ctx.collect_stats or packed or \
             q.shape[1] * k_all.shape[1] <= (1 << 21):
         return _impl_dense(ctx, window, packed, q, k_all, v_all, kv_pos)
-    _not_ported("auto (blocked-flash branch, gqa_attend_flash)", "A8")
-
-
-def _impl_flash(ctx, window, packed, q, k_all, v_all, kv_pos):
-    _not_ported(ctx.attn_impl, "A8")
+    return _flash(ctx, window, packed, q, k_all, v_all, kv_pos)
 
 
 def _impl_sharded(ctx, window, packed, q, k_all, v_all, kv_pos):
@@ -244,16 +269,17 @@ BACKENDS = {
     "kernel": _impl_kernel,
     "sharded": _impl_sharded,
     "flash": _impl_flash,
-    "flash_skip": _impl_flash,
-    "flash_cp": _impl_flash,
+    "flash_skip": _impl_flash_skip,
+    "flash_cp": _impl_flash_cp,
     "paged": _impl_paged,
     "paged_kernel": _impl_paged_kernel,
 }
 
 
 def attend(ctx, kind: str, q, k_all, v_all, kv_pos):
-    """THE attention dispatch site. ``kind`` is the layer kind
-    ("global" | "local"); everything else follows the contract above."""
+    """THE attention dispatch site. ``kind`` is the layer kind ("attn" |
+    "local"; only "local" applies ``cfg.window``); everything else
+    follows the contract above."""
     try:
         impl = BACKENDS[ctx.attn_impl]
     except KeyError:

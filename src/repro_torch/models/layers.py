@@ -1,10 +1,12 @@
-"""Layer primitives of the dense attention and Mamba2 families, in
-PyTorch.
+"""Layer primitives of the dense attention, sliding-window, MoE and
+Mamba2 families, in PyTorch.
 
 The ported subset of ``repro/models/layers.py``: RMS norm, RoPE
 (apply and remove), position masks with segment ids, the dense GQA
-attention oracle with the Cache-Craft chunk-mass statistic, one-token
-decode attention, the SwiGLU FFN, and the Mamba2 pieces (causal depthwise
+attention oracle with the Cache-Craft chunk-mass statistic, the blocked
+flash attention of long prompts (with its balanced ``causal_skip``
+schedule), one-token decode attention, the SwiGLU FFN, the GShard MoE FFN
+with its load-balancing loss, and the Mamba2 pieces (causal depthwise
 conv, chunked SSD prefill through the ``ssd_intra`` kernel and its
 differentiable training route, one-step SSD decode). Every function
 keeps the JAX signature and layout (``[B, T, H, D]``), so the tests feed
@@ -138,6 +140,76 @@ def gqa_attend_dense(q, k, v, mask, k_chunk: Optional[torch.Tensor] = None,
     return out, row_mass, key_mass
 
 
+# ---------------------------------------------------------------------------
+# Flash-style blocked attention (plain PyTorch, as the reference's is plain
+# JAX): a loop over KV blocks with a running max / denominator, memory
+# O(Tq * block). ``causal_skip`` visits, for q block i, only the kv blocks
+# j with j * block_k < (i + 1) * block_q (positions known to be row-major),
+# which halves the score work of a full causal prefill.
+# ---------------------------------------------------------------------------
+def gqa_attend_flash(q, k, v, q_pos, k_pos, window: int = 0,
+                     block_q: int = 1024, block_k: int = 1024,
+                     causal_skip: bool = False):
+    """q [B,Tq,H,D], k/v [B,Tk,Hkv,D], q_pos [B,Tq], k_pos [B,Tk] ->
+    out [B,Tq,H,D] in v's dtype. Ragged edges are padded with zeros at
+    position -1, which the position mask drops."""
+    B, Tq, H, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    block_q = min(block_q, Tq)
+    block_k = min(block_k, Tk)
+    nq, nk = -(-Tq // block_q), -(-Tk // block_k)
+    pq, pk = nq * block_q - Tq, nk * block_k - Tk
+    if pq:
+        q = F.pad(q, (0, 0, 0, 0, 0, pq))
+        q_pos = F.pad(q_pos, (0, pq), value=-1)
+    if pk:
+        k = F.pad(k, (0, 0, 0, 0, 0, pk))
+        v = F.pad(v, (0, 0, 0, 0, 0, pk))
+        k_pos = F.pad(k_pos, (0, pk), value=-1)
+    qb = q.reshape(B, nq, block_q, Hkv, G, D).float()
+    qpb = q_pos.reshape(B, nq, block_q)
+    kb = k.reshape(B, nk, block_k, Hkv, D).float()
+    vb = v.reshape(B, nk, block_k, Hkv, D).float()
+    kpb = k_pos.reshape(B, nk, block_k)
+    scale = 1.0 / np.sqrt(D)
+    outs = []
+    for i in range(nq):
+        need = min(nk, -(-((i + 1) * block_q) // block_k)) \
+            if causal_skip else nk
+        qi, qp = qb[:, i], qpb[:, i]
+        carry = (torch.full((B, block_q, Hkv, G), NEG_INF,
+                            dtype=torch.float32, device=q.device),
+                 torch.zeros((B, block_q, Hkv, G), dtype=torch.float32,
+                             device=q.device),
+                 torch.zeros((B, block_q, Hkv, G, D), dtype=torch.float32,
+                             device=q.device))
+        for j in range(need):
+            carry = _flash_kv_step(carry, (kb[:, j], vb[:, j], kpb[:, j]),
+                                   qi, qp, scale, window)
+        _m, l, acc = carry
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.stack(outs, dim=1).reshape(B, nq * block_q, H, D)[:, :Tq]
+    return out.to(v.dtype)
+
+
+def _flash_kv_step(carry, blk, qi, qp, scale, window):
+    """One KV block of the online softmax: (m, l, acc) -> updated."""
+    m, l, acc = carry
+    ki, vi, kp = blk
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qi, ki) * scale
+    msk = position_mask(qp, kp, window)
+    s = torch.where(msk[:, :, None, None, :], s,
+                    torch.full((), NEG_INF, dtype=s.dtype, device=s.device))
+    m_new = torch.maximum(m, torch.amax(s, dim=-1))
+    m_new = torch.clamp(m_new, min=NEG_INF / 2)
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + torch.sum(p, dim=-1)
+    acc = acc * corr[..., None] + torch.einsum("bqhgk,bkhd->bqhgd", p, vi)
+    return m_new, l, acc
+
+
 def decode_attend(q, k, v, q_pos, k_pos, window: int = 0):
     """Single-step decode: q [B,H,D] vs KV [B,S,Hkv,D] -> [B,H,D]."""
     out = gqa_attend_dense(
@@ -146,7 +218,7 @@ def decode_attend(q, k, v, q_pos, k_pos, window: int = 0):
 
 
 # ---------------------------------------------------------------------------
-# FFN
+# FFNs
 # ---------------------------------------------------------------------------
 def swiglu(x, wi, wo):
     """wi [d,2,F], wo [F,d]; output in x's dtype."""
@@ -155,6 +227,73 @@ def swiglu(x, wi, wo):
         *x.shape[:-1], 2, wi.shape[-1])
     h = F.silu(gu[..., 0, :]) * gu[..., 1, :]
     return (h @ wo).to(x.dtype)
+
+
+def moe_ffn(x, router_w, wi, wo, *, experts_per_token: int,
+            capacity_factor: float, group_size: int = 512):
+    """GShard-style einsum-dispatch MoE, the reference's function.
+
+    x [..., d] is flattened to [T, d] and cut into G groups of g tokens (g
+    the largest divisor of T up to ``group_size``). Each token's top-k
+    experts (gates renormalised over the k) take it in cumsum order up to
+    the capacity C = max(4, ceil(g k cf / E)) per expert and group; the
+    overflow is dropped. router_w [d, E], wi [E, d, 2, F], wo [E, F, d].
+    Returns (out like x, router probs [G, g, E] fp32)."""
+    orig_shape = x.shape
+    d = x.shape[-1]
+    xt = x.reshape(-1, d)
+    T = xt.shape[0]
+    E = router_w.shape[-1]
+    g = min(group_size, T)
+    while T % g:
+        g -= 1
+    G = T // g
+    xg = xt.reshape(G, g, d)
+    k = experts_per_token
+    C = max(4, int(np.ceil(g * k * capacity_factor / E)))
+
+    logits = torch.einsum("gtd,de->gte", xg.float(), router_w.float())
+    probs = torch.softmax(logits, dim=-1)
+    # top-k with ties to the lower expert id, as jax.lax.top_k
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals = top.values[..., :k]
+    gate_idx = top.indices[..., :k]                          # [G,g,k]
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
+
+    dt = x.dtype
+    counts = torch.zeros((G, E), dtype=torch.long, device=x.device)
+    dispatch = torch.zeros((G, g, E, C), dtype=dt, device=x.device)
+    combine = torch.zeros((G, g, E, C), dtype=torch.float32,
+                          device=x.device)
+    for i in range(k):
+        oh = F.one_hot(gate_idx[..., i], E)                  # [G,g,E]
+        pos = torch.cumsum(oh, dim=1) - 1 + counts[:, None, :]
+        keep = (pos < C) & (oh > 0)
+        # slot C is the drop column (the reference's one_hot of -1)
+        disp_i = F.one_hot(torch.where(keep, pos, C), C + 1)[..., :C] \
+            .to(dt)                                          # [G,g,E,C]
+        dispatch = dispatch + disp_i
+        combine = combine + disp_i.float() * gate_vals[..., i, None, None]
+        counts = counts + (oh * keep).sum(dim=1)
+
+    ein = torch.einsum("gtec,gtd->gecd", dispatch.float(),
+                       xg.float()).to(dt)
+    a = torch.einsum("gecd,edf->gecf", ein.float(),
+                     wi[:, :, 0].float()).to(dt)
+    b = torch.einsum("gecd,edf->gecf", ein.float(),
+                     wi[:, :, 1].float()).to(dt)
+    hid = F.silu(a) * b
+    out_e = torch.einsum("gecf,efd->gecd", hid.float(), wo.float())
+    out = torch.einsum("gtec,gecd->gtd", combine, out_e)
+    return out.reshape(orig_shape).to(x.dtype), probs
+
+
+def moe_aux_loss(probs, num_experts: int) -> torch.Tensor:
+    """Switch-style load-balancing loss (mean fraction * mean prob * E)."""
+    lead = tuple(range(probs.dim() - 1))
+    me = probs.mean(dim=lead)
+    fe = F.one_hot(probs.argmax(dim=-1), num_experts).float().mean(dim=lead)
+    return num_experts * torch.sum(me * fe)
 
 
 # ---------------------------------------------------------------------------

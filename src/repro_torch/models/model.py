@@ -1,6 +1,7 @@
-"""Decoder stack of the dense attention family (``pattern=("attn",)``)
-and the Mamba2 family (``pattern=("ssd",)``), in PyTorch, with the
-reference's four execution modes:
+"""Decoder stack of the attention families (global ``attn`` and
+sliding-window ``local`` layers, each with a SwiGLU or MoE FFN) and the
+Mamba2 family (``ssd``), in PyTorch, with the reference's four execution
+modes:
 
   mode="prefill"  full forward, returns per-layer KV cache (+ the
                   Cache-Craft attention statistics when requested)
@@ -22,8 +23,13 @@ reference pytree (as numpy arrays) into this layout, so both packages
 compute the same function in the tests.
 
 Attention caches carry an explicit per-slot position array, so
-causality always derives from absolute positions; an ``ssd`` layer's
-cache is its running state ``s`` and the last ``W-1`` conv inputs. The
+causality always derives from absolute positions. A ``local`` layer's
+cache may be a ring of ``cfg.window`` slots (``ring=True``, the default
+of ``init_cache`` / ``prefill``): prefill keeps the last ``window`` tokens
+at slot ``pos % window`` and decode writes there too; the serving engine
+holds ``local`` layers at full length and applies the window by the mask.
+An ``ssd`` layer's cache is its running state ``s`` and the last ``W-1``
+conv inputs. The
 reference donates caches to its jitted steps; here the cache tensors are
 updated IN PLACE (``index_put_`` / ``copy_`` into views of the stacked
 leaves) and the returned cache shares storage with the one passed in.
@@ -52,11 +58,11 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def _check_kind(kind: str):
-    if kind not in ("attn", "ssd"):
+    if kind not in ("attn", "local", "ssd"):
         raise NotImplementedError(
             f"layer kind {kind!r} is not ported to repro_torch yet "
-            "(ROADMAP A8); the port runs the dense attention and Mamba2 "
-            "(ssd) families")
+            "(ROADMAP A8); the port runs the attention (attn, local) and "
+            "Mamba2 (ssd) families")
 
 
 # ---------------------------------------------------------------------------
@@ -83,19 +89,25 @@ def _layer_defs(cfg: ModelConfig, kind: str) -> Dict[str, tuple]:
         return _ssd_defs(cfg)
     d, h, hkv, dh, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                         cfg.head_dim_, cfg.d_ff)
-    if cfg.num_experts:
-        raise NotImplementedError(
-            "MoE FFN is not ported to repro_torch yet (ROADMAP A8)")
-    return {
+    defs = {
         "ln1": ((d,), "zero"),
         "wq": ((d, h, dh), "fan_in"),
         "wk": ((d, hkv, dh), "fan_in"),
         "wv": ((d, hkv, dh), "fan_in"),
         "wo": ((h, dh, d), "fan_in2"),
         "ln2": ((d,), "zero"),
-        "wi": ((d, 2, f), "fan_in"),
-        "wo_ff": ((f, d), "fan_in"),
     }
+    if cfg.num_experts:
+        e = cfg.num_experts
+        # the reference's fan-in for "fan_in" is shape[0]: E for the
+        # expert weights, kept as it is
+        defs["router"] = ((d, e), "fan_in")
+        defs["wi_e"] = ((e, d, 2, f), "fan_in")
+        defs["wo_e"] = ((e, f, d), "fan_in")
+    else:
+        defs["wi"] = ((d, 2, f), "fan_in")
+        defs["wo_ff"] = ((f, d), "fan_in")
+    return defs
 
 
 def _init_leaf(gen, shape, init, dtype, device, lead=()):
@@ -180,8 +192,16 @@ def params_device(params: Params) -> torch.device:
 # ---------------------------------------------------------------------------
 # Caches
 # ---------------------------------------------------------------------------
+def _kv_len(cfg: ModelConfig, kind: str, seq_len: int,
+            ring: bool = True) -> int:
+    if kind == "local" and ring:
+        return min(seq_len, cfg.window)
+    return seq_len
+
+
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
-                     dtype, device, lead=()) -> Dict[str, torch.Tensor]:
+                     dtype, device, lead=(),
+                     ring: bool = True) -> Dict[str, torch.Tensor]:
     _check_kind(kind)
     hkv, dh = cfg.num_kv_heads, cfg.head_dim_
     lead = tuple(lead)
@@ -194,6 +214,7 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
                                         cfg.d_inner), dtype=dtype,
                                 device=device),
         }
+    seq_len = _kv_len(cfg, kind, seq_len, ring)
     return {
         "k": torch.zeros(lead + (batch, seq_len, hkv, dh), dtype=dtype,
                          device=device),
@@ -205,14 +226,17 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=None,
-               *, device) -> Dict[str, List[dict]]:
+               *, device, ring: bool = True) -> Dict[str, List[dict]]:
+    """``ring=True`` sizes ``local`` layers' caches at ``min(seq_len,
+    window)`` slots, as the reference does; ``ring=False`` at
+    ``seq_len``."""
     dtype = torch_dtype(dtype or cfg.dtype)
     groups = [init_layer_cache(cfg, k, batch, seq_len, dtype, device,
-                               lead=(cfg.n_groups,))
+                               lead=(cfg.n_groups,), ring=ring)
               for k in cfg.pattern] if cfg.n_groups else []
     tail = [init_layer_cache(cfg, cfg.layer_kinds[cfg.n_groups *
                                                   len(cfg.pattern) + i],
-                             batch, seq_len, dtype, device)
+                             batch, seq_len, dtype, device, ring=ring)
             for i in range(cfg.n_tail)]
     return {"groups": groups, "tail": tail}
 
@@ -277,6 +301,19 @@ def _self_attention(ctx: Ctx, kind: str, p, x, state):
     new_state = state
     if ctx.mode == "train":
         k_all, v_all, kv_pos = k, v, ctx.positions
+    elif ctx.mode in ("prefill", "partial") and kind == "local" and \
+            state["k"].shape[1] < x.shape[1]:
+        # a ring cache shorter than the prompt (decode-oriented): keep the
+        # last `window` tokens at slot pos % window; attention itself runs
+        # over the fresh full KV
+        w = state["k"].shape[1]
+        pos = ctx.positions[:, -w:]
+        bi = torch.arange(x.shape[0], device=x.device)[:, None]
+        slot = (pos % w).long()
+        state["k"][bi, slot] = k[:, -w:]
+        state["v"][bi, slot] = v[:, -w:]
+        state["pos"][bi, slot] = pos.to(torch.int32)
+        k_all, v_all, kv_pos = k, v, ctx.positions
     elif ctx.mode in ("prefill", "partial"):
         # scatter fresh KV into the (possibly pre-populated) cache at its
         # write slots; padding rows (-1) write nothing. Packed prefill
@@ -299,8 +336,11 @@ def _self_attention(ctx: Ctx, kind: str, p, x, state):
     elif ctx.mode == "decode":
         # masked batch rows carry slot = -1 and position = -1: the KV
         # write drops and the row's query position masks all attention,
-        # so a dead row is inert until a join overwrites it
+        # so a dead row is inert until a join overwrites it; a local
+        # layer's ring takes the slot mod its length
         bi, ti, slot = _write_index(ctx, ctx.decode_slot[:, None])
+        if kind == "local":
+            slot = slot % state["k"].shape[1]
         state["k"][bi, slot] = k[bi, ti]
         state["v"][bi, slot] = v[bi, ti]
         state["pos"][bi, slot] = ctx.positions[bi, ti].to(torch.int32)
@@ -308,13 +348,24 @@ def _self_attention(ctx: Ctx, kind: str, p, x, state):
     else:
         raise ValueError(ctx.mode)
 
-    out, row_mass, key_mass = AB.attend(ctx, "global", q, k_all, v_all,
-                                        kv_pos)
+    out, row_mass, key_mass = AB.attend(ctx, kind, q, k_all, v_all, kv_pos)
     B, T = x.shape[:2]
     H, D = out.shape[2:]
     out = (out.reshape(B * T, H * D) @ p["wo"].reshape(H * D, -1)).reshape(
         B, T, -1).to(out.dtype)
     return out, new_state, row_mass, key_mass
+
+
+def _ffn(ctx: Ctx, p, x):
+    """SwiGLU, or the MoE FFN with its load-balancing loss: (out, aux);
+    aux is the number 0.0 without experts (no device work for it)."""
+    cfg = ctx.cfg
+    if cfg.num_experts:
+        out, probs = L.moe_ffn(x, p["router"], p["wi_e"], p["wo_e"],
+                               experts_per_token=cfg.experts_per_token,
+                               capacity_factor=cfg.capacity_factor)
+        return out, L.moe_aux_loss(probs, cfg.num_experts)
+    return L.swiglu(x, p["wi"], p["wo_ff"]), 0.0
 
 
 def _ssd_block(ctx: Ctx, p, x, state):
@@ -361,16 +412,15 @@ def apply_block(ctx: Ctx, kind: str, p, h, state):
                            device=h.device)
     if kind == "ssd":                   # no FFN, no attention statistics
         out, state = _ssd_block(ctx, p, x, state)
-        return h + out, state, row_mass, key_mass
+        return h + out, state, row_mass, key_mass, 0.0
     out, state, rm, km = _self_attention(ctx, kind, p, x, state)
     if rm is not None:
         row_mass = rm
     if km is not None and km.shape == key_mass.shape:
         key_mass = km
     h = h + out
-    h = h + L.swiglu(L.rms_norm(h, p["ln2"], cfg.norm_eps), p["wi"],
-                     p["wo_ff"])
-    return h, state, row_mass, key_mass
+    y, aux = _ffn(ctx, p, L.rms_norm(h, p["ln2"], cfg.norm_eps))
+    return h + y, state, row_mass, key_mass, aux
 
 
 # ---------------------------------------------------------------------------
@@ -382,9 +432,9 @@ class ModelOutput:
     cache: Optional[dict] = None
     stats: Optional[torch.Tensor] = None      # [L, B, T, C] row chunk mass
     key_stats: Optional[torch.Tensor] = None  # [L, B, T] mass received/key
-    # the MoE load-balancing loss, summed over layers: 0 for the ported
-    # families (the MoE FFN comes with ROADMAP A8)
-    aux_loss: float = 0.0
+    # the MoE load-balancing loss summed over layers: a tensor, or the
+    # number 0.0 without experts
+    aux_loss: Any = 0.0
     hidden: Optional[torch.Tensor] = None
 
 
@@ -409,8 +459,9 @@ def run_stack(cfg: ModelConfig, params: Params, h: torch.Tensor, ctx: Ctx,
     """Apply layer groups [g0, g1) (+ optional tail) to hidden states h.
 
     Returns ``(h, cache_window, stats [Lwindow,B,T,C] | None, key_stats
-    [Lwindow,B,S] | None)``. ``cache`` is the FULL cache; its window
-    [g0, g1) (+ tail) is updated in place and returned as views."""
+    [Lwindow,B,S] | None, aux)``, ``aux`` the window's MoE loss summed
+    over layers. ``cache`` is the FULL cache; its window [g0, g1) (+ tail)
+    is updated in place and returned as views."""
     pattern = cfg.pattern
     g1 = cfg.n_groups if g1 is None else g1
     want_cache = cache is not None
@@ -423,14 +474,15 @@ def run_stack(cfg: ModelConfig, params: Params, h: torch.Tensor, ctx: Ctx,
               for pg in params["groups"]] if g1 > g0 else []
 
     def group(h, g):
-        masses = []
+        masses, aux = [], 0.0
         for pi, kind in enumerate(pattern):
             p = {n: xs[g] for n, xs in layers[pi].items()}
             st = ({n: x[g] for n, x in cache["groups"][pi].items()}
                   if want_cache else None)
-            h, _st, rm, km = apply_block(ctx, kind, p, h, st)
+            h, _st, rm, km, a = apply_block(ctx, kind, p, h, st)
             masses.append((rm, km))
-        return h, masses
+            aux = aux + a
+        return h, masses, aux
 
     def keep(masses):
         if collect_stats:
@@ -441,19 +493,22 @@ def run_stack(cfg: ModelConfig, params: Params, h: torch.Tensor, ctx: Ctx,
     # only the group's input is kept, its activations are recomputed in
     # the backward pass (train mode has no cache to write twice)
     remat = cfg.remat and ctx.mode == "train"
+    aux_total = 0.0
     for g in range(g0, g1):
         if remat:
-            h, masses = checkpoint(group, h, g, use_reentrant=False)
+            h, masses, aux = checkpoint(group, h, g, use_reentrant=False)
         else:
-            h, masses = group(h, g)
+            h, masses, aux = group(h, g)
         keep(masses)
+        aux_total = aux_total + aux
     if tail:
         for i in range(cfg.n_tail):
             kind = cfg.layer_kinds[cfg.n_groups * len(pattern) + i]
-            h, _st, rm, km = apply_block(
+            h, _st, rm, km, aux = apply_block(
                 ctx, kind, params["tail"][i], h,
                 cache["tail"][i] if want_cache else None)
             keep([(rm, km)])
+            aux_total = aux_total + aux
 
     new_cache = None
     if want_cache:
@@ -466,11 +521,12 @@ def run_stack(cfg: ModelConfig, params: Params, h: torch.Tensor, ctx: Ctx,
         else None
     kstats = torch.stack(kstats_list) if collect_stats and kstats_list \
         else None
-    return h, new_cache, stats, kstats
+    return h, new_cache, stats, kstats, aux_total
 
 
 def forward(cfg: ModelConfig, params: Params, *,
             tokens: Optional[torch.Tensor] = None,
+            embeds: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
             mode: str = "train",
             cache: Optional[dict] = None,
@@ -485,7 +541,12 @@ def forward(cfg: ModelConfig, params: Params, *,
             paged_block_rows: Optional[torch.Tensor] = None,
             paged_block_size: int = 0,
             logits_slice: str = "all") -> ModelOutput:
-    h = embed_tokens(cfg, params, tokens)
+    """``embeds`` [B,T,d] (musicgen's ``input_mode="embeds"``: frame
+    embeddings from a stub frontend) replaces the token embedding."""
+    if embeds is None:
+        h = embed_tokens(cfg, params, tokens)
+    else:
+        h = embeds.to(torch_dtype(cfg.dtype))
     if h.dim() == 2:
         h = h[:, None]
     B, T = h.shape[:2]
@@ -498,32 +559,37 @@ def forward(cfg: ModelConfig, params: Params, *,
               slots=slots, seg_ids=seg_ids, kv_seg=kv_seg,
               paged_rows=paged_rows, paged_block_rows=paged_block_rows,
               paged_block_size=paged_block_size)
-    h, new_cache, stats, kstats = run_stack(
+    h, new_cache, stats, kstats, aux_total = run_stack(
         cfg, params, h, ctx, cache=cache, collect_stats=collect_stats)
     if logits_slice == "last":
         h = h[:, -1:]
     logits = lm_head(cfg, params, h)
     return ModelOutput(logits=logits, cache=new_cache, stats=stats,
-                       key_stats=kstats, hidden=h)
+                       key_stats=kstats, aux_loss=aux_total, hidden=h)
 
 
 # Convenience entry points ---------------------------------------------------
-def prefill(cfg, params, tokens, positions=None, chunk_ids=None,
+def prefill(cfg, params, tokens=None, positions=None, chunk_ids=None,
             collect_stats=False, attn_impl="auto",
-            cache_len: Optional[int] = None):
-    B, T = tokens.shape[:2]
+            cache_len: Optional[int] = None, embeds=None,
+            ring: bool = True):
+    """Full prefill into a fresh cache of ``cache_len`` (default T) slots;
+    ``ring`` as in ``init_cache``."""
+    B, T = (tokens if tokens is not None else embeds).shape[:2]
     cache = init_cache(cfg, B, cache_len or T,
-                       device=params_device(params))
-    return forward(cfg, params, tokens=tokens, positions=positions,
-                   mode="prefill", cache=cache, chunk_ids=chunk_ids,
-                   collect_stats=collect_stats, attn_impl=attn_impl)
+                       device=params_device(params), ring=ring)
+    return forward(cfg, params, tokens=tokens, embeds=embeds,
+                   positions=positions, mode="prefill", cache=cache,
+                   chunk_ids=chunk_ids, collect_stats=collect_stats,
+                   attn_impl=attn_impl)
 
 
 def partial_prefill(cfg, params, tokens, positions, cache, chunk_ids=None,
-                    collect_stats=False, attn_impl="auto"):
-    return forward(cfg, params, tokens=tokens, positions=positions,
-                   mode="partial", cache=cache, chunk_ids=chunk_ids,
-                   collect_stats=collect_stats, attn_impl=attn_impl)
+                    collect_stats=False, attn_impl="auto", embeds=None):
+    return forward(cfg, params, tokens=tokens, embeds=embeds,
+                   positions=positions, mode="partial", cache=cache,
+                   chunk_ids=chunk_ids, collect_stats=collect_stats,
+                   attn_impl=attn_impl)
 
 
 def decode_step(cfg, params, tokens, positions, cache, decode_slot=None,

@@ -12,10 +12,11 @@ reference's int8 error-feedback gradient compression across data-
 parallel ranks comes with the distributed port (ROADMAP A10).
 
 The serving roots are plain closures ``(params, batch) -> (logits,
-cache)`` over ``models.model``: ``batch`` holds ``tokens``,
-``positions`` (optional for the full prefill) and ``cache``, which is
-updated in place. The reference's ``embeds`` / ``media`` inputs come
-with the families that take them.
+cache)`` over ``models.model``: ``batch`` holds ``tokens`` (or
+``embeds``, for a config with ``input_mode="embeds"``), ``positions``
+(optional for the full prefill) and ``cache``, which is updated in
+place. The reference's ``media`` input comes with the cross-attention
+family (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -90,8 +91,10 @@ def state_from_jax(cfg: ModelConfig, np_tree: dict, device) -> TrainState:
 
 def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     """Next-token CE on fp32 logits (labels shifted by the data pipeline;
-    labels < 0 are masked), plus ``MOE_AUX_COEF`` x the MoE aux loss."""
-    out = M.forward(cfg, params, tokens=batch["tokens"], mode="train")
+    labels < 0 are masked), plus ``MOE_AUX_COEF`` x the MoE aux loss.
+    The inputs are ``batch["tokens"]`` or ``batch["embeds"]``."""
+    out = M.forward(cfg, params, tokens=batch.get("tokens"),
+                    embeds=batch.get("embeds"), mode="train")
     logits = out.logits.float()
     labels = batch["labels"].long()
     logp = F.log_softmax(logits, dim=-1)
@@ -153,7 +156,8 @@ def make_prefill_step(cfg: ModelConfig, attn_impl: str = "auto"):
     """Full prefill: the paper's Full-Recomp baseline."""
 
     def prefill_step(params, batch):
-        out = M.forward(cfg, params, tokens=batch["tokens"],
+        out = M.forward(cfg, params, tokens=batch.get("tokens"),
+                        embeds=batch.get("embeds"),
                         positions=batch.get("positions"), mode="prefill",
                         cache=batch["cache"], attn_impl=attn_impl,
                         logits_slice="last")
@@ -166,7 +170,8 @@ def make_cachecraft_prefill_step(cfg: ModelConfig, attn_impl: str = "auto"):
     + recompute + question) against a pre-populated cache."""
 
     def step(params, batch):
-        out = M.forward(cfg, params, tokens=batch["tokens"],
+        out = M.forward(cfg, params, tokens=batch.get("tokens"),
+                        embeds=batch.get("embeds"),
                         positions=batch["positions"], mode="partial",
                         cache=batch["cache"], attn_impl=attn_impl,
                         logits_slice="last")

@@ -43,7 +43,14 @@ def test_port_imports_no_jax_and_no_reference():
                      "repro_torch.training.checkpoint",
                      "repro_torch.training.data",
                      "repro_torch.launch.serve",
-                     "repro_torch.launch.train"):
+                     "repro_torch.launch.train",
+                     "repro_torch.configs.gemma3_4b",
+                     "repro_torch.configs.granite_moe_1b",
+                     "repro_torch.configs.phi3_5_moe_42b",
+                     "repro_torch.configs.llama3_2_3b",
+                     "repro_torch.configs.deepseek_7b",
+                     "repro_torch.configs.deepseek_67b",
+                     "repro_torch.configs.musicgen_medium"):
             assert must in sys.modules, must
         print(len(names))
     """)
@@ -82,12 +89,11 @@ def test_spec_validation_names_field():
         EngineSpec(strategy="nope", device="cpu").validate()
 
 
-@pytest.mark.parametrize("impl,item", [("flash", "A8"), ("flash_skip", "A8"),
-                                       ("flash_cp", "A8"),
+@pytest.mark.parametrize("impl,item", [("flash_cp", "A10"),
                                        ("sharded", "A10")])
 def test_unported_backends_name_roadmap_item(impl, item):
     """Registered so a spec naming them validates, but running one says
-    which ROADMAP item ports it."""
+    which ROADMAP item ports it (both need a device mesh)."""
     import numpy as np
 
     from repro_torch.models import model as M
@@ -98,7 +104,7 @@ def test_unported_backends_name_roadmap_item(impl, item):
         M.forward(cfg, params, tokens=toks, attn_impl=impl)
 
 
-@pytest.mark.parametrize("kind", ["local", "xattn", "rglru"])
+@pytest.mark.parametrize("kind", ["xattn", "rglru"])
 def test_other_layer_families_not_ported(kind):
     from repro_torch.models import model as M
     cfg = get_tiny("llama3-8b").replace(pattern=("attn", kind))
@@ -116,6 +122,29 @@ def test_ssd_layer_family_ported():
                     mode="prefill", cache=cache)
     assert tuple(out.logits.shape) == (1, 8, cfg.padded_vocab)
     assert bool(torch.isfinite(out.logits).all())
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "granite-moe-1b-a400m",
+                                  "phi3.5-moe-42b-a6.6b", "musicgen-medium"])
+def test_local_moe_and_embeds_families_ported(arch):
+    """Random init and a prefill of every new family through the
+    registry: ``local`` layers into a ring cache of ``window`` slots, the
+    MoE FFN with its aux loss in train mode, musicgen's ``embeds``."""
+    from repro_torch.models import model as M
+    cfg = get_tiny(arch)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    T = cfg.window + 8 if "local" in cfg.layer_kinds else 16
+    inp = ({"embeds": torch.randn(1, T, cfg.d_model) * 0.02}
+           if cfg.input_mode == "embeds"
+           else {"tokens": torch.zeros((1, T), dtype=torch.int32)})
+    out = M.prefill(cfg, params, **inp)
+    assert tuple(out.logits.shape) == (1, T, cfg.padded_vocab)
+    assert bool(torch.isfinite(out.logits).all())
+    slots = [c["k"].shape[-3] for c in out.cache["groups"]]
+    assert slots == [cfg.window if k == "local" else T
+                     for k in cfg.pattern]
+    train = M.forward(cfg, params, mode="train", **inp)
+    assert (float(train.aux_loss) > 0) == bool(cfg.num_experts)
 
 
 def test_pack_paged_cache_requires_device():

@@ -39,7 +39,7 @@ SSD_CASES = [(1, 8, 2, 16, 8), (3, 16, 4, 32, 16), (2, 32, 2, 64, 32),
 # T, H, D, theta: the three shapes of tests/test_kernels.py, then an odd T
 # with D/2 not a multiple of 4 (one element per thread)
 ROPE_CASES = [(32, 4, 32, 1e4), (50, 2, 64, 5e5), (128, 8, 128, 1e6),
-              (7, 3, 10, 1e4)]
+              (7, 3, 10, 1e4), (40, 4, 256, 1e6), (48, 8, 64, 1e4)]
 
 
 def _np(x):
@@ -269,11 +269,87 @@ def test_chunk_cuda_two_launches_bit_identical(counts, A, S, dtype):
 
 
 @pytest.mark.cuda
-def test_chunk_cuda_wrapper_raises():
-    """Head dims other than 32 / 64 / 128, more than 64 heads per KV head,
-    too many chunks, mixed devices and int64 positions raise."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunk_cuda_head_dim_256_full_width(counts, dtype):
+    """gemma3-4b's prefill window: A 512 rows over S 2048 keys, H 8 / Hkv
+    4, D 256 (two warps per 16 query vectors), C 16, the 1024-key window
+    of its local layers; two launches give the same bytes."""
     dev = _need_cuda()
-    for D in (16, 48, 256):
+    dt = getattr(torch, dtype)
+    A, S, H, Hkv, D, C, win = 512, 2048, 8, 4, 256, 16, 1024
+    ins = _chunk_inputs(256, A, S, H, Hkv, D, C)
+    td = _t(*ins, device=dev, dtype=dt)
+    o, m = cops.chunk_attention(*td, num_chunks=C, window=win)
+    o2, m2 = cops.chunk_attention(*td, num_chunks=C, window=win)
+    torch.cuda.synchronize()
+    assert cops.chunk_attention.launches == 2
+    assert torch.equal(o, o2) and torch.equal(m, m2)
+    orf, mrf = cops.chunk_attention(*_t(*ins, dtype=dt), num_chunks=C,
+                                    window=win)
+    tol = F32 if dt == torch.float32 else BF16
+    np.testing.assert_allclose(_np(o), _np(orf), **tol)
+    np.testing.assert_allclose(_np(m), _np(mrf), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunk_cuda_g3_full_width(counts, dtype):
+    """llama3.2-3b's heads (24 / 8: G 3) at D 128, A 256 over S 1024."""
+    dev = _need_cuda()
+    dt = getattr(torch, dtype)
+    ins = _chunk_inputs(3128, 256, 1024, 24, 8, 128, 16)
+    o, m = cops.chunk_attention(*_t(*ins, device=dev, dtype=dt),
+                                num_chunks=16)
+    torch.cuda.synchronize()
+    assert cops.chunk_attention.launches == 1
+    orf, mrf = cops.chunk_attention(*_t(*ins, dtype=dt), num_chunks=16)
+    tol = F32 if dt == torch.float32 else BF16
+    np.testing.assert_allclose(_np(o), _np(orf), **tol)
+    np.testing.assert_allclose(_np(m), _np(mrf), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_cuda_head_dim_256_g2_full_width(counts, dtype):
+    """gemma3-4b's decode: B 4, S 2048, H 8 / Hkv 4, D 256, the 1024-key
+    window, over the dense arena and over the same keys as a pool of
+    16-slot blocks in a shuffled order."""
+    dev = _need_cuda()
+    dt = getattr(torch, dtype)
+    B, S, H, Hkv, D, bs, win = 4, 2048, 8, 4, 256, 16, 1024
+    q, k, v, _qp, kpos = _decode_inputs(2562, B, S, H, Hkv, D)
+    qpos = np.array([1530, 2000, 700, 1535], np.int32)
+    nb = S // bs
+    order = np.random.default_rng(5).permutation(B * nb).astype(np.int32)
+    kb = np.zeros((B * nb, bs, Hkv, D), np.float32)
+    vb = np.zeros_like(kb)
+    pb = np.full((B * nb, bs), -1, np.int32)
+    for b in range(B):
+        blocks = order[b * nb:(b + 1) * nb]
+        kb[blocks] = k[b].reshape(nb, bs, Hkv, D)
+        vb[blocks] = v[b].reshape(nb, bs, Hkv, D)
+        pb[blocks] = kpos[b].reshape(nb, bs)
+    rows = order.reshape(B, nb)
+    tol = F32 if dt == torch.float32 else BF16
+    r = dops.decode_attention(*_t(q, k, v, qpos, kpos, dtype=dt),
+                              window=win)
+    o = dops.decode_attention(*_t(q, k, v, qpos, kpos, device=dev,
+                                  dtype=dt), window=win)
+    op = dops.paged_decode_attention(*_t(q, kb, vb, pb, rows, qpos,
+                                         device=dev, dtype=dt), window=win)
+    torch.cuda.synchronize()
+    assert dops.decode_attention.launches == 1
+    assert dops.paged_decode_attention.launches == 1
+    np.testing.assert_allclose(_np(o), _np(r), **tol)
+    np.testing.assert_allclose(_np(op), _np(r), **tol)
+
+
+@pytest.mark.cuda
+def test_chunk_cuda_wrapper_raises():
+    """Head dims other than 32 / 64 / 128 / 256, more than 64 heads per KV
+    head, too many chunks, mixed devices and int64 positions raise."""
+    dev = _need_cuda()
+    for D in (16, 48, 512):
         ins = _t(*_chunk_inputs(1, 8, 40, 4, 2, D, 4), device=dev)
         with pytest.raises(ValueError, match="head dim"):
             cops.chunk_attention(*ins, num_chunks=4)

@@ -181,6 +181,61 @@ def test_chunk_source_split_routes_agree(libs, dtype):
         assert float(m[-3:].sum()) == 0.0
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 40])
+def test_chunk_source_head_dim_256(libs, dtype, window):
+    """D 256 (gemma3; two warps per 16 query vectors, one per half of the
+    output columns, the first keeping the chunk mass), G 2, with padding
+    rows and keys, two packed segments and a sliding window, through 1,
+    3 key ranges: both routes equal the plain version, and the split
+    route run twice gives the same bytes."""
+    rng = np.random.default_rng(256 + window)
+    A, S, H, Hkv, D, C = 24, 130, 4, 2, 256, 12
+    dt = getattr(torch, dtype)
+    q, k, v = (_t(rng.normal(size=s).astype(np.float32), dt)
+               for s in ((A, H, D), (S, Hkv, D), (S, Hkv, D)))
+    qpos = np.sort(rng.choice(S, A, replace=False)).astype(np.int32)
+    qpos[:2] = -1
+    kpos = np.arange(S, dtype=np.int32)
+    kpos[-S // 8:] = -1
+    kch = np.minimum(np.maximum(kpos, 0) * C // S, C - 1).astype(np.int32)
+    qseg = (np.arange(A) >= A // 2).astype(np.int32)
+    kseg = (np.arange(S) >= S // 2).astype(np.int32)
+    ins = [q, k, v] + [_t(x) for x in (qpos, kpos, kch, qseg, kseg)]
+    o_r, m_r = chunk_attention_ref(*ins[:6], num_chunks=C, window=window,
+                                   q_seg=ins[6], k_seg=ins[7])
+    tiles = -(-S // (32 if dtype == "float32" else 64))
+    for ns in (1, 3):
+        assert ns <= tiles
+        o, m = _chunk(libs[0], *ins, C, window, nsplit=ns)
+        torch.testing.assert_close(o.float(), o_r.float(), **_tol(dtype))
+        torch.testing.assert_close(m, m_r, **_tol(dtype))
+        assert float(o[:2].float().abs().sum()) == 0.0
+    o2, m2 = _chunk(libs[0], *ins, C, window, nsplit=3)
+    assert torch.equal(o, o2) and torch.equal(m, m2)
+
+
+@pytest.mark.parametrize("ns", [1, 2])
+def test_chunk_source_g3_head_dim_128(libs, ns):
+    """llama3.2-3b's heads (24 / 8: G 3, the first group size that is not
+    a power of two; 21 rows x 3 heads per CTA) at D 128."""
+    rng = np.random.default_rng(3128 + ns)
+    A, S, H, Hkv, D, C = 45, 100, 6, 2, 128, 8
+    q = _t(rng.normal(size=(A, H, D)).astype(np.float32))
+    k = _t(rng.normal(size=(S, Hkv, D)).astype(np.float32))
+    v = _t(rng.normal(size=(S, Hkv, D)).astype(np.float32))
+    qpos = np.sort(rng.choice(S, A, replace=False)).astype(np.int32)
+    kpos = np.arange(S, dtype=np.int32)
+    kch = (np.arange(S) * C // S).astype(np.int32)
+    zeros = np.zeros
+    ins = [q, k, v] + [_t(x) for x in (qpos, kpos, kch, zeros(A, np.int32),
+                                       zeros(S, np.int32))]
+    o, m = _chunk(libs[0], *ins, C, 0, nsplit=ns)
+    o_r, m_r = chunk_attention_ref(*ins[:6], num_chunks=C)
+    torch.testing.assert_close(o, o_r, **F32)
+    torch.testing.assert_close(m, m_r, **F32)
+
+
 def test_chunk_split_count_from_shapes():
     """The path's shapes (llama3-8b, H 32 / Hkv 8): fp32 splits the keys
     up to 3 x 132 CTAs, bf16 only up to 132 (one per SM); full-size
@@ -484,6 +539,37 @@ def test_decode_source_split_routes_agree(libs, dtype):
         assert torch.isfinite(o.float()).all()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_sources_head_dim_256_g2(libs, dtype):
+    """gemma3's decode shape, cut: D 256, G 2 (8 / 4 heads), a 64-key
+    window, dense and paged (16-slot blocks in a shuffled order), through
+    the wrappers' key split and 1 and 3 ranges."""
+    rng = np.random.default_rng(2562)
+    B, S, H, Hkv, D, bs, win = 2, 192, 8, 4, 256, 16, 64
+    dt = getattr(torch, dtype)
+    q, k, v = (_t(rng.normal(size=s).astype(np.float32), dt)
+               for s in ((B, H, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    kpos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    kpos[1, 150:] = -1
+    qp, kp = _t(np.array([180, 149], np.int32)), _t(kpos)
+    ref = decode_attention_ref(q, k, v, qp, kp, window=win)
+    nb = S // bs
+    order = rng.permutation(B * nb).astype(np.int32)
+    kb, vb = (torch.zeros((B * nb, bs, Hkv, D), dtype=dt) for _ in range(2))
+    pb = torch.full((B * nb, bs), -1, dtype=torch.int32)
+    for b in range(B):
+        blocks = order[b * nb:(b + 1) * nb]
+        kb[blocks] = k[b].reshape(nb, bs, Hkv, D)
+        vb[blocks] = v[b].reshape(nb, bs, Hkv, D)
+        pb[blocks] = kp[b].reshape(nb, bs)
+    rows = _t(order.reshape(B, nb))
+    for ns in (None, 1, 3):
+        o = _decode(libs[1], q, k, v, qp, kp, win, nsplit=ns)
+        torch.testing.assert_close(o.float(), ref.float(), **_tol(dtype))
+        o = _paged(libs[2], q, kb, vb, pb, rows, qp, win, nsplit=ns)
+        torch.testing.assert_close(o.float(), ref.float(), **_tol(dtype))
+
+
 @pytest.mark.parametrize("ns", [1, 3, 5])
 def test_decode_source_window_across_ranges(libs, ns):
     """A 40-key sliding window whose live keys straddle the boundary of
@@ -766,6 +852,27 @@ def test_rope_source_vs_plain(libs, T, D, dtype):
         assert out.dtype == dt
         torch.testing.assert_close(
             out.float(), rope_ref(x, pos, theta=5e5,
+                                  inverse=inverse).float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,D,theta", [(4, 256, 1e6), (8, 64, 1e4)])
+def test_rope_source_family_shapes(libs, H, D, theta, dtype):
+    """The engine's RPE transform at gemma3-4b's heads (Hkv 4, D 256,
+    theta 1e6) and granite-moe-1b's (Hkv 8, D 64, theta 1e4): K of 3
+    layers x 40 tokens sharing one position vector within a 2.6k-token
+    layout span, applying and removing, fp32 at 3e-5 and bf16 at 3e-2."""
+    L, n = 3, 40
+    dt = getattr(torch, dtype)
+    tol = F32 if dtype == "float32" else dict(rtol=3e-2, atol=3e-2)
+    x, _ = _rope_inputs(D, L * n, H, D)
+    start = np.random.default_rng(D).integers(0, 2600 - n)
+    pos = _t(np.arange(start, start + n, dtype=np.int32))
+    x = _t(x, dt)
+    for inverse in (False, True):
+        out = _rope(libs[4], x, pos, theta, inverse)
+        torch.testing.assert_close(
+            out.float(), rope_ref(x, pos.repeat(L), theta=theta,
                                   inverse=inverse).float(), **tol)
 
 
