@@ -93,16 +93,36 @@ Phases (each prints its own line; any failure raises and exits non-zero):
     phi3.5-moe-42b-a6.6b at full width cut to 2 layers (its 32 are ~168
     GB in fp32), a 1024-token prefill and 8 decode steps, ``kernel``
     against ``dense`` (``run_families``);
-11. a ``kernels`` JSON line (launches on the main paths, error, times,
-    bound, the D 256 rows and each family's path shape beside them), the mamba2 and training figures,
-    per-engine TTFT / decode-step figures, the server's and the
-    families';
-12. last line: ``{"ok": true, "device": {...}}``.
+11. recurrent and vision (fp32, random weights from seed 0; the
+    reference's engine serves neither family, so the model roots):
+    recurrentgemma-9b at full width and depth (38 layers: 26 ``rglru``,
+    12 ``local`` with a 2048-key window), one 4096-token prompt (the
+    window masks pairs, the ring wraps): prefill on ``kernel``, ``auto``
+    and ``dense`` within 2e-3, 8 greedy decode steps on ``kernel``
+    against ``dense`` within 2e-3, the ring cache against a full-length
+    one within 1e-4, decode after the prefill against the prefill
+    extended by that token within 2e-3, prefill / decode step / one
+    full-width ``rglru_scan`` timed; llama-3.2-vision-90b at full width
+    cut to 5 of its 100 layers (one group, 4 ``attn`` + 1 ``xattn``),
+    its zero-initialised gates set nonzero from the seed, media [1, 1600,
+    8192] from the seed, prompts of 1024 tokens (dense cross-attention)
+    and 2048 (its blocked flash): prefill and 8 decode steps, ``kernel``
+    against ``dense`` within 2e-3, and the same run with the media
+    zeroed, a planted control, above 2e-3. Each model's chunk and decode
+    launches are counted (one per attention layer and call, exactly) and
+    both kernels held and timed on the recorded inputs of its most
+    frequent call shape (``run_recurrent_vision``);
+12. a ``kernels`` JSON line (launches on the main paths, error, times,
+    bound, the D 256 rows and each family's path shape beside them), the
+    mamba2 and training figures, per-engine TTFT / decode-step figures,
+    the server's, the families' and the recurrent and vision ones;
+13. last line: ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before the mamba2 phase, the training
-runs, the engine serving the trained checkpoint, engines A and B and
-each family's engine A, and read just after (rope and the attention
-kernels of engine A in A, paged decode in B); the comparison launches
+runs, the engine serving the trained checkpoint, engines A and B,
+each family's engine A and each counted run of phase 11, and read just
+after (rope and the attention kernels of engine A in A, paged decode in
+B); the comparison launches
 of phase 3 and the replays after the engines do not count. Without CUDA, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
 result.
@@ -1904,17 +1924,16 @@ def family_engines(tag, cfg, params, tmp, num_requests=12, kb_kw=None):
                 window_masked=masked, recorders=(cc, dc, rc))
 
 
-def measure_family_path(tag, cc, dc, rc):
-    """Each kernel a family's engine A ran, held against its plain version
-    and timed on the recorded inputs of A's first call at its most
-    frequent shape (``measure_chunk``, ``measure_decode``,
-    ``measure_rope``; these launches are not path launches). Returns
-    {kernel: {"shape", "calls", "float32", "bfloat16"}}."""
+def measure_family_path(tag, cc, dc, rc=None):
+    """Each kernel a family's run launched, held against its plain version
+    and timed on the recorded inputs of its first call at its most
+    frequent shape, the larger on a tie (``measure_chunk``,
+    ``measure_decode``, and ``measure_rope`` where ``rc`` recorded the
+    RPE path; these launches are not path launches). Returns {kernel:
+    {"shape", "calls", "float32", "bfloat16"}}."""
     ck = max(cc.shapes, key=lambda k: (cc.shapes[k], k))
     dk = dc.most_frequent("dense")
-    rk = rc.most_frequent()
     ci, di = cc.calls[ck], dc.calls[dk]
-    x, pos, theta = rc.calls[rk]
     B, A, H, D = ci["q"].shape
     S, Hkv = ci["k"].shape[1:3]
     out = {
@@ -1928,10 +1947,13 @@ def measure_family_path(tag, cc, dc, rc):
                   f"{di['window']}",
             calls=dc.shapes[dk],
             **measure_decode(f"{tag} path{list(dk[1:])}", di)),
-        "rope": dict(
-            shape=f"{list(rk[0])}, theta {theta:g}", calls=rc.shapes[rk],
-            **measure_rope(f"{tag} path", x, pos, theta)),
     }
+    if rc is not None:
+        rk = rc.most_frequent()
+        x, pos, theta = rc.calls[rk]
+        out["rope"] = dict(
+            shape=f"{list(rk[0])}, theta {theta:g}", calls=rc.shapes[rk],
+            **measure_rope(f"{tag} path", x, pos, theta))
     return out
 
 
@@ -2006,6 +2028,11 @@ def decode_agree(tag, cfg, params, caches, first, T, steps=8,
         + f" (tol {tol}; planted faults, which must exceed it: "
         f"{', '.join(controls) or 'none'})")
     return gaps
+
+
+def _clone_cache(c):
+    return {part: [{n: x.clone() for n, x in g.items()} for g in gs]
+            for part, gs in c.items()}
 
 
 def _params(cfg, dev, seed=0):
@@ -2085,11 +2112,7 @@ def run_families(dev, tmp):
     full = M.prefill(cfg, params, toks, attn_impl="kernel",
                      cache_len=T + 8, ring=False).cache
     first = outs["kernel"].logits[:, -1].argmax(-1).to(toks.dtype)
-
-    def clone(c):
-        return {part: [{n: x.clone() for n, x in g.items()} for g in gs]
-                for part, gs in c.items()}
-    ring2, lost = clone(ring), clone(ring)
+    ring2, lost = _clone_cache(ring), _clone_cache(ring)
     # the planted fault: each local layer's ring without its oldest live
     # key at the first decode step (position T - window + 1, in slot
     # (T + 1) % window), which is what a decode write one slot off does
@@ -2135,6 +2158,208 @@ def run_families(dev, tmp):
     _free()
     out["seconds"] = time.perf_counter() - t0
     log(f"families phase: {out['seconds']:.1f}s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the recurrent and vision families through the model roots
+# ---------------------------------------------------------------------------
+def _recorded_launches(run):
+    """Runs ``run()`` with the chunk and decode counts set to 0 just before
+    it and the calls recorded; returns its result, the launches and the
+    recorders."""
+    from repro_torch.kernels.chunk_attention import ops as cops
+    from repro_torch.kernels.decode_attention import ops as dops
+
+    cops.chunk_attention.launches = 0
+    dops.decode_attention.launches = 0
+    with ChunkRecorder(cops) as cc, DecodeRecorder(dops) as dc:
+        res = run()
+    return res, {"chunk_attention": cops.chunk_attention.launches,
+                 "decode_attention": dops.decode_attention.launches}, cc, dc
+
+
+def _expect_launches(tag, launches, want):
+    log(f"{tag}: kernel launches {json.dumps(launches)} (expected "
+        f"{json.dumps(want)})")
+    if launches != want:
+        raise RuntimeError(f"{tag}: launches {launches}, expected {want}")
+
+
+RG_TOKENS = 4096            # recurrentgemma-9b's prompt, twice its window
+VISION_LAYERS = 5           # llama-3.2-vision-90b cut to one group
+VISION_TOKENS = (1024, 2048)
+
+
+def run_recurrentgemma(dev):
+    """recurrentgemma-9b at full width and depth (38 layers: 26 rglru, 12
+    local with a 2048-key window, the tail of two rglru), fp32, one prompt
+    of RG_TOKENS tokens: prefill on kernel / auto / dense within
+    LOGIT_TOL, 8 greedy decode steps on kernel against dense within it
+    (the counted run), the ring cache against a full-length one within
+    RING_TOL, decode after the prefill against the prefill extended by
+    that token within LOGIT_TOL; the chunk and decode kernels on the
+    recorded inputs; prefill, decode step and one full-width rglru_scan
+    timed."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.training import steps as TS
+
+    tag = "recurrentgemma-9b"
+    cfg = get_config(tag)
+    params = _params(cfg, dev)
+    T, n_local = RG_TOKENS, cfg.layer_kinds.count("local")
+    toks = _prompt(cfg, T, dev)
+
+    def counted():
+        gaps, outs = prefill_agree(tag, cfg, params, toks, ["kernel", "auto"],
+                                   "dense", cache_len=T + 8)
+        del outs["auto"]
+        ring = outs["kernel"].cache
+        if ring["groups"][cfg.pattern.index("local")]["k"].shape[2] != \
+                cfg.window:
+            raise RuntimeError(f"{tag}: the local layers' cache is not a "
+                               f"ring of {cfg.window} slots")
+        first = outs["kernel"].logits[:, -1].argmax(-1).to(toks.dtype)
+        kept = _clone_cache(ring)
+        dgaps = decode_agree(tag, cfg, params,
+                             {"dense": (outs["dense"].cache, "dense"),
+                              "kernel": (ring, "kernel")}, first, T)
+        return gaps, dgaps, kept, first
+    (gaps, dgaps, ring, first), launches, cc, dc = _recorded_launches(counted)
+    # one chunk call per local layer, one decode call per local layer a step
+    _expect_launches(tag, launches, {"chunk_attention": n_local,
+                                     "decode_attention": 8 * n_local})
+    out = dict(prefill=gaps, decode=dgaps, launches=launches)
+    # decode after the prefill of T == the prefill of T + 1, last position
+    pos = torch.full((1,), T, dtype=torch.int32, device=dev)
+    step = M.decode_step(cfg, params, first, pos, _clone_cache(ring),
+                         attn_impl="kernel").logits[:, -1]
+    ext = M.prefill(cfg, params, torch.cat([toks, first[:, None]], 1),
+                    attn_impl="kernel", cache_len=T + 8).logits[:, -1]
+    out["extended"] = _max_diff(step, ext)
+    del ext
+    log(f"{tag}: decode after the {T}-token prefill vs the {T + 1}-token "
+        f"prefill's last position: max abs logit diff "
+        f"{out['extended']:.3e} (tol {LOGIT_TOL})")
+    if not out["extended"] <= LOGIT_TOL:
+        raise RuntimeError(f"{tag}: decode vs extended prefill "
+                           f"{out['extended']} > {LOGIT_TOL}")
+    full = M.prefill(cfg, params, toks, attn_impl="kernel", cache_len=T + 8,
+                     ring=False).cache
+    out["ring"] = decode_agree(f"{tag} ring vs full cache", cfg, params,
+                               {"full": (full, "kernel"),
+                                "ring": (_clone_cache(ring), "kernel")},
+                               first, T, tol=RING_TOL)["ring"]
+    del full
+    _free()
+    # times: the serving roots, and one full-width layer's scan
+    root = TS.make_prefill_step(cfg, "kernel")
+    out["prefill_ms"] = cuda_ms(lambda: root(params, {
+        "tokens": toks, "cache": M.init_cache(cfg, 1, T + 8, device=dev)}),
+        iters=3, warmup=1)
+    c = _clone_cache(ring)
+    out["decode_step_ms"] = cuda_ms(lambda: M.decode_step(
+        cfg, params, first, pos, c, attn_impl="kernel"), iters=10)
+    p = {n: params["groups"][0][n][0] for n in ("lam", "alpha", "beta")}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    b = torch.randn((1, T, cfg.rnn_width_), generator=gen, device=dev)
+    out["rglru_scan_ms"] = cuda_ms(lambda: L.rglru_scan(
+        b, p["lam"], p["alpha"], p["beta"]), iters=10)
+    log(f"{tag}: prefill {out['prefill_ms']:.1f} ms ({T} tokens, "
+        f"make_prefill_step, kernel), decode step "
+        f"{out['decode_step_ms']:.2f} ms, rglru_scan "
+        f"{out['rglru_scan_ms']:.3f} ms ([1, {T}, {cfg.rnn_width_}] fp32, "
+        f"{(T - 1).bit_length()} rounds)")
+    del params, ring, c, b
+    _free()
+    out["path"] = measure_family_path(tag, cc, dc)
+    return out
+
+
+def run_vision(dev):
+    """llama-3.2-vision-90b at full width cut to VISION_LAYERS layers (one
+    group: 4 attn + 1 xattn), fp32, the xattn gates set nonzero from the
+    seed (zero at init, where the layer adds nothing), media [1, 1600,
+    8192] from the seed. For each prompt of VISION_TOKENS (1024 x 1600
+    score elements take the dense cross-attention, 2048 x 1600 its blocked
+    flash): prefill on kernel against dense within LOGIT_TOL, 8 decode
+    steps reading the cached media K and V, kernel against dense (the
+    counted run); the planted control, the same run with the media zeroed,
+    must move the logits above LOGIT_TOL in the prefill and in decode."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    full = get_config("llama-3.2-vision-90b")
+    cfg = full.replace(num_layers=VISION_LAYERS)
+    tag = f"{cfg.name}/{VISION_LAYERS}"
+    log(f"{tag}: cut to {VISION_LAYERS} of {full.num_layers} layers "
+        f"({''.join(k[0] for k in cfg.layer_kinds)}; the full model is "
+        f"{full.param_count() * 4 / 1e9:.0f} GB in fp32)")
+    params = _params(cfg, dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    for g, kind in zip(params["groups"], cfg.pattern):
+        if kind == "xattn":
+            for n in ("gate_attn", "gate_ffn"):
+                g[n].copy_(0.5 + torch.rand(g[n].shape, generator=gen,
+                                            device=dev))
+    media = torch.randn((1, cfg.num_media_tokens, cfg.d_model),
+                        generator=gen, device=dev)
+    zero = torch.zeros_like(media)
+    n_attn = cfg.layer_kinds.count("attn")
+
+    def counted():
+        res = {}
+        for T in VISION_TOKENS:
+            toks = _prompt(cfg, T, dev)
+            gaps, outs = prefill_agree(f"{tag} {T}", cfg, params, toks,
+                                       ["kernel"], "dense", cache_len=T + 8,
+                                       media=media)
+            z = M.prefill(cfg, params, toks, attn_impl="dense",
+                          cache_len=T + 8, media=zero)
+            zgap = _max_diff(z.logits[:, -1],
+                             outs["dense"].logits[:, -1])
+            log(f"{tag} {T}: zeroed media moves the last position's logits "
+                f"by {zgap:.3e} (a planted fault, must exceed {LOGIT_TOL})")
+            if not zgap > LOGIT_TOL:
+                raise RuntimeError(f"{tag} {T}: zeroed media moved the "
+                                   "logits by no more than the bound")
+            first = outs["dense"].logits[:, -1].argmax(-1).to(toks.dtype)
+            dgaps = decode_agree(
+                f"{tag} {T}", cfg, params,
+                {"dense": (outs["dense"].cache, "dense"),
+                 "kernel": (outs["kernel"].cache, "kernel"),
+                 "zeroed media": (z.cache, "dense")},
+                first, T, controls=("zeroed media",))
+            res[T] = dict(prefill=gaps, zeroed_prefill=zgap, decode=dgaps)
+            del outs, z
+        return res
+    out, launches, cc, dc = _recorded_launches(counted)
+    # one chunk call per attn layer and prompt, one decode call per attn
+    # layer, prompt and step (the xattn layers run no kernel)
+    _expect_launches(tag, launches, {
+        "chunk_attention": len(VISION_TOKENS) * n_attn,
+        "decode_attention": 8 * len(VISION_TOKENS) * n_attn})
+    out["launches"] = launches
+    del params, media, zero
+    _free()
+    out["path"] = measure_family_path(tag, cc, dc)
+    return out
+
+
+def run_recurrent_vision(dev):
+    t0 = time.perf_counter()
+    out = {"recurrentgemma-9b": run_recurrentgemma(dev)}
+    out[f"llama-3.2-vision-90b/{VISION_LAYERS}"] = run_vision(dev)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"recurrent and vision phase: {out['seconds']:.1f}s")
     return out
 
 
@@ -2330,6 +2555,8 @@ def main() -> int:
         del params
         _free()
         families = run_families(dev, tmp)
+    # phase 11: the recurrent and vision families through the model roots
+    recvis = run_recurrent_vision(dev)
     # chunk_attention at the path's most frequent shape, on the inputs of
     # engine A's first call of that shape
     path_shape = hist[0][0]
@@ -2366,8 +2593,8 @@ def main() -> int:
     err_a = compare_logits("A(kernel)", tr_a, tok_a, tr_c, tok_c)
     err_b = compare_logits("B(paged_kernel)", tr_b, tok_b, tr_c, tok_c)
 
-    # phase 11: the kernels line, the mamba2, training, engine and family
-    # figures
+    # phase 12: the kernels line, the mamba2, training, engine, family and
+    # recurrent / vision figures
     sources = {
         "chunk_attention": (
             "src/repro_torch/kernels/chunk_attention/csrc/chunk_attention.cu",
@@ -2459,16 +2686,20 @@ def main() -> int:
     kernels[1]["shape_d256"] = "B 4, S 2048, H 8/4, D 256, window 1024"
     kernels[2]["shape_d256"] = ("NB 512, bs 16, B 4, NBmax 128, H 8/4, "
                                 "D 256, window 1024")
-    # each family's engine A: its launches, and the kernel held and timed
-    # on the recorded inputs of A's most frequent call shape
+    # each family's engine A (and the recurrent and vision model roots):
+    # its launches, and the kernel held and timed on the recorded inputs
+    # of its most frequent call shape
+    paths = {tag: families[tag] for tag in ("gemma3-4b",
+                                            "granite-moe-1b-a400m")}
+    paths.update({tag: v for tag, v in recvis.items() if tag != "seconds"})
     for row in kernels:
         fam = {}
-        for tag in ("gemma3-4b", "granite-moe-1b-a400m"):
-            r = families[tag]["path"].get(row["name"])
+        for tag, run in paths.items():
+            r = run["path"].get(row["name"])
             if r is None:
                 continue
             fam[tag] = dict(shape=r["shape"], calls_at_shape=r["calls"],
-                            launches=families[tag]["launches"][row["name"]])
+                            launches=run["launches"][row["name"]])
             for dt, sfx in (("float32", ""), ("bfloat16", "_bf16")):
                 fam[tag].update({f"{k}{sfx}": r[dt][k] for k in (
                     "err", "ms", "device_ms", "plain_ms", "library_ms",
@@ -2542,6 +2773,16 @@ def main() -> int:
         f"{long_gap:.3e}; gemma3-4b roots {families['gemma3-4b roots']}; "
         f"phi3.5-moe/2 {families['phi3.5-moe-42b-a6.6b/2']}; families "
         f"{families['seconds']:.1f}s")
+    rg = recvis["recurrentgemma-9b"]
+    log(f"recurrent and vision [{card}]: recurrentgemma-9b prefill "
+        f"{rg['prefill_ms']:.1f} ms ({RG_TOKENS} tokens), decode step "
+        f"{rg['decode_step_ms']:.2f} ms, rglru_scan {rg['rglru_scan_ms']:.3f} "
+        "ms; " + json.dumps({
+            tag: {k: v for k, v in r.items()
+                  if k not in ("path", "prefill_ms", "decode_step_ms",
+                               "rglru_scan_ms")}
+            for tag, r in recvis.items() if tag != "seconds"})
+        + f"; phase {recvis['seconds']:.1f}s")
     log(f"end-to-end vs dense: A max abs logit diff {err_a:.3e}, "
         f"B {err_b:.3e}; total {time.perf_counter() - t_all:.1f}s")
     log(card)    # nvidia-smi's name, power.limit line, verbatim

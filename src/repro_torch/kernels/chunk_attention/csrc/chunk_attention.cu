@@ -37,8 +37,15 @@
 //    has two dependent mma chains, not one. The chunk mass is a product
 //    too, mass += P . onehot(chunk): the one-hot matrix is exact in both
 //    types, and P enters as two terms (big + small) so the mass keeps fp32
-//    accuracy. Running max, sums and rescaling stay fp32 (exp2 of scores
-//    scaled by log2 e).
+//    accuracy. Each key tile's mass products go into an accumulator of
+//    their own, added to the running mass in fp32: accumulating every
+//    tile into the running sum on the tensor cores drifted low over a
+//    long row, while the denominator, summed on the CUDA cores, did not
+//    (at recurrentgemma-9b's 2048-key window with 16 heads on one KV
+//    head the mass, 16 in one chunk, read 9.5e-5 from the plain
+//    version's; test_chunk_cuda_mass_long_rows_unbiased holds it against
+//    an fp64 version). Running max, sums and rescaling stay fp32 (exp2
+//    of scores scaled by log2 e).
 //  * Registers, not shared memory, for S and P: each of the 4 warps owns
 //    16 query vectors; the Q.K^T accumulators become P in place and feed
 //    the P.V and mass products (the bf16 A fragment of P.V is the C
@@ -502,28 +509,42 @@ chunk_attention_kernel(ChunkParams p) {
           mma_m16n8k16_bf16(o[n], a, bb);
           mma_m16n8k16_bf16(o[n + 1], a, bb + 2);
         }
-        if (!keeps_mass) continue;
-        // mass: P = hi + lo, both bf16, against the exact one-hot
-        uint32_t alo[4];
+      }
+      // mass: P = hi + lo, both bf16, against the exact one-hot; the
+      // tile's sum in its own accumulator
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float* sx = e < 2 ? s0 : s1;
-          const int i0 = (e & 1) * 2;
-          const float h0 = __bfloat162float(__float2bfloat16(sx[i0]));
-          const float h1 = __bfloat162float(__float2bfloat16(sx[i0 + 1]));
-          alo[e] = pack_bf16(sx[i0] - h0, sx[i0 + 1] - h1);
-        }
-        const int c0 = kc[k0], c1 = kc[k0 + 1];
-        const int c8 = kc[k0 + 8], c9 = kc[k0 + 9];
+      for (int n = 0; n < CTM; ++n) {
+        if (!keeps_mass) break;
+        const int c = 8 * n + gi;
+        float tm[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int n = 0; n < CTM; ++n) {
-          const int c = 8 * n + gi;
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const float* s0 = s[2 * kk];
+          const float* s1 = s[2 * kk + 1];
+          const uint32_t a[4] = {pack_bf16(s0[0], s0[1]),
+                                 pack_bf16(s0[2], s0[3]),
+                                 pack_bf16(s1[0], s1[1]),
+                                 pack_bf16(s1[2], s1[3])};
+          uint32_t alo[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float* sx = e < 2 ? s0 : s1;
+            const int i0 = (e & 1) * 2;
+            const float h0 = __bfloat162float(__float2bfloat16(sx[i0]));
+            const float h1 =
+                __bfloat162float(__float2bfloat16(sx[i0 + 1]));
+            alo[e] = pack_bf16(sx[i0] - h0, sx[i0 + 1] - h1);
+          }
+          const int k0 = 16 * kk + 2 * ti;
           const uint32_t bb[2] = {
-              pack_u16(c0 == c ? ONE : 0, c1 == c ? ONE : 0),
-              pack_u16(c8 == c ? ONE : 0, c9 == c ? ONE : 0)};
-          mma_m16n8k16_bf16(ms[n], alo, bb);
-          mma_m16n8k16_bf16(ms[n], a, bb);
+              pack_u16(kc[k0] == c ? ONE : 0, kc[k0 + 1] == c ? ONE : 0),
+              pack_u16(kc[k0 + 8] == c ? ONE : 0,
+                       kc[k0 + 9] == c ? ONE : 0)};
+          mma_m16n8k16_bf16(tm, alo, bb);
+          mma_m16n8k16_bf16(tm, a, bb);
         }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ms[n][e] += tm[e];
       }
     } else {
       const float* vf = reinterpret_cast<const float*>(vt);
@@ -547,16 +568,28 @@ chunk_attention_kernel(ChunkParams p) {
           mma_m16n8k8_tf32(o[n], ab, bs);
           mma_m16n8k8_tf32(o[n], ab, bb);
         }
-        if (!keeps_mass) continue;
-        const int c0 = kc[k0], c1 = kc[k0 + 1];
+      }
+      // mass: P = big + small against the exact one-hot; the tile's sum
+      // in its own accumulator
 #pragma unroll
-        for (int n = 0; n < CTM; ++n) {
-          const int c = 8 * n + gi;
-          const uint32_t bb[2] = {c0 == c ? 0x3F800000u : 0u,
-                                  c1 == c ? 0x3F800000u : 0u};
-          mma_m16n8k8_tf32(ms[n], as, bb);
-          mma_m16n8k8_tf32(ms[n], ab, bb);
+      for (int n = 0; n < CTM; ++n) {
+        if (!keeps_mass) break;
+        const int c = 8 * n + gi;
+        float tm[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < NTK; ++j) {
+          const float af[4] = {s[j][0], s[j][2], s[j][1], s[j][3]};
+          uint32_t ab[4], as[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split_tf32(af[e], ab[e], as[e]);
+          const int k0 = 8 * j + 2 * ti;
+          const uint32_t bb[2] = {kc[k0] == c ? 0x3F800000u : 0u,
+                                  kc[k0 + 1] == c ? 0x3F800000u : 0u};
+          mma_m16n8k8_tf32(tm, as, bb);
+          mma_m16n8k8_tf32(tm, ab, bb);
         }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ms[n][e] += tm[e];
       }
     }
     __syncthreads();   // stage st is free again

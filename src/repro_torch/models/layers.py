@@ -1,14 +1,17 @@
-"""Layer primitives of the dense attention, sliding-window, MoE and
-Mamba2 families, in PyTorch.
+"""Layer primitives of every family of the reference's registry, in
+PyTorch.
 
-The ported subset of ``repro/models/layers.py``: RMS norm, RoPE
+The ported ``repro/models/layers.py``, but for its mesh-bound
+``gqa_attend_flash_cp`` (ROADMAP A10): RMS norm, RoPE
 (apply and remove), position masks with segment ids, the dense GQA
 attention oracle with the Cache-Craft chunk-mass statistic, the blocked
 flash attention of long prompts (with its balanced ``causal_skip``
 schedule), one-token decode attention, the SwiGLU FFN, the GShard MoE FFN
-with its load-balancing loss, and the Mamba2 pieces (causal depthwise
-conv, chunked SSD prefill through the ``ssd_intra`` kernel and its
-differentiable training route, one-step SSD decode). Every function
+with its load-balancing loss, Griffin's RG-LRU recurrence (a log-step
+scan over the sequence and the one-token step), and the Mamba2 pieces
+(causal depthwise conv, chunked SSD prefill through the ``ssd_intra``
+kernel and its differentiable training route, one-step SSD decode).
+Every function
 keeps the JAX signature and layout (``[B, T, H, D]``), so the tests feed
 both packages the same numpy arrays and compare like with like.
 
@@ -297,7 +300,52 @@ def moe_aux_loss(probs, num_experts: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Mamba2
+# Griffin RG-LRU recurrent block (recurrentgemma)
+# ---------------------------------------------------------------------------
+_RGLRU_C = 8.0
+
+
+def _rglru_coeffs(b, lam, alpha, beta):
+    """Per-step decay ``a`` and input ``u`` of h_t = a_t h_{t-1} + u_t."""
+    r = torch.sigmoid(alpha * b)
+    i = torch.sigmoid(beta * b)
+    log_a = -_RGLRU_C * F.softplus(lam) * r
+    a = torch.exp(log_a)
+    u = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * \
+        (i * b)
+    return a, u
+
+
+def rglru_scan(b, lam, alpha, beta, h0=None):
+    """b [B,S,R] -> (y [B,S,R] in b's dtype, h_last [B,R] fp32), computed
+    in fp32. The linear recurrence runs as a Hillis-Steele scan over the
+    time axis: ceil(log2 S) rounds of whole-tensor ops, each combining
+    step t with step t - k (k = 1, 2, 4, ...), differentiable by autograd.
+    The reference's ``associative_scan`` combines in another tree order,
+    so the two agree to rounding, not bit for bit."""
+    a, u = _rglru_coeffs(b.float(), lam, alpha, beta)
+    if h0 is not None:
+        u = torch.cat([u[:, :1] + a[:, :1] * h0[:, None].float(), u[:, 1:]],
+                      dim=1)
+    S, k = b.shape[1], 1
+    while k < S:
+        # (a1, u1) then (a2, u2) -> (a1 a2, a2 u1 + u2), step t - k first
+        u = torch.cat([u[:, :k], a[:, k:] * u[:, :-k] + u[:, k:]], dim=1)
+        if 2 * k < S:           # the last round needs no decays
+            a = torch.cat([a[:, :k], a[:, k:] * a[:, :-k]], dim=1)
+        k *= 2
+    return u.to(b.dtype), u[:, -1]
+
+
+def rglru_step(b, lam, alpha, beta, h):
+    """One decode step: b [B,R], h [B,R] fp32 -> (y in b's dtype, h)."""
+    a, u = _rglru_coeffs(b.float(), lam, alpha, beta)
+    h = a * h + u
+    return h.to(b.dtype), h
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (the causal conv is Griffin's too)
 # ---------------------------------------------------------------------------
 def causal_conv1d(x, w, state=None):
     """x [B,S,R], w [W,R]; returns (y, new_state [B,W-1,R]): the last W-1

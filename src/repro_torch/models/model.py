@@ -1,7 +1,8 @@
-"""Decoder stack of the attention families (global ``attn`` and
-sliding-window ``local`` layers, each with a SwiGLU or MoE FFN) and the
-Mamba2 family (``ssd``), in PyTorch, with the reference's four execution
-modes:
+"""Decoder stack of every family of the reference's registry, in
+PyTorch: global ``attn`` and sliding-window ``local`` attention layers,
+Griffin's ``rglru`` recurrence and the gated cross-attention ``xattn``
+(each with a SwiGLU or MoE FFN), and Mamba2's ``ssd``. The reference's
+four execution modes:
 
   mode="prefill"  full forward, returns per-layer KV cache (+ the
                   Cache-Craft attention statistics when requested)
@@ -29,7 +30,11 @@ of ``init_cache`` / ``prefill``): prefill keeps the last ``window`` tokens
 at slot ``pos % window`` and decode writes there too; the serving engine
 holds ``local`` layers at full length and applies the window by the mask.
 An ``ssd`` layer's cache is its running state ``s`` and the last ``W-1``
-conv inputs. The
+conv inputs, an ``rglru`` layer's its state ``h`` and the last ``W-1``
+conv inputs (both read back only in decode: a partial pass carries the
+state and restarts the conv window from zeros, as the reference does),
+and an ``xattn`` layer's the media's K and V (``mk``, ``mv``), written
+by any pass given ``media`` and read by the others. The
 reference donates caches to its jitted steps; here the cache tensors are
 updated IN PLACE (``index_put_`` / ``copy_`` into views of the stacked
 leaves) and the returned cache shares storage with the one passed in.
@@ -57,12 +62,12 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[str(name)]
 
 
+KINDS = ("attn", "local", "xattn", "rglru", "ssd")
+
+
 def _check_kind(kind: str):
-    if kind not in ("attn", "local", "ssd"):
-        raise NotImplementedError(
-            f"layer kind {kind!r} is not ported to repro_torch yet "
-            "(ROADMAP A8); the port runs the attention (attn, local) and "
-            "Mamba2 (ssd) families")
+    if kind not in KINDS:
+        raise ValueError(f"unknown layer kind {kind!r}; known: {KINDS}")
 
 
 # ---------------------------------------------------------------------------
@@ -83,20 +88,42 @@ def _ssd_defs(cfg: ModelConfig) -> Dict[str, tuple]:
     }
 
 
+def _rglru_defs(cfg: ModelConfig) -> Dict[str, tuple]:
+    d, r, w = cfg.d_model, cfg.rnn_width_, cfg.conv_width
+    return {
+        "ln1": ((d,), "zero"),
+        "wx": ((d, r), "fan_in"),
+        "wy": ((d, r), "fan_in"),
+        "conv": ((w, r), "fan_in"),
+        "lam": ((r,), "rglru_lambda"),
+        "alpha": ((r,), "one"),
+        "beta": ((r,), "one"),
+        "wo_r": ((r, d), "fan_in"),
+    }
+
+
 def _layer_defs(cfg: ModelConfig, kind: str) -> Dict[str, tuple]:
     _check_kind(kind)
     if kind == "ssd":
         return _ssd_defs(cfg)
     d, h, hkv, dh, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                         cfg.head_dim_, cfg.d_ff)
-    defs = {
-        "ln1": ((d,), "zero"),
-        "wq": ((d, h, dh), "fan_in"),
-        "wk": ((d, hkv, dh), "fan_in"),
-        "wv": ((d, hkv, dh), "fan_in"),
-        "wo": ((h, dh, d), "fan_in2"),
-        "ln2": ((d,), "zero"),
-    }
+    if kind == "rglru":
+        defs = _rglru_defs(cfg)
+    else:
+        defs = {
+            "ln1": ((d,), "zero"),
+            "wq": ((d, h, dh), "fan_in"),
+            "wk": ((d, hkv, dh), "fan_in"),
+            "wv": ((d, hkv, dh), "fan_in"),
+            "wo": ((h, dh, d), "fan_in2"),
+        }
+    if kind == "xattn":
+        # tanh gates on the cross-attention and its FFN, zero at init: the
+        # layer starts as the identity
+        defs["gate_attn"] = ((), "zero")
+        defs["gate_ffn"] = ((), "zero")
+    defs["ln2"] = ((d,), "zero")
     if cfg.num_experts:
         e = cfg.num_experts
         # the reference's fan-in for "fan_in" is shape[0]: E for the
@@ -122,6 +149,10 @@ def _init_leaf(gen, shape, init, dtype, device, lead=()):
         u = torch.rand(full, generator=gen, dtype=torch.float32,
                        device=device)
         return torch.log(1.0 + 7.0 * u).to(dtype)
+    if init == "rglru_lambda":   # softplus(lam) = -log(u) / c: a = u^r
+        u = 0.35 + 0.3 * torch.rand(full, generator=gen, dtype=torch.float32,
+                                    device=device)
+        return torch.log(torch.expm1(-torch.log(u) / L._RGLRU_C)).to(dtype)
     fan_in = shape[0] if init == "fan_in" else int(np.prod(shape[:2]))
     out = torch.randn(full, generator=gen, dtype=torch.float32,
                       device=device)
@@ -135,8 +166,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
     minutes to create on the host). Same distributions as the reference
     (``N(0, 1/fan_in)`` projections, ``N(0, 0.02)`` embedding, zero norm
     weights; for ``ssd`` layers ``A_log = log U(1, 8)``, ``D = 1``, zero
-    ``dt_bias``), not the same numbers: tests that compare the two
-    packages go through ``params_from_jax``."""
+    ``dt_bias``; for ``rglru`` layers ``lam = log(expm1(-log(u) / 8))``
+    with u ~ U(0.35, 0.65), so that softplus(lam) = -log(u) / 8, and
+    ``alpha = beta = 1``; for ``xattn`` layers the 0-d gates
+    ``gate_attn`` and ``gate_ffn`` at zero, which makes the layer the
+    identity until they are trained), not the same numbers: tests that
+    compare the two packages go through ``params_from_jax``."""
     device = generator.device
     dtype = torch_dtype(cfg.param_dtype)
     d, vp = cfg.d_model, cfg.padded_vocab
@@ -214,6 +249,18 @@ def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int,
                                         cfg.d_inner), dtype=dtype,
                                 device=device),
         }
+    if kind == "rglru":
+        r = cfg.rnn_width_
+        return {
+            "h": torch.zeros(lead + (batch, r), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros(lead + (batch, cfg.conv_width - 1, r),
+                                dtype=dtype, device=device),
+        }
+    if kind == "xattn":
+        m = cfg.num_media_tokens
+        return {n: torch.zeros(lead + (batch, m, hkv, dh), dtype=dtype,
+                               device=device) for n in ("mk", "mv")}
     seq_len = _kv_len(cfg, kind, seq_len, ring)
     return {
         "k": torch.zeros(lead + (batch, seq_len, hkv, dh), dtype=dtype,
@@ -249,6 +296,7 @@ class Ctx:
     cfg: ModelConfig
     mode: str                      # train | prefill | partial | decode
     positions: torch.Tensor        # [B,T] positions of the carried tokens
+    media: Optional[torch.Tensor] = None       # [B,M,d] xattn memory
     chunk_ids: Optional[torch.Tensor] = None   # [B,S] per-key chunk id
     collect_stats: bool = False
     attn_impl: str = "auto"        # backend name, see backend.BACKENDS
@@ -356,6 +404,38 @@ def _self_attention(ctx: Ctx, kind: str, p, x, state):
     return out, new_state, row_mass, key_mass
 
 
+def _cross_attention(ctx: Ctx, p, x, state):
+    """Gated cross-attention to the media (no RoPE, no mask): a pass
+    given ``media`` projects its K and V (and stores them in the cache,
+    when there is one), any other pass reads them from the cache. Dense
+    up to 2^21 score elements, blocked flash past them, as the
+    reference. Returns ``tanh(gate_attn)`` x the attention output."""
+    q = _proj(x, p["wq"])
+    if ctx.mode in ("train", "prefill", "partial") and \
+            ctx.media is not None:
+        mk = _proj(ctx.media, p["wk"])
+        mv = _proj(ctx.media, p["wv"])
+        if state is not None:
+            state["mk"].copy_(mk)
+            state["mv"].copy_(mv)
+    else:
+        mk, mv = state["mk"], state["mv"]
+    B, Tq = q.shape[:2]
+    M = mk.shape[1]
+    if Tq * M <= (1 << 21):
+        mask = torch.ones((B, Tq, M), dtype=torch.bool, device=q.device)
+        out = L.gqa_attend_dense(q, mk, mv, mask)[0]
+    else:
+        # every (query, key) pair live: query positions 1, key positions 0
+        out = L.gqa_attend_flash(
+            q, mk, mv, torch.ones((B, Tq), dtype=torch.int32, device=q.device),
+            torch.zeros((B, M), dtype=torch.int32, device=q.device))
+    H, D = out.shape[2:]
+    out = (out.reshape(B * Tq, H * D) @ p["wo"].reshape(H * D, -1)).reshape(
+        B, Tq, -1)
+    return torch.tanh(p["gate_attn"]) * out, state
+
+
 def _ffn(ctx: Ctx, p, x):
     """SwiGLU, or the MoE FFN with its load-balancing loss: (out, aux);
     aux is the number 0.0 without experts (no device work for it)."""
@@ -366,6 +446,32 @@ def _ffn(ctx: Ctx, p, x):
                                capacity_factor=cfg.capacity_factor)
         return out, L.moe_aux_loss(probs, cfg.num_experts)
     return L.swiglu(x, p["wi"], p["wo_ff"]), 0.0
+
+
+def _rglru_block(ctx: Ctx, p, x, state):
+    """Griffin recurrent block: a GeLU gate times the RG-LRU over the
+    causal conv of the input branch. As in the reference, the conv state
+    is read only in decode (a partial pass restarts the conv window from
+    zeros), the recurrent state ``h`` in decode and partial. A cache,
+    when given, is written in place."""
+    gate = F.gelu(_proj(x, p["wy"]), approximate="tanh")
+    b = _proj(x, p["wx"])
+    conv_state = state["conv"] if (state is not None and
+                                   ctx.mode == "decode") else None
+    b, new_conv = L.causal_conv1d(b, p["conv"], conv_state)
+    if ctx.mode == "decode":
+        y, h = L.rglru_step(b[:, 0], p["lam"], p["alpha"], p["beta"],
+                            state["h"])
+        y = y[:, None]
+    else:
+        h0 = state["h"] if (state is not None and ctx.mode == "partial") \
+            else None
+        y, h = L.rglru_scan(b, p["lam"], p["alpha"], p["beta"], h0)
+    out = _proj(gate * y, p["wo_r"])
+    if state is not None:
+        state["h"].copy_(h)
+        state["conv"].copy_(new_conv)
+    return out, state
 
 
 def _ssd_block(ctx: Ctx, p, x, state):
@@ -413,13 +519,20 @@ def apply_block(ctx: Ctx, kind: str, p, h, state):
     if kind == "ssd":                   # no FFN, no attention statistics
         out, state = _ssd_block(ctx, p, x, state)
         return h + out, state, row_mass, key_mass, 0.0
-    out, state, rm, km = _self_attention(ctx, kind, p, x, state)
-    if rm is not None:
-        row_mass = rm
-    if km is not None and km.shape == key_mass.shape:
-        key_mass = km
+    if kind == "xattn":
+        out, state = _cross_attention(ctx, p, x, state)
+    elif kind == "rglru":
+        out, state = _rglru_block(ctx, p, x, state)
+    else:
+        out, state, rm, km = _self_attention(ctx, kind, p, x, state)
+        if rm is not None:
+            row_mass = rm
+        if km is not None and km.shape == key_mass.shape:
+            key_mass = km
     h = h + out
     y, aux = _ffn(ctx, p, L.rms_norm(h, p["ln2"], cfg.norm_eps))
+    if kind == "xattn":
+        y = torch.tanh(p["gate_ffn"]) * y
     return h + y, state, row_mass, key_mass, aux
 
 
@@ -527,6 +640,7 @@ def run_stack(cfg: ModelConfig, params: Params, h: torch.Tensor, ctx: Ctx,
 def forward(cfg: ModelConfig, params: Params, *,
             tokens: Optional[torch.Tensor] = None,
             embeds: Optional[torch.Tensor] = None,
+            media: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
             mode: str = "train",
             cache: Optional[dict] = None,
@@ -542,11 +656,14 @@ def forward(cfg: ModelConfig, params: Params, *,
             paged_block_size: int = 0,
             logits_slice: str = "all") -> ModelOutput:
     """``embeds`` [B,T,d] (musicgen's ``input_mode="embeds"``: frame
-    embeddings from a stub frontend) replaces the token embedding."""
+    embeddings from a stub frontend) replaces the token embedding;
+    ``media`` [B,M,d] (the vision model's patch embeddings from a stub
+    frontend) is what ``xattn`` layers attend to."""
+    dtype = torch_dtype(cfg.dtype)
     if embeds is None:
         h = embed_tokens(cfg, params, tokens)
     else:
-        h = embeds.to(torch_dtype(cfg.dtype))
+        h = embeds.to(dtype)
     if h.dim() == 2:
         h = h[:, None]
     B, T = h.shape[:2]
@@ -554,6 +671,7 @@ def forward(cfg: ModelConfig, params: Params, *,
         positions = torch.arange(T, dtype=torch.int32,
                                  device=h.device).expand(B, T)
     ctx = Ctx(cfg=cfg, mode=mode, positions=positions,
+              media=None if media is None else media.to(dtype),
               chunk_ids=chunk_ids, collect_stats=collect_stats,
               attn_impl=attn_impl, decode_slot=decode_slot,
               slots=slots, seg_ids=seg_ids, kv_seg=kv_seg,
@@ -572,21 +690,22 @@ def forward(cfg: ModelConfig, params: Params, *,
 def prefill(cfg, params, tokens=None, positions=None, chunk_ids=None,
             collect_stats=False, attn_impl="auto",
             cache_len: Optional[int] = None, embeds=None,
-            ring: bool = True):
+            ring: bool = True, media=None):
     """Full prefill into a fresh cache of ``cache_len`` (default T) slots;
     ``ring`` as in ``init_cache``."""
     B, T = (tokens if tokens is not None else embeds).shape[:2]
     cache = init_cache(cfg, B, cache_len or T,
                        device=params_device(params), ring=ring)
-    return forward(cfg, params, tokens=tokens, embeds=embeds,
+    return forward(cfg, params, tokens=tokens, embeds=embeds, media=media,
                    positions=positions, mode="prefill", cache=cache,
                    chunk_ids=chunk_ids, collect_stats=collect_stats,
                    attn_impl=attn_impl)
 
 
 def partial_prefill(cfg, params, tokens, positions, cache, chunk_ids=None,
-                    collect_stats=False, attn_impl="auto", embeds=None):
-    return forward(cfg, params, tokens=tokens, embeds=embeds,
+                    collect_stats=False, attn_impl="auto", embeds=None,
+                    media=None):
+    return forward(cfg, params, tokens=tokens, embeds=embeds, media=media,
                    positions=positions, mode="partial", cache=cache,
                    chunk_ids=chunk_ids, collect_stats=collect_stats,
                    attn_impl=attn_impl)

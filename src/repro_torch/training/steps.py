@@ -13,10 +13,9 @@ parallel ranks comes with the distributed port (ROADMAP A10).
 
 The serving roots are plain closures ``(params, batch) -> (logits,
 cache)`` over ``models.model``: ``batch`` holds ``tokens`` (or
-``embeds``, for a config with ``input_mode="embeds"``), ``positions``
-(optional for the full prefill) and ``cache``, which is updated in
-place. The reference's ``media`` input comes with the cross-attention
-family (ROADMAP A8).
+``embeds``, for a config with ``input_mode="embeds"``), ``media`` for a
+config with cross-attention layers, ``positions`` (optional for the full
+prefill) and ``cache``, which is updated in place.
 """
 from __future__ import annotations
 
@@ -92,9 +91,11 @@ def state_from_jax(cfg: ModelConfig, np_tree: dict, device) -> TrainState:
 def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     """Next-token CE on fp32 logits (labels shifted by the data pipeline;
     labels < 0 are masked), plus ``MOE_AUX_COEF`` x the MoE aux loss.
-    The inputs are ``batch["tokens"]`` or ``batch["embeds"]``."""
+    The inputs are ``batch["tokens"]`` or ``batch["embeds"]``, and
+    ``batch["media"]`` where the config has cross-attention layers."""
     out = M.forward(cfg, params, tokens=batch.get("tokens"),
-                    embeds=batch.get("embeds"), mode="train")
+                    embeds=batch.get("embeds"), media=batch.get("media"),
+                    mode="train")
     logits = out.logits.float()
     labels = batch["labels"].long()
     logp = F.log_softmax(logits, dim=-1)
@@ -157,7 +158,7 @@ def make_prefill_step(cfg: ModelConfig, attn_impl: str = "auto"):
 
     def prefill_step(params, batch):
         out = M.forward(cfg, params, tokens=batch.get("tokens"),
-                        embeds=batch.get("embeds"),
+                        embeds=batch.get("embeds"), media=batch.get("media"),
                         positions=batch.get("positions"), mode="prefill",
                         cache=batch["cache"], attn_impl=attn_impl,
                         logits_slice="last")
@@ -171,7 +172,7 @@ def make_cachecraft_prefill_step(cfg: ModelConfig, attn_impl: str = "auto"):
 
     def step(params, batch):
         out = M.forward(cfg, params, tokens=batch.get("tokens"),
-                        embeds=batch.get("embeds"),
+                        embeds=batch.get("embeds"), media=batch.get("media"),
                         positions=batch["positions"], mode="partial",
                         cache=batch["cache"], attn_impl=attn_impl,
                         logits_slice="last")

@@ -17,16 +17,27 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """Import repro_torch and EVERY submodule in a fresh interpreter, then
-    check that neither jax nor any module of the reference package got
-    loaded (module-level imports only; nothing is built or launched)."""
+    """Import repro_torch and EVERY submodule in a fresh interpreter, and
+    chip_smoke.py, then check that neither jax nor any module of the
+    reference package got loaded (module-level imports only; nothing is
+    built or launched). chip_smoke.py imports inside its functions, so
+    every import statement in it is read too."""
     code = textwrap.dedent("""
-        import importlib, pkgutil, sys
+        import ast, importlib, pkgutil, sys
         import repro_torch
         names = [m.name for m in pkgutil.walk_packages(
             repro_torch.__path__, "repro_torch.")]
         for n in names:
             importlib.import_module(n)
+        sys.path.insert(0, ROOT)
+        import chip_smoke
+        tree = ast.parse(open(chip_smoke.__file__).read())
+        mods = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names}
+        mods |= {n.module for n in ast.walk(tree)
+                 if isinstance(n, ast.ImportFrom) and n.module}
+        assert "repro_torch.models" in mods, sorted(mods)
+        assert not [m for m in mods if m.split(".")[0] in ("jax", "repro")]
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "repro" or m.startswith("repro.")
@@ -50,12 +61,16 @@ def test_port_imports_no_jax_and_no_reference():
                      "repro_torch.configs.llama3_2_3b",
                      "repro_torch.configs.deepseek_7b",
                      "repro_torch.configs.deepseek_67b",
-                     "repro_torch.configs.musicgen_medium"):
+                     "repro_torch.configs.musicgen_medium",
+                     "repro_torch.configs.recurrentgemma_9b",
+                     "repro_torch.configs.llama3_2_vision_90b",
+                     "repro_torch.core.select"):
             assert must in sys.modules, must
         print(len(names))
     """)
     env = dict(os.environ, PYTHONPATH=SRC)
     env.pop("JAX_PLATFORMS", None)
+    code = code.replace("ROOT", repr(os.path.dirname(SRC)))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -106,10 +121,24 @@ def test_unported_backends_name_roadmap_item(impl, item):
 
 @pytest.mark.parametrize("kind", ["xattn", "rglru"])
 def test_other_layer_families_not_ported(kind):
+    """The two families that were the port's last gap (the name is kept
+    from when they raised): each now initialises, holds its cache and
+    runs a prefill inside an attention model; only a kind the reference
+    lacks is refused."""
     from repro_torch.models import model as M
-    cfg = get_tiny("llama3-8b").replace(pattern=("attn", kind))
-    with pytest.raises(NotImplementedError, match=f"{kind}.*A8"):
-        M.init_params(cfg, torch.Generator().manual_seed(0))
+    cfg = get_tiny("llama3-8b").replace(pattern=("attn", kind),
+                                        num_media_tokens=8)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    media = torch.randn(1, 8, cfg.d_model) if kind == "xattn" else None
+    out = M.prefill(cfg, params, torch.zeros((1, 16), dtype=torch.int32),
+                    media=media)
+    assert bool(torch.isfinite(out.logits).all())
+    leaf = out.cache["groups"][1]
+    assert sorted(leaf) == (["mk", "mv"] if kind == "xattn"
+                            else ["conv", "h"])
+    bad = cfg.replace(pattern=("attn", "lstm"))
+    with pytest.raises(ValueError, match="lstm"):
+        M.init_params(bad, torch.Generator().manual_seed(0))
 
 
 def test_ssd_layer_family_ported():

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.chunk_attention import ops as cops
+from repro_torch.kernels.chunk_attention.ref import chunk_attention_ref
 from repro_torch.kernels.decode_attention import ops as dops
 from repro_torch.kernels.rope import ops as rops
 from repro_torch.kernels.ssd import ops as sops
@@ -342,6 +343,125 @@ def test_decode_cuda_head_dim_256_g2_full_width(counts, dtype):
     assert dops.paged_decode_attention.launches == 1
     np.testing.assert_allclose(_np(o), _np(r), **tol)
     np.testing.assert_allclose(_np(op), _np(r), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunk_cuda_g16_head_dim_256_mqa_full_width(counts, dtype):
+    """recurrentgemma-9b's local layers: 16 query heads on one KV head
+    (64 query vectors per CTA are 4 positions x 16 heads, the chunk mass
+    of one KV head), D 256, A 512 rows over S 4096 keys, the 2048-key
+    window; two launches give the same bytes."""
+    dev = _need_cuda()
+    dt = getattr(torch, dtype)
+    A, S, H, Hkv, D, C, win = 512, 4096, 16, 1, 256, 16, 2048
+    ins = _chunk_inputs(1616, A, S, H, Hkv, D, C)
+    td = _t(*ins, device=dev, dtype=dt)
+    o, m = cops.chunk_attention(*td, num_chunks=C, window=win)
+    o2, m2 = cops.chunk_attention(*td, num_chunks=C, window=win)
+    torch.cuda.synchronize()
+    assert cops.chunk_attention.launches == 2
+    assert torch.equal(o, o2) and torch.equal(m, m2)
+    orf, mrf = cops.chunk_attention(*_t(*ins, dtype=dt), num_chunks=C,
+                                    window=win)
+    tol = F32 if dt == torch.float32 else BF16
+    np.testing.assert_allclose(_np(o), _np(orf), **tol)
+    np.testing.assert_allclose(_np(m), _np(mrf), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [1, 16])
+def test_chunk_cuda_mass_long_rows_unbiased(counts, chunks):
+    """recurrentgemma-9b's prefill shape (A = S = 4096 positions, H 16 /
+    Hkv 1, D 256, the 2048-key window), fp32, keys in one chunk (the
+    mass is then 16 in every live row) or in 16: the chunk mass within
+    3e-5 of an fp64 version and of the plain one, and unbiased (its mean
+    error within 1e-6). A running mass that took every tile's products
+    on the tensor cores drifted low over the 64 tiles of a row."""
+    dev = _need_cuda()
+    rng = np.random.default_rng(4096 + chunks)
+    A, H, Hkv, D, C, win = 4096, 16, 1, 256, 16, 2048
+    q = rng.normal(size=(A, H, D)).astype(np.float32)
+    k = rng.normal(size=(A, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(A, Hkv, D)).astype(np.float32)
+    pos = np.arange(A, dtype=np.int32)
+    kch = (pos * chunks // A).astype(np.int32)
+    td = _t(q, k, v, pos, pos, kch, device=dev)
+    o, m = cops.chunk_attention(*td, num_chunks=C, window=win)
+    _, mp = chunk_attention_ref(*td, num_chunks=C, window=win)
+    torch.cuda.synchronize()
+    assert cops.chunk_attention.launches == 1
+    qd, kd = (torch.from_numpy(x).to(dev, torch.float64) for x in (q, k))
+    s = torch.einsum("ahd,shd->has", qd, kd.expand(A, H, D)) / np.sqrt(D)
+    pt = torch.from_numpy(pos).to(dev)
+    live = (pt[:, None] >= pt[None]) & (pt[:, None] - pt[None] < win)
+    p = torch.softmax(s.masked_fill(~live[None], -np.inf), -1)
+    onehot = torch.nn.functional.one_hot(td[5].long(), C).double()
+    m64 = torch.einsum("has,sc->ac", p, onehot)
+    err = (m.double() - m64)
+    assert float(err.abs().max()) <= 3e-5, float(err.abs().max())
+    assert abs(float(err.mean())) <= 1e-6, float(err.mean())
+    np.testing.assert_allclose(_np(m), _np(mp), rtol=0, atol=3e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_cuda_gd_4096_full_width(counts, dtype):
+    """recurrentgemma-9b's decode: G 16 x D 256 = 4096 outputs per CTA,
+    the wrapper's limit, over a ring of S 2048 slots on one KV head with
+    the 2048-key window, B 2; past the limit the wrapper raises."""
+    dev = _need_cuda()
+    dt = getattr(torch, dtype)
+    B, S, H, Hkv, D, win = 2, 2048, 16, 1, 256, 2048
+    assert (H // Hkv) * D == dops._MAX_GD
+    q, k, v, _qp, kpos = _decode_inputs(4096, B, S, H, Hkv, D)
+    kpos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    kpos[1] += S                       # the ring after it wrapped once
+    qpos = np.array([S - 1, 2 * S - 1], np.int32)
+    r = dops.decode_attention(*_t(q, k, v, qpos, kpos, dtype=dt),
+                              window=win)
+    o = dops.decode_attention(*_t(q, k, v, qpos, kpos, device=dev,
+                                  dtype=dt), window=win)
+    o2 = dops.decode_attention(*_t(q, k, v, qpos, kpos, device=dev,
+                                   dtype=dt), window=win)
+    torch.cuda.synchronize()
+    assert dops.decode_attention.launches == 2 and torch.equal(o, o2)
+    tol = F32 if dt == torch.float32 else BF16
+    np.testing.assert_allclose(_np(o), _np(r), **tol)
+    q2 = np.concatenate([q, q], axis=1)            # G 32: 8192 outputs
+    with pytest.raises(ValueError, match="outputs per CTA"):
+        dops.decode_attention(*_t(q2, k, v, qpos, kpos, device=dev,
+                                  dtype=dt), window=win)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_scan_cuda_vs_cpu(dtype):
+    """The RG-LRU's log-step scan (tensor ops, no kernel of its own) on
+    the card against the same call on the CPU, with a carried state: the
+    fp32 state within 1e-5, the output within 1e-5 in fp32 and one bf16
+    step in bf16."""
+    dev = _need_cuda()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(17)
+    R = 512
+    b = rng.normal(size=(2, 257, R)).astype(np.float32)
+    lam = np.log(np.expm1(-np.log(rng.uniform(0.35, 0.65, R)) / 8.0))
+    alpha, beta = 1 + 0.3 * rng.normal(size=(2, R))
+    h0 = rng.normal(size=(2, R))
+    outs = []
+    for device in ("cpu", dev):
+        tb, tl, ta, tbt, th = _t(b, lam.astype(np.float32),
+                                 alpha.astype(np.float32),
+                                 beta.astype(np.float32),
+                                 h0.astype(np.float32), device=device)
+        outs.append(TL.rglru_scan(tb.to(dt), tl, ta, tbt, th))
+    (yc, hc), (yg, hg) = outs
+    assert yg.dtype == dt and hg.dtype == torch.float32
+    np.testing.assert_allclose(_np(hg), _np(hc), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        _np(yg), _np(yc), **(dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
+                             else dict(rtol=2.0 ** -7, atol=1e-6)))
 
 
 @pytest.mark.cuda
