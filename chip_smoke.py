@@ -112,17 +112,42 @@ Phases (each prints its own line; any failure raises and exits non-zero):
     launches are counted (one per attention layer and call, exactly) and
     both kernels held and timed on the recorded inputs of its most
     frequent call shape (``run_recurrent_vision``);
-12. a ``kernels`` JSON line (launches on the main paths, error, times,
-    bound, the D 256 rows and each family's path shape beside them), the
-    mamba2 and training figures, per-engine TTFT / decode-step figures,
-    the server's, the families' and the recurrent and vision ones;
-13. last line: ``{"ok": true, "device": {...}}``.
+12. serving mesh (run after phase 9, while llama3-8b's weights are
+    loaded; ``run_mesh``): a serving mesh of 4 head shards, all on the
+    card (``launch.mesh.make_serving_mesh(4, device="cuda")``); engine C
+    with ``mesh=`` (forced to ``sharded``: the dense oracle once per head
+    shard, a head-sharded pool) against engine C: tokens and plans
+    identical, decode logits within 1e-5 (bit equality printed),
+    per-device KV bytes and attention FLOPs exactly 1/4, total FLOPs
+    equal; the same engine with ``paged_decode=True`` bit-equal to it
+    with 0 gather bytes; engine B (``paged_kernel``, ``paged_decode``)
+    with the mesh installed through ``set_serving_mesh``: the paged
+    kernel launched exactly 4 times per layer and decode step, each on its
+    shard's head slice of the pool twin read in place, logits within 2e-3
+    of engine C; then on engine B's recorded inputs each shard's launch
+    against the plain version on the same view (3e-5, bf16 3e-2), the
+    shards' outputs put together against the unsharded launch, and the 4
+    launches timed against the one (``measure_paged_shards``);
+13. context parallel and compression (after phase 11; ``run_cp_ef``):
+    ``gqa_attend_flash_cp`` over a CP mesh of 4 (axis "model", on the
+    card) against ``gqa_attend_flash`` at gemma3-4b's width (8 / 4 heads
+    of 256, 2048 tokens, its 1024-key window and none) within 1e-5, and
+    gemma3-4b at full width and depth through ``make_prefill_step`` on
+    ``flash_cp`` against ``flash`` within 1e-5; the int8 error-feedback
+    all-reduce of llama3-8b's gradients (full width, 2 layers, 1024 tokens
+    per shard) over 4 shards for 8 steps within the reference's bounds;
+14. a ``kernels`` JSON line (launches on the main paths, error, times,
+    bound, the D 256 rows, the paged kernel's per-shard call and each
+    family's path shape beside them), the mamba2 and training figures,
+    per-engine TTFT / decode-step figures, the server's, the families',
+    the recurrent and vision ones and the mesh phases';
+15. last line: ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before the mamba2 phase, the training
 runs, the engine serving the trained checkpoint, engines A and B,
-each family's engine A and each counted run of phase 11, and read just
-after (rope and the attention kernels of engine A in A, paged decode in
-B); the comparison launches
+each family's engine A, each counted run of phase 11 and engine B on the
+mesh, and read just after (rope and the attention kernels of engine A in
+A, paged decode in B and in B on the mesh); the comparison launches
 of phase 3 and the replays after the engines do not count. Without CUDA, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
 result.
@@ -1696,7 +1721,10 @@ def run_engine(tag, cfg, params, tmp, num_requests=12, max_new_tokens=8,
         decode_tokens_per_s=dec_tokens / max(stats.decode_compute_s, 1e-9),
         wall_s=wall,
         decode_gather_bytes=eng.counters.decode_gather_bytes,
-        paged_block_syncs=eng.counters.paged_block_syncs)
+        paged_block_syncs=eng.counters.paged_block_syncs,
+        peak_kv_bytes_per_device=eng.pool.peak_kv_bytes_per_device(),
+        attn_flops_total=eng.counters.attn_flops_total,
+        attn_flops_device=eng.counters.attn_flops_device)
     log(f"engine {tag}: " + json.dumps(out))
     if stats.completed != len(reqs) or stats.failed:
         raise RuntimeError(f"engine {tag}: {stats.completed}/{len(reqs)} "
@@ -1860,6 +1888,346 @@ def compare_logits(tag, trace, tokens, ref_trace, ref_tokens):
         f"diff {worst:.3e} (tol {LOGIT_TOL}), identical token streams "
         f"{same}/{len(tokens)}, compared up to divergence for {diverged}")
     return worst
+
+
+# ---------------------------------------------------------------------------
+# phases 12-13: the serving mesh, context-parallel flash, the EF all-reduce
+# ---------------------------------------------------------------------------
+MESH_SHARDS = 4
+# sharded engine C vs unsharded: each head's attention is the same
+# arithmetic, only the head-summed chunk mass is summed in another order
+# (per shard, then over shards); held to this, and printed
+MESH_LOGIT_TOL = 1e-5
+CP_TOL = 1e-5
+CP_TOKENS = 2048            # gemma3-4b's prompt for flash_cp, twice its window
+
+
+def _trace_gap(tr, ref):
+    """(max abs diff, bit-equal) over the decode steps two runs share
+    (same rids, same steps)."""
+    import numpy as np
+    worst, same = 0.0, True
+    if len(tr) != len(ref):
+        raise RuntimeError(f"decode traces of {len(tr)} and {len(ref)} "
+                           "steps")
+    for a, b in zip(tr, ref):
+        if set(a) != set(b):
+            raise RuntimeError("decode traces decode other requests")
+        for rid in a:
+            same &= bool(np.array_equal(a[rid], b[rid]))
+            worst = max(worst, float(np.abs(a[rid] - b[rid]).max()))
+    return worst, same
+
+
+def measure_paged_shards(pi, n):
+    """The paged kernel once per head shard on engine B's recorded inputs
+    ``pi`` (as ``measure_paged`` takes them), in fp32 and bf16: each
+    shard's launch reads its head slice ``[:, :, h0:h1]`` of the pool
+    blocks in place and is held against the plain version on that view;
+    the shards' outputs put together against the one unsharded launch;
+    the n launches timed against the unsharded one (events and the
+    card's clock). The bound is the unsharded call's: the shards read
+    the same bytes between them."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.decode_attention.ref import \
+        paged_decode_attention_ref
+
+    window = pi.get("window", 0)
+    B, H, D = pi["q"].shape
+    NB, bs, Hkv = pi["k_blocks"].shape[:3]
+    NBmax = pi["block_rows"].shape[1]
+    hs, gs = Hkv // n, H // n
+    safe, gpos = _paged_gather(pi)
+    n_keys = int(_decode_live(pi["q_pos"], gpos, window).sum())
+    brows = pi["block_rows"]
+    ref_blocks = torch.unique(brows[brows >= 0].long())
+    n_slots = int((pi["kpos_blocks"][ref_blocks] >= 0).sum())
+    res = {}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        x = _cast(pi, dt)
+        rest = (x["kpos_blocks"], x["block_rows"], x["q_pos"])
+        views = [(x["q"][:, s * gs:(s + 1) * gs].contiguous(),
+                  x["k_blocks"][:, :, s * hs:(s + 1) * hs],
+                  x["v_blocks"][:, :, s * hs:(s + 1) * hs])
+                 for s in range(n)]
+        if any(v[1].is_contiguous() for v in views) and n > 1:
+            raise RuntimeError("paged shards: a head slice is contiguous")
+        full = lambda: dops.paged_decode_attention(  # noqa: E731
+            x["q"], x["k_blocks"], x["v_blocks"], *rest, window=window)
+        shards = lambda: [dops.paged_decode_attention(  # noqa: E731
+            qs, ks, vs, *rest, window=window) for qs, ks, vs in views]
+        o_full, outs = full(), shards()
+        torch.cuda.synchronize()
+        err = max(_err(o, paged_decode_attention_ref(qs, ks, vs, *rest,
+                                                     window=window))
+                  for o, (qs, ks, vs) in zip(outs, views))
+        gathered = torch.cat(outs, dim=1)
+        gap = _err(gathered, o_full)
+        if not (err <= TOL[dt_name] and gap <= TOL[dt_name]
+                and torch.isfinite(gathered).all()):
+            raise RuntimeError(f"paged_decode_attention shards {dt_name}: "
+                               f"max abs err {err}, gathered vs unsharded "
+                               f"{gap} (tol {TOL[dt_name]})")
+        el = x["q"].element_size()
+        nbytes = (2 * B * H * D + 2 * n_slots * Hkv * D) * el + \
+            4 * (B + B * NBmax + int(ref_blocks.numel()) * bs)
+        b_ms, b_by = bound(nbytes, 4 * D * H * n_keys, dt_name)
+        t_s, t_f = cuda_ms(shards), cuda_ms(full)
+        d_s, d_f = device_ms(shards), device_ms(full)
+        res[dt_name] = dict(
+            err=err, gathered_vs_unsharded=gap,
+            gathered_bit_equal=bool(torch.equal(gathered, o_full)),
+            ms=t_s, device_ms=d_s, unsharded_ms=t_f,
+            unsharded_device_ms=d_f, bound_ms=b_ms, bound_by=b_by,
+            splits=dops.num_splits(B, NBmax * bs, Hkv, dt, block=bs))
+        log(f"kernel paged_decode_attention {n} head shards {dt_name} NB={NB} "
+            f"bs={bs} B={B} NBmax={NBmax} H={H}/{Hkv} (per shard "
+            f"{gs}/{hs}) live_keys={n_keys}: max_abs_err per shard "
+            f"{err:.3e} (tol {TOL[dt_name]}), gathered vs unsharded "
+            f"{gap:.3e} (bit-equal "
+            f"{res[dt_name]['gathered_bit_equal']}); {n} launches ms="
+            f"{t_s:.4f} device_ms={_fmt(d_s)} vs one unsharded ms="
+            f"{t_f:.4f} device_ms={_fmt(d_f)}; bound_ms={b_ms:.4f} "
+            f"({b_by})")
+    return res
+
+
+def run_mesh(cfg, params, dev, tmp, ref, pi, tr_b, tok_b):
+    """Phase 12, full-width llama3-8b on a serving mesh of MESH_SHARDS
+    shards, all on ``dev`` (``make_serving_mesh(4, device=dev)``):
+    engine C (``dense``) with ``mesh=`` (forced to ``sharded``, a
+    head-sharded pool) against engine C without (``ref``: out, trace,
+    tokens, plans): tokens and plans identical, decode logits within
+    MESH_LOGIT_TOL (bit equality printed), per-device KV bytes and
+    attention FLOPs 1/4, total FLOPs equal; the same with
+    ``paged_decode=True``, bit-equal to the arena run on the mesh with 0
+    gather bytes; engine B (``paged_kernel``, ``paged_decode``) with the
+    mesh installed through ``set_serving_mesh``: exactly one paged launch
+    per shard, layer and decode step (counts from 0 around the run),
+    logits within LOGIT_TOL of engine C and against engine B without the
+    mesh (``tr_b``, ``tok_b``); then the per-shard launch on B's recorded
+    inputs ``pi`` (``measure_paged_shards``)."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.launch.mesh import make_serving_mesh
+    from repro_torch.models import backend as AB
+
+    t0 = time.perf_counter()
+    out_c, tr_c, tok_c, plan_c = ref
+    mesh = make_serving_mesh(MESH_SHARDS, device=dev)
+    n = MESH_SHARDS
+    res = {"shards": n, "mesh": repr(mesh)}
+    try:
+        out_m, tr_m, tok_m, plan_m, _ = run_engine(
+            "C mesh", cfg, params, tmp, attn_impl="dense", mesh=mesh)
+        AB.set_serving_mesh(None)
+        if tok_m != tok_c or plan_m != plan_c:
+            raise RuntimeError("engine C on the mesh: tokens or plans "
+                               "differ from engine C")
+        gap, same = _trace_gap(tr_m, tr_c)
+        if gap > MESH_LOGIT_TOL:
+            raise RuntimeError(f"engine C on the mesh: decode logits vs "
+                               f"engine C max abs diff {gap} (tol "
+                               f"{MESH_LOGIT_TOL})")
+        if not (out_m["peak_kv_bytes_per_device"] * n ==
+                out_c["peak_kv_bytes_per_device"] > 0
+                and out_m["attn_flops_device"] * n ==
+                out_c["attn_flops_device"] > 0
+                and out_m["attn_flops_total"] == out_c["attn_flops_total"]):
+            raise RuntimeError(
+                "engine C on the mesh: per-device KV bytes / FLOPs not 1/"
+                f"{n} of engine C's, or totals differ: {out_m} vs {out_c}")
+        res["C"] = dict(logit_gap=gap, bit_equal=same,
+                        peak_kv_bytes_per_device=[
+                            out_c["peak_kv_bytes_per_device"],
+                            out_m["peak_kv_bytes_per_device"]],
+                        attn_flops_device=[out_c["attn_flops_device"],
+                                           out_m["attn_flops_device"]],
+                        attn_flops_total=out_m["attn_flops_total"],
+                        decode_step_ms=[out_c["decode_step_ms"],
+                                        out_m["decode_step_ms"]])
+        log(f"mesh: engine C sharded over {n} vs unsharded: tokens and "
+            f"plans identical, decode logits max abs diff {gap:.3e} "
+            f"(bit-equal {same}; tol {MESH_LOGIT_TOL}), peak KV bytes per "
+            f"device {out_c['peak_kv_bytes_per_device']} -> "
+            f"{out_m['peak_kv_bytes_per_device']}, attention FLOPs per "
+            f"device {out_c['attn_flops_device']} -> "
+            f"{out_m['attn_flops_device']}, total "
+            f"{out_m['attn_flops_total']}")
+
+        out_p, tr_p, tok_p, _plan, _ = run_engine(
+            "C mesh paged", cfg, params, tmp, attn_impl="dense", mesh=mesh,
+            paged_decode=True)
+        AB.set_serving_mesh(None)
+        gap_p, same_p = _trace_gap(tr_p, tr_m)
+        if not (tok_p == tok_m and same_p
+                and out_p["decode_gather_bytes"] == 0
+                and out_m["decode_gather_bytes"] > 0):
+            raise RuntimeError(
+                f"paged on the mesh vs arena on the mesh: tokens equal "
+                f"{tok_p == tok_m}, bit-equal {same_p} (max diff {gap_p}), "
+                f"gather bytes {out_p['decode_gather_bytes']} / "
+                f"{out_m['decode_gather_bytes']}")
+        res["C_paged"] = dict(bit_equal=same_p, decode_gather_bytes=[
+            out_m["decode_gather_bytes"], out_p["decode_gather_bytes"]])
+        log(f"mesh: paged == arena on the mesh bit for bit, gather bytes "
+            f"{out_m['decode_gather_bytes']} -> 0")
+
+        AB.set_serving_mesh(mesh)
+        dops.paged_decode_attention.launches = 0
+        out_b, tr_bm, tok_bm, _plan, _ = run_engine(
+            "B mesh", cfg, params, tmp, attn_impl="paged_kernel",
+            paged_decode=True)
+        launches = dops.paged_decode_attention.launches
+        AB.set_serving_mesh(None)
+        want = n * cfg.num_layers * out_b["decode_steps"]
+        if launches != want:
+            raise RuntimeError(f"engine B on the mesh: {launches} paged "
+                               f"launches, expected {want} ({n} per layer "
+                               "and decode step)")
+        err_b = compare_logits("B mesh(paged_kernel per shard)", tr_bm,
+                               tok_bm, tr_c, tok_c)
+        gap_bb, same_bb = _trace_gap(tr_bm, tr_b) if tok_bm == tok_b \
+            else (None, False)
+        res["B"] = dict(launches=launches, expected=want, logit_err=err_b,
+                        vs_unsharded_B=gap_bb, bit_equal_B=same_bb,
+                        decode_step_ms=out_b["decode_step_ms"])
+        log(f"mesh: engine B with {n} paged launches per layer and step "
+            f"({launches} = {want}), logits vs C {err_b:.3e}, vs engine B "
+            f"without the mesh {gap_bb} (bit-equal {same_bb})")
+    finally:
+        AB.set_serving_mesh(None)
+    res["kernel"] = measure_paged_shards(pi, n)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"serving mesh phase: {res['seconds']:.1f}s")
+    return res
+
+
+def run_cp_ef(dev):
+    """Phase 13: ``flash_cp`` on a CP mesh of 4 (axis "model", all on the
+    card) at gemma3-4b's full width, layer by layer (q [1, 2048, 8, 256]
+    against k/v [1, 2048, 4, 256], the 1024-key window and none) and
+    through ``make_prefill_step`` on a 2048-token prompt, against
+    ``flash``; then the int8 error-feedback all-reduce of full-width
+    llama3-8b's gradients cut to 2 layers, one batch of 1024 tokens per
+    shard over 4 shards, 8 steps, leaf by leaf (the reference's bounds:
+    each step's mean within 0.2 of the exact mean relative to its
+    largest entry, the mean over the 8 steps within 0.02)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compression as TC
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.training import steps as TS
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import tree_leaves
+
+    t0 = time.perf_counter()
+    res = {}
+    cfg = get_config("gemma3-4b")
+    cp = make_debug_mesh((MESH_SHARDS,), ("model",), device=dev)
+    rng = np.random.default_rng(13)
+    T, H, Hkv, D = CP_TOKENS, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    q, k, v = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               .to(dev) for s in ((1, T, H, D), (1, T, Hkv, D),
+                                  (1, T, Hkv, D)))
+    pos = torch.arange(T, dtype=torch.int32, device=dev)[None]
+    layer = {}
+    for w in (cfg.window, 0):
+        a = L.gqa_attend_flash_cp(q, k, v, pos, pos, cp, w)
+        b = L.gqa_attend_flash(q, k, v, pos, pos, w)
+        torch.cuda.synchronize()
+        layer[w] = _max_diff(a, b)
+        if not (layer[w] <= CP_TOL and torch.isfinite(a).all()):
+            raise RuntimeError(f"flash_cp vs flash at gemma3-4b's width, "
+                               f"window {w}: {layer[w]} (tol {CP_TOL})")
+    del q, k, v
+    params = _params(cfg, dev)
+    toks = _prompt(cfg, T, dev)
+    logits = {}
+    try:
+        for impl in ("flash", "flash_cp"):
+            M.set_cp_mesh(cp if impl == "flash_cp" else None)
+            step = TS.make_prefill_step(cfg, impl)
+            logits[impl], _cache = step(params, {"tokens": toks, "cache":
+                                                 M.init_cache(cfg, 1, T,
+                                                              device=dev)})
+            del _cache
+    finally:
+        M.set_cp_mesh(None)
+    torch.cuda.synchronize()
+    lg = _max_diff(logits["flash_cp"], logits["flash"])
+    if not (lg <= CP_TOL and torch.isfinite(logits["flash_cp"]).all()):
+        raise RuntimeError(f"gemma3-4b prefill on flash_cp vs flash: max "
+                           f"abs logit diff {lg} (tol {CP_TOL})")
+    res["flash_cp"] = dict(layer_window=layer[cfg.window], layer_global=
+                           layer[0], logits=lg)
+    log(f"flash_cp over {MESH_SHARDS} shards vs flash, gemma3-4b "
+        f"({H}/{Hkv} heads of {D}, {T} tokens): attention window "
+        f"{cfg.window} {layer[cfg.window]:.3e}, global {layer[0]:.3e}; "
+        f"make_prefill_step last logits {lg:.3e} (tol {CP_TOL})")
+    del params, logits
+    _free()
+
+    # the EF all-reduce of real gradients
+    cfg = get_config("llama3-8b").replace(num_layers=2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = TS.init_train_state(cfg, gen)
+    data = SyntheticLM(DataConfig(seq_len=1024, global_batch=MESH_SHARDS,
+                                  vocab_size=cfg.vocab_size))
+    b = {k: torch.from_numpy(x).to(dev) for k, x in data.batch(0).items()}
+    names_leaves = list(tree_leaves(state.params))
+    grads = []
+    for s in range(MESH_SHARDS):
+        with torch.enable_grad():
+            loss = TS.loss_fn(cfg, state.params,
+                              {k: x[s:s + 1] for k, x in b.items()})[0]
+            grads.append([g.detach() for g in torch.autograd.grad(
+                loss, names_leaves)])
+        del loss
+    del state, names_leaves
+    _free()
+    t1 = time.perf_counter()
+    worst_rel, worst_drift, n_el = 0.0, 0.0, 0
+    for i in range(len(grads[0])):
+        gs = [{"g": grads[s][i]} for s in range(MESH_SHARDS)]
+        exact = torch.stack([g["g"] for g in gs]).mean(0)
+        scale = float(exact.abs().max()) + 1e-9
+        ef = [TC.init_error_feedback(g) for g in gs]
+        total = torch.zeros_like(exact)
+        for _step in range(8):
+            means, ef = TC.ef_allreduce_grads(gs, ef)
+            got = means[0]["g"]
+            total += got
+            worst_rel = max(worst_rel,
+                            float((got - exact).abs().max()) / scale)
+        worst_drift = max(worst_drift,
+                          float((total / 8 - exact).abs().max()) / scale)
+        n_el += exact.numel()
+        del gs, ef, means, exact, total
+    torch.cuda.synchronize()
+    ef_s = time.perf_counter() - t1
+    if not (worst_rel < 0.2 and worst_drift < 0.02):
+        raise RuntimeError(f"EF all-reduce: worst step error {worst_rel} "
+                           f"(bound 0.2), drift {worst_drift} (bound 0.02)")
+    res["ef_allreduce"] = dict(shards=MESH_SHARDS, steps=8, elements=n_el,
+                               worst_rel=worst_rel, drift=worst_drift,
+                               seconds=ef_s)
+    log(f"EF all-reduce of llama3-8b/2 gradients ({n_el} elements x "
+        f"{MESH_SHARDS} shards, 8 steps): worst step error {worst_rel:.4f} "
+        f"of the largest entry (bound 0.2), mean over the steps "
+        f"{worst_drift:.5f} (bound 0.02); {ef_s:.1f}s")
+    del grads
+    _free()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"context-parallel and EF phase: {res['seconds']:.1f}s")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -2549,6 +2917,12 @@ def main() -> int:
         # phase 9: the HTTP server around a fresh kernel engine
         served = run_server(cfg, params, tmp, tok_a)
 
+        # phase 12, while llama3-8b's weights are loaded: the serving mesh
+        mesh = run_mesh(cfg, params, dev, tmp, (engines["C"], tr_c, tok_c,
+                                                plan_c),
+                        paged_calls.calls[paged_calls.most_frequent("paged")],
+                        tr_b, tok_b)
+
         # phase 10: the families. First the paper's model once more, on
         # a prompt past auto's 2^21 score elements, then its weights go
         long_gap = run_long_prompt(cfg, params, dev)
@@ -2557,6 +2931,8 @@ def main() -> int:
         families = run_families(dev, tmp)
     # phase 11: the recurrent and vision families through the model roots
     recvis = run_recurrent_vision(dev)
+    # phase 13: context-parallel flash and the EF gradient all-reduce
+    cp_ef = run_cp_ef(dev)
     # chunk_attention at the path's most frequent shape, on the inputs of
     # engine A's first call of that shape
     path_shape = hist[0][0]
@@ -2593,8 +2969,8 @@ def main() -> int:
     err_a = compare_logits("A(kernel)", tr_a, tok_a, tr_c, tok_c)
     err_b = compare_logits("B(paged_kernel)", tr_b, tok_b, tr_c, tok_c)
 
-    # phase 12: the kernels line, the mamba2, training, engine, family and
-    # recurrent / vision figures
+    # phase 14: the kernels line, the mamba2, training, engine, family,
+    # recurrent / vision and mesh figures
     sources = {
         "chunk_attention": (
             "src/repro_torch/kernels/chunk_attention/csrc/chunk_attention.cu",
@@ -2686,6 +3062,19 @@ def main() -> int:
     kernels[1]["shape_d256"] = "B 4, S 2048, H 8/4, D 256, window 1024"
     kernels[2]["shape_d256"] = ("NB 512, bs 16, B 4, NBmax 128, H 8/4, "
                                 "D 256, window 1024")
+    # the paged kernel once per head shard of the serving mesh: its
+    # launches on engine B with the mesh installed, and the per-shard call
+    # on engine B's recorded inputs against the one unsharded launch
+    kernels[2]["mesh"] = dict(
+        shards=mesh["shards"], launches=mesh["B"]["launches"],
+        shape=f"path: (B, NBmax, bs) {list(pkey[1:])}, per shard H "
+        f"{cfg.num_heads // mesh['shards']}/"
+        f"{cfg.num_kv_heads // mesh['shards']}",
+        **{f"{k}{sfx}": mesh["kernel"][dt][k]
+           for dt, sfx in (("float32", ""), ("bfloat16", "_bf16"))
+           for k in ("err", "gathered_vs_unsharded", "gathered_bit_equal",
+                     "ms", "device_ms", "unsharded_ms",
+                     "unsharded_device_ms", "bound_ms", "splits")})
     # each family's engine A (and the recurrent and vision model roots):
     # its launches, and the kernel held and timed on the recorded inputs
     # of its most frequent call shape
@@ -2783,6 +3172,10 @@ def main() -> int:
                                "rglru_scan_ms")}
             for tag, r in recvis.items() if tag != "seconds"})
         + f"; phase {recvis['seconds']:.1f}s")
+    # the per-shard launches' device time against the one unsharded
+    # launch is in mesh["kernel"]
+    log(f"serving mesh and context parallel [{card}]: " + json.dumps(mesh)
+        + "; " + json.dumps(cp_ef))
     log(f"end-to-end vs dense: A max abs logit diff {err_a:.3e}, "
         f"B {err_b:.3e}; total {time.perf_counter() - t_all:.1f}s")
     log(card)    # nvidia-smi's name, power.limit line, verbatim

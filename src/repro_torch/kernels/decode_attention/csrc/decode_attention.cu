@@ -18,7 +18,10 @@
 //            of -1 are skipped), read in place from k/v_blocks[blk, slot,
 //            h/G, :] with per-slot positions kpos_blocks[blk, slot] (-1 =
 //            interior padding). Blocks shared by several requests are only
-//            read.
+//            read. A slot holds kvh >= Hkv heads (the pool's head count):
+//            the call may cover a slice of them, so a head-sharded mesh
+//            launches once per shard on its heads of the same blocks, read
+//            in place (k/v_blocks point at the slice's first head).
 //
 // What bounds it on the H100: each K/V element is used by the G = H/Hkv
 // heads of its group only, 2*G flops per element read (G <= 16 in every
@@ -148,7 +151,7 @@ struct Layout {
 
 struct DecodeParams {
   const void* q;      // [B, H, D]
-  const void* k;      // dense [B, S, Hkv, D] | paged [NB, bs, Hkv, D]
+  const void* k;      // dense [B, S, Hkv, D] | paged [NB, bs, kvh, D]
   const void* v;
   const int* qpos;    // [B]
   const int* kpos;    // dense [B, S] | paged [NB, bs]
@@ -156,6 +159,7 @@ struct DecodeParams {
   void* out;          // [B, H, D]
   float* work;        // nsplit > 1: acc [ns,B,H,D], m, l [ns,B,H]
   int B, H, Hkv, D, window;
+  int kvh;            // paged: heads per pool slot (the slot stride), >= Hkv
   int S;              // dense: S; paged: NBmax * bs logical slots
   int bs, NBmax;      // paged only
   int nsplit, keys_per_split;
@@ -291,7 +295,7 @@ decode_kernel(DecodeParams p) {
         if (j < n) {
           const int lk = w0 + j, blk = blk_s[lk / p.bs - lb0];
           if (blk >= 0 && allowed(qp, row_s[j], p.window))
-            r = (int)(((size_t)blk * p.bs + lk % p.bs) * p.Hkv + hkv);
+            r = (int)(((size_t)blk * p.bs + lk % p.bs) * p.kvh + hkv);
         }
         row_s[j] = r;
         if (r >= 0) live_s[j / TK] = 1;   // same value from every writer
@@ -532,6 +536,7 @@ DecodeParams make_params(const void* q, const void* k, const void* v,
   p.out = out;
   p.work = static_cast<float*>(work);
   p.B = B; p.H = H; p.Hkv = Hkv; p.D = D; p.window = window;
+  p.kvh = Hkv;
   p.S = 0; p.bs = 0; p.NBmax = 0;
   p.nsplit = nsplit; p.keys_per_split = 0;
   p.scale2 = LOG2E / sqrtf((float)D);
@@ -565,7 +570,9 @@ int run(const DecodeParams& p, int is_bf16, void* stream) {
 // (ops.num_splits), at most one per key tile (dense: 32 keys in fp32, 64
 // in bf16) or per run of pool blocks holding a tile's keys (paged;
 // ops.split_units). D must be 16, 32, 64, 128 or 256 and (H / Hkv) * D <=
-// 4096. Return the cudaError_t of the launches.
+// 4096. The paged entry's ``kvh`` is the heads a pool slot holds (its
+// stride in rows of D), the call covering Hkv <= kvh of them from the
+// given base. Return the cudaError_t of the launches.
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, const void* qpos,
     const void* kpos, void* out, void* work, int B, int S, int H, int Hkv,
@@ -586,19 +593,20 @@ extern "C" int paged_decode_attention_fwd(
     const void* q, const void* k_blocks, const void* v_blocks,
     const void* kpos_blocks, const void* block_rows, const void* qpos,
     void* out, void* work, int B, int NB, int NBmax, int bs, int H, int Hkv,
-    int D, int window, int is_bf16, int nsplit, void* stream) {
+    int kvh, int D, int window, int is_bf16, int nsplit, void* stream) {
   // ranges of whole runs of blocks that hold one tile's keys (one block
   // where a block holds a tile or more), so that they start on tiles
   const int tk = is_bf16 ? keys_per_tile<__nv_bfloat16>()
                          : keys_per_tile<float>();
   const int per_run = bs < tk ? tk / bs : 1;   // blocks
   const int nruns = (NBmax + per_run - 1) / per_run;
-  if (NBmax < 1 || bs < 1 ||
-      !valid(B, H, Hkv, D, nsplit, nruns, (long long)NB * bs * Hkv))
+  if (NBmax < 1 || bs < 1 || kvh < Hkv ||
+      !valid(B, H, Hkv, D, nsplit, nruns, (long long)NB * bs * kvh))
     return (int)cudaErrorInvalidValue;
   DecodeParams p = make_params(q, k_blocks, v_blocks, qpos, kpos_blocks, out,
                                work, B, H, Hkv, D, window, nsplit);
   p.rows = static_cast<const int*>(block_rows);
+  p.kvh = kvh;
   p.bs = bs;
   p.NBmax = NBmax;
   p.S = NBmax * bs;

@@ -12,6 +12,14 @@ partial rows a second kernel combines in a fixed order
 (``workspace_floats`` of fp32 scratch). ``bind`` holds the C entry
 points' argument types, for the built library and for the CPU-emulated
 build the tests load.
+
+The paged kernel reads the pool arena in place, and also a head slice of
+it, ``k_blocks[:, :, h0:h1]``, the view a head-sharded serving mesh gives
+each shard: strided in the head axis, dense in the last two. Its key
+split follows the pool's head count (the slot stride), not the slice's,
+so a shard's launch splits and sums each head's keys exactly as the
+unsharded launch does, and the shards' outputs put together equal the
+unsharded output bit for bit.
 """
 from __future__ import annotations
 
@@ -44,8 +52,8 @@ _ABI = {
     # nsplit; stream
     "decode_attention_fwd": ([_P] * 7 + [_I] * 8 + [_P], _I),
     # q, k_blocks, v_blocks, kpos_blocks, block_rows, q_pos, out, work;
-    # B, NB, NBmax, bs, H, Hkv, D, window, is_bf16, nsplit; stream
-    "paged_decode_attention_fwd": ([_P] * 8 + [_I] * 10 + [_P], _I),
+    # B, NB, NBmax, bs, H, Hkv, kvh, D, window, is_bf16, nsplit; stream
+    "paged_decode_attention_fwd": ([_P] * 8 + [_I] * 11 + [_P], _I),
     # D, G, is_bf16, paged
     "decode_attention_smem_bytes": ([_I] * 4, ctypes.c_longlong),
     "decode_attention_occupancy": ([_I] * 4, _I),   # not in emulated builds
@@ -114,6 +122,35 @@ def _check_aligned(what, **tensors):
                              "(16-byte asynchronous copies)")
 
 
+def _slot_heads(what, k_blocks, v_blocks, shape, dtype, device) -> int:
+    """Check the pool blocks (or a head slice of them) and return the heads
+    a pool slot holds: the view must be [NB, bs, Hkv, D] of ``dtype`` on
+    ``device``, dense in its last two dims, with slots of ``kvh * D``
+    elements, ``kvh >= Hkv``; K and V alike."""
+    NB, bs, Hkv, D = shape
+    for name, t in (("k_blocks", k_blocks), ("v_blocks", v_blocks)):
+        if t.device != device:
+            raise ValueError(f"{what}: {name} on {t.device}, expected "
+                             f"{device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: {name} dtype {t.dtype}, expected "
+                            f"{dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{what}: {name} shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+    st = k_blocks.stride()
+    if v_blocks.stride() != st:
+        raise ValueError(f"{what}: k_blocks strides {st} != v_blocks "
+                         f"strides {v_blocks.stride()}")
+    slot = st[1]
+    if st[3] != 1 or st[2] != D or slot % D or slot // D < Hkv or \
+            st[0] != bs * slot:
+        raise ValueError(f"{what}: k_blocks / v_blocks strides {st}: need "
+                         "pool blocks or a head slice of them, dense in "
+                         "the last two dims")
+    return slot // D
+
+
 def _device_of(q, what):
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: no kernel for device {q.device}")
@@ -167,8 +204,9 @@ def decode_attention(q, k, v, q_pos, k_pos, *, window: int = 0):
 def paged_decode_attention(q, k_blocks, v_blocks, kpos_blocks, block_rows,
                            q_pos, *, window: int = 0):
     """Block-table-native decode: q [B,H,D], k_blocks/v_blocks
-    [NB, bs, Hkv, D] (the pool arena, read in place), kpos_blocks
-    [NB, bs], block_rows [B, NBmax] (-1 padded), q_pos [B] -> [B,H,D]."""
+    [NB, bs, Hkv, D] (the pool arena or a head slice of it, read in
+    place), kpos_blocks [NB, bs], block_rows [B, NBmax] (-1 padded), q_pos
+    [B] -> [B,H,D]."""
     what = "paged_decode_attention"
     if _device_of(q, what) == "cpu":
         return paged_decode_attention_ref(q, k_blocks, v_blocks,
@@ -180,9 +218,8 @@ def paged_decode_attention(q, k_blocks, v_blocks, kpos_blocks, block_rows,
     dev = q.device
     build.check_no_grad(what, q=q, k_blocks=k_blocks, v_blocks=v_blocks)
     build.check_tensor(what, "q", q, (B, H, D), _FLOATS, dev)
-    for name, t in (("k_blocks", k_blocks), ("v_blocks", v_blocks)):
-        build.check_tensor(what, name, t, (NB, bs, Hkv, D), (q.dtype,),
-                           dev)
+    kvh = _slot_heads(what, k_blocks, v_blocks, (NB, bs, Hkv, D), q.dtype,
+                      dev)
     for name, t, shape in (("kpos_blocks", kpos_blocks, (NB, bs)),
                            ("block_rows", block_rows, (B, NBmax)),
                            ("q_pos", q_pos, (B,))):
@@ -194,8 +231,8 @@ def paged_decode_attention(q, k_blocks, v_blocks, kpos_blocks, block_rows,
                          "must be >= 1")
     out = _call(what, "paged_decode_attention_fwd",
                 (q, k_blocks, v_blocks, kpos_blocks, block_rows, q_pos),
-                (B, NB, NBmax, bs, H, Hkv, D, int(window)), q,
-                num_splits(B, NBmax * bs, Hkv, q.dtype, block=bs))
+                (B, NB, NBmax, bs, H, Hkv, kvh, D, int(window)), q,
+                num_splits(B, NBmax * bs, kvh, q.dtype, block=bs))
     paged_decode_attention.launches += 1
     return out
 

@@ -12,9 +12,10 @@ checkpoint in ``--ckpt-dir``. Batches are a pure function of (seed,
 step), so a resumed run sees the batches the straight run would have.
 Runs on the GPU unless ``--device cpu``; the weights are initialised
 from ``--seed``. The checkpoints are in the reference's format and serve
-through ``launch/serve.py --params <ckpt-dir>``. The reference's int8
-gradient compression and device mesh come with the distributed port
-(ROADMAP A10).
+through ``launch/serve.py --params <ckpt-dir>``. One process, one
+device: the int8 error-feedback all-reduce (``distributed/compression.py``)
+and the mesh makers (``launch/mesh.py``) are ported, training over a
+multi-process mesh is not (ROADMAP A10).
 """
 from __future__ import annotations
 

@@ -52,9 +52,13 @@ Backends
 ``auto``          dense for small / stat-collecting / packed shapes,
                   flash beyond 2^21 score elements (the reference's
                   rule).
-``flash_cp``, ``sharded``
-                  registered so that a spec naming them fails with the
-                  ROADMAP item that ports them (both need a mesh).
+``sharded``       tensor-parallel dense: the oracle once per head shard of
+                  the serving mesh (``set_serving_mesh``; below). Without
+                  a mesh it is ``dense``, as in the reference.
+``flash_cp``      ``flash`` with the query rows split over the
+                  context-parallel mesh (``set_cp_mesh``,
+                  ``layers.gqa_attend_flash_cp``); ``flash`` without one,
+                  dense under ``collect_stats`` or packing.
 
 Paged attend contract
 ---------------------
@@ -74,23 +78,76 @@ per-request view arrives through ``ctx``:
   1-d) with the new token's KV already written at ``ctx.decode_slot``.
 
 ``paged`` dereferences the slot rows with a device-side gather and
-hands the result to the dense oracle: the gathered operand reproduces
+hands the result to the dense (or, with a serving mesh, the
+``sharded``) oracle: the gathered operand reproduces
 ``pool.gather(compact=True)`` element for element, so logits stay
 bit-identical to the arena path. ``paged_kernel`` skips even that
 gather: the kernel reads ``[NB, bs, Hkv, D]``, a *view* of the flat
-twin, never a copy.
+twin, never a copy; under a serving mesh it launches once per shard on
+that shard's head slice ``[NB, bs, Hkv/n, D]``, a strided view the
+kernel reads in place.
+
+Head-shard layout (the serving mesh)
+------------------------------------
+``sharded`` splits q/k/v over the head axis of a ``("heads",)`` mesh
+(``launch.mesh.make_serving_mesh``) installed with
+:func:`set_serving_mesh`, and runs the dense helpers once per shard
+through the one-process ``distributed.collectives.shard_map``; the
+engine's KVPool mirrors the split (``kv_shards``):
+
+* ``num_heads % n == 0`` and ``num_kv_heads % n == 0``: contiguous head
+  blocks keep the GQA q-head -> kv-head grouping shard-local, so each
+  head's arithmetic is the unsharded oracle's.
+* the attention output is all-gathered (data movement only) before the
+  ``wo`` projection; only the head-summed mass statistics cross shards,
+  summed in shard order (``psum``), so they are allclose, not bitwise,
+  to the unsharded sums.
+* block bookkeeping stays shard-agnostic: a block is allocated on every
+  shard or none (``serving/kvpool.py``).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.collectives import all_gather, psum, shard_map
+from repro_torch.distributed.sharding import P
 from repro_torch.models import layers as L
 
+# ---------------------------------------------------------------------------
+# Module-level mesh state (installed by launch / serving code)
+# ---------------------------------------------------------------------------
+_CP_MESH = None
+_SERVING_MESH = None
+_SERVING_AXIS = "heads"
 
-def _not_ported(name: str, item: str):
-    raise NotImplementedError(
-        f"attention backend {name!r} is not ported to repro_torch yet "
-        f"(ROADMAP {item})")
+
+def set_cp_mesh(mesh):
+    """Install the mesh of context-parallel attention (``flash_cp``, over
+    its "model" axis); None uninstalls."""
+    global _CP_MESH
+    _CP_MESH = mesh
+
+
+def set_serving_mesh(mesh, axis: str = "heads"):
+    """Install the tensor-parallel serving mesh of the ``sharded`` backend
+    and of ``paged`` / ``paged_kernel`` under it (None uninstalls)."""
+    global _SERVING_MESH, _SERVING_AXIS
+    _SERVING_MESH = mesh
+    _SERVING_AXIS = axis
+
+
+def serving_mesh():
+    return _SERVING_MESH
+
+
+def _check_head_split(what: str, mesh, H: int, Hkv: int):
+    """The serving axis size must divide both head counts."""
+    n = mesh.shape[_SERVING_AXIS]
+    if H % n or Hkv % n:
+        raise ValueError(
+            f"{what} needs num_heads ({H}) and num_kv_heads ({Hkv}) "
+            f"divisible by the '{_SERVING_AXIS}' mesh axis ({n}) so head "
+            "blocks keep the GQA grouping shard-local")
 
 
 # ---------------------------------------------------------------------------
@@ -185,7 +242,13 @@ def _impl_flash_skip(ctx, window, packed, q, k_all, v_all, kv_pos):
 
 
 def _impl_flash_cp(ctx, window, packed, q, k_all, v_all, kv_pos):
-    _not_ported("flash_cp (context-parallel over a device mesh)", "A10")
+    if ctx.collect_stats or packed:
+        return _impl_dense(ctx, window, packed, q, k_all, v_all, kv_pos)
+    if _CP_MESH is None:
+        return _flash(ctx, window, packed, q, k_all, v_all, kv_pos)
+    out = L.gqa_attend_flash_cp(q, k_all, v_all, ctx.positions, kv_pos,
+                                _CP_MESH, window)
+    return out, None, None
 
 
 def _impl_auto(ctx, window, packed, q, k_all, v_all, kv_pos):
@@ -196,7 +259,37 @@ def _impl_auto(ctx, window, packed, q, k_all, v_all, kv_pos):
 
 
 def _impl_sharded(ctx, window, packed, q, k_all, v_all, kv_pos):
-    _not_ported("sharded", "A10")
+    mesh = _SERVING_MESH
+    if mesh is None:
+        # one device: the same numbers, no mesh required
+        return _impl_dense(ctx, window, packed, q, k_all, v_all, kv_pos)
+    cfg = ctx.cfg
+    ax = _SERVING_AXIS
+    _check_head_split("sharded backend", mesh, q.shape[2], k_all.shape[2])
+    has_stats = ctx.collect_stats and ctx.chunk_ids is not None
+    k_chunk = ctx.chunk_ids if has_stats else None
+    if packed and ctx.pack_qidx is not None and ctx.pack_kidx is not None:
+        def body(qs, ks, vs, pos, kvp, cid, qi, ki):
+            return _block_diagonal(cfg, window, qs, ks, vs, kvp, pos, cid,
+                                   qi, ki)
+        operands = (q, k_all, v_all, ctx.positions, kv_pos, k_chunk,
+                    ctx.pack_qidx, ctx.pack_kidx)
+    else:
+        def body(qs, ks, vs, pos, kvp, sq, sk, cid):
+            return _dense_full(cfg, window, qs, ks, vs, kvp, pos, sq, sk,
+                               cid)
+        operands = (q, k_all, v_all, ctx.positions, kv_pos,
+                    ctx.seg_ids if packed else None,
+                    ctx.kv_seg if packed else None, k_chunk)
+    shard4 = P(None, None, ax, None)
+    parts = shard_map(body, mesh=mesh, in_specs=(shard4,) * 3 + (P(),) * 5,
+                      axis=ax)(*operands)
+    # the all-gather moves data only: each head's output keeps the
+    # unsharded oracle's bits; the head-summed mass is summed over shards
+    out = all_gather([o for o, _, _ in parts], dim=2)
+    if not has_stats:
+        return out, None, None
+    return out, psum([r for _, r, _ in parts]), psum([k for _, _, k in parts])
 
 
 def _impl_kernel(ctx, window, packed, q, k_all, v_all, kv_pos):
@@ -240,13 +333,16 @@ def _impl_paged(ctx, window, packed, q, k_all, v_all, kv_pos):
     kg = torch.where(valid[..., None, None], k_all[safe], zero)
     vg = torch.where(valid[..., None, None], v_all[safe], zero)
     kvp = torch.where(valid, kv_pos[safe], torch.full_like(kv_pos[safe], -1))
+    if _SERVING_MESH is not None:
+        return _impl_sharded(ctx, window, packed, q, kg, vg, kvp)
     return _impl_dense(ctx, window, packed, q, kg, vg, kvp)
 
 
 def _impl_paged_kernel(ctx, window, packed, q, k_all, v_all, kv_pos):
     """Block-table-native decode, kernel route: the kernel walks each
     request's block-id row and reads K/V straight out of the pool twin
-    (no gather of any kind)."""
+    (no gather of any kind); under a serving mesh, one launch per shard
+    on its head slice of the twin, outputs all-gathered."""
     if (ctx.paged_block_rows is None or not ctx.paged_block_size
             or k_all.dim() != 3 or ctx.collect_stats):
         return _impl_paged(ctx, window, packed, q, k_all, v_all, kv_pos)
@@ -258,9 +354,27 @@ def _impl_paged_kernel(ctx, window, packed, q, k_all, v_all, kv_pos):
     kb = k_all.view(NBf // bs, bs, *k_all.shape[1:])
     vb = v_all.view(NBf // bs, bs, *v_all.shape[1:])
     pb = kv_pos.view(NBf // bs, bs)
-    out = paged_decode_attention(q[:, 0], kb, vb, pb, ctx.paged_block_rows,
-                                 ctx.positions[:, 0], window=window)
-    return out[:, None], None, None
+    qd, rows, qpos = q[:, 0], ctx.paged_block_rows, ctx.positions[:, 0]
+    mesh = _SERVING_MESH
+    if mesh is None:
+        out = paged_decode_attention(qd, kb, vb, pb, rows, qpos,
+                                     window=window)
+        return out[:, None], None, None
+    ax = _SERVING_AXIS
+    _check_head_split("paged_kernel", mesh, qd.shape[1], kb.shape[2])
+
+    def body(qs, ks, vs, ps, rs, qps):
+        # ks / vs: this shard's head slice of the twin, read in place; the
+        # query slice is copied (it is B x H/n x D)
+        return paged_decode_attention(qs.contiguous(), ks, vs, ps, rs, qps,
+                                      window=window)
+
+    shard_kv = P(None, None, ax, None)
+    parts = shard_map(body, mesh=mesh,
+                      in_specs=(P(None, ax, None), shard_kv, shard_kv,
+                                P(), P(), P()),
+                      axis=ax)(qd, kb, vb, pb, rows, qpos)
+    return all_gather(parts, dim=1)[:, None], None, None
 
 
 BACKENDS = {

@@ -1,12 +1,12 @@
 """Layer primitives of every family of the reference's registry, in
 PyTorch.
 
-The ported ``repro/models/layers.py``, but for its mesh-bound
-``gqa_attend_flash_cp`` (ROADMAP A10): RMS norm, RoPE
-(apply and remove), position masks with segment ids, the dense GQA
-attention oracle with the Cache-Craft chunk-mass statistic, the blocked
-flash attention of long prompts (with its balanced ``causal_skip``
-schedule), one-token decode attention, the SwiGLU FFN, the GShard MoE FFN
+The ported ``repro/models/layers.py``: RMS norm, RoPE (apply and
+remove), position masks with segment ids, the dense GQA attention oracle
+with the Cache-Craft chunk-mass statistic, the blocked flash attention of
+long prompts (with its balanced ``causal_skip`` schedule and its
+context-parallel form over a mesh axis, ``gqa_attend_flash_cp``),
+one-token decode attention, the SwiGLU FFN, the GShard MoE FFN
 with its load-balancing loss, Griffin's RG-LRU recurrence (a log-step
 scan over the sequence and the one-token step), and the Mamba2 pieces
 (causal depthwise conv, chunked SSD prefill through the ``ssd_intra``
@@ -28,6 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.collectives import all_gather, shard_map
+from repro_torch.distributed.sharding import P
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.ssd.ref import ssd_intra_ref
 
@@ -124,22 +126,32 @@ def gqa_attend_dense(q, k, v, mask, k_chunk: Optional[torch.Tensor] = None,
     statistic behind Eqs. 3-4); ``key_mass`` is the mass each key
     receives (the H2O heavy-hitter criterion)."""
     B, Tq, H, D = q.shape
-    Hkv = k.shape[2]
+    Tk, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
-    qg = q.reshape(B, Tq, Hkv, G, D)
-    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
-                          k.float()) / np.sqrt(D)
-    scores = torch.where(mask[:, None, None], scores,
+    # the products one KV head at a time, each on a contiguous [B, ...]
+    # slice: the library picks its matmul kernel by the shapes, the batch
+    # included, so a head shard of the serving mesh gets the whole call's
+    # bits only from calls of the same shapes; the row-wise softmax keeps
+    # each row's order whatever the number of rows
+    qh = q.float().view(B, Tq, Hkv, G, D).permute(2, 0, 3, 1, 4) \
+        .contiguous().view(Hkv, B, G * Tq, D)
+    kt = k.float().permute(2, 0, 3, 1).contiguous()     # [Hkv, B, D, Tk]
+    vh = v.permute(2, 0, 1, 3).contiguous()             # [Hkv, B, Tk, D]
+    scores = torch.stack([torch.matmul(qh[h], kt[h]) for h in range(Hkv)])
+    scores = scores.view(Hkv, B, G, Tq, Tk) / np.sqrt(D)
+    scores = torch.where(mask[None, :, None], scores,
                          torch.full((), NEG_INF, dtype=scores.dtype,
                                     device=scores.device))
-    probs = _safe_softmax(scores)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype), v)
-    out = out.reshape(B, Tq, H, D)
+    probs = _safe_softmax(scores)                       # [Hkv,B,G,Tq,Tk]
+    pv = probs.to(v.dtype).view(Hkv, B, G * Tq, Tk)
+    out = torch.stack([torch.matmul(pv[h], vh[h]) for h in range(Hkv)])
+    out = out.view(Hkv, B, G, Tq, D).permute(1, 3, 0, 2, 4) \
+        .reshape(B, Tq, H, D)
     row_mass, key_mass = None, None
     if k_chunk is not None:
         onehot = F.one_hot(k_chunk.long(), num_chunks).float()
-        row_mass = torch.einsum("bhgqk,bkc->bqc", probs, onehot)
-        key_mass = probs.sum(dim=(1, 2, 3))
+        row_mass = torch.einsum("hbgqk,bkc->bqc", probs, onehot)
+        key_mass = probs.sum(dim=(0, 2, 3))
     return out, row_mass, key_mass
 
 
@@ -211,6 +223,34 @@ def _flash_kv_step(carry, blk, qi, qp, scale, window):
     l = l * corr + torch.sum(p, dim=-1)
     acc = acc * corr[..., None] + torch.einsum("bqhgk,bkhd->bqhgd", p, vi)
     return m_new, l, acc
+
+
+def gqa_attend_flash_cp(q, k, v, q_pos, k_pos, mesh, window: int = 0,
+                        axis: str = "model", block_k: int = 1024):
+    """Context-parallel flash attention: query rows split over the mesh
+    ``axis``, each shard attending its slice of rows against the full KV
+    (the answer for head counts that do not divide the axis). Rows are
+    padded to a multiple of the axis size at position -1; positions
+    travel with the rows, so causality is exact despite the split. The
+    shards' outputs are concatenated in shard order and the padding cut
+    (``distributed.collectives``)."""
+    msz = mesh.shape[axis]
+    T = q.shape[1]
+    pad = (-T) % msz
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        q_pos = F.pad(q_pos, (0, pad), value=-1)
+
+    def body(qs, qps, kf, vf, kps):
+        return gqa_attend_flash(qs, kf, vf, qps, kps, window,
+                                block_q=max(128, qs.shape[1] // 4),
+                                block_k=block_k)
+
+    outs = shard_map(body, mesh=mesh,
+                     in_specs=(P(None, axis, None, None), P(None, axis),
+                               P(), P(), P()),
+                     axis=axis)(q, q_pos, k, v, k_pos)
+    return all_gather(outs, dim=1)[:, :T]
 
 
 def decode_attend(q, k, v, q_pos, k_pos, window: int = 0):

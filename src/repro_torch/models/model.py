@@ -53,6 +53,10 @@ from repro_torch.models import backend as AB
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
+# launch code installs the context-parallel mesh through the model module,
+# as in the reference; the state lives in the backend layer
+set_cp_mesh = AB.set_cp_mesh
+
 Params = Dict[str, Any]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}

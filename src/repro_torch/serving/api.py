@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import tempfile
 from dataclasses import dataclass, field, replace
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 from repro_torch.core.strategies import STRATEGIES as _STRATEGY_REGISTRY
 from repro_torch.core.strategies import get_strategy
@@ -71,8 +71,11 @@ class EngineSpec:
     store_new_chunks: bool = True
     fix_rpe: bool = True
     fix_causality: bool = True
-    # attention backend (None: "dense" prefill windows, "auto" decode)
+    # attention backend (None: "dense" prefill windows, "auto" decode) /
+    # tensor-parallel serving mesh (``launch.mesh.make_serving_mesh``;
+    # forces "sharded" and a head-sharded pool)
     attn_impl: Optional[str] = None
+    mesh: Any = None
     # KV pool
     pool_blocks: int = 4096
     block_size: int = 16
@@ -228,6 +231,11 @@ def build_engine(spec: EngineSpec, *, cfg=None, params=None,
         cfg = build_cfg(spec)
     if params is None:
         params = build_params(spec, cfg)
+    if spec.mesh is not None:
+        from repro_torch.distributed.sharding import serving_kv_shards
+        # indivisible heads raise here, before a store (and its worker
+        # thread) is built
+        serving_kv_shards(spec.mesh, cfg)
     if store is _UNSET:
         store = build_store(spec.store) \
             if get_strategy(spec.strategy).needs_store else None
@@ -249,4 +257,4 @@ def build_engine(spec: EngineSpec, *, cfg=None, params=None,
         share_chunk_kv=spec.share_chunk_kv,
         trace_decode=spec.trace_decode,
         attn_impl=spec.attn_impl, paged_decode=spec.paged_decode,
-        device=spec.device)
+        mesh=spec.mesh, device=spec.device)

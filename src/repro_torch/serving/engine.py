@@ -31,6 +31,13 @@ write-back attaches hit chunks' canonical pool-resident runs
 fresh blocks only for miss/question segments; admission reserves only
 the delta blocks (``_estimate_blocks``).
 
+Tensor-parallel serving (``mesh``, a ``launch.mesh.make_serving_mesh``
+mesh): the engine validates the head split (``serving_kv_shards``),
+installs the mesh in the attention backend (``set_serving_mesh``),
+forces ``attn_impl="sharded"`` and keeps a head-sharded pool
+(``kv_shards``), as the reference does; ``attn_flops_device`` counts
+one shard's share.
+
 Preemption, cancellation and expiry share one ``_teardown``: shared-run
 readers released, table blocks and the open reservation reclaimed in one
 pool op, so ``free + live + reserved == num_blocks`` holds throughout.
@@ -138,14 +145,25 @@ class Engine:
                  trace_decode: bool = False,
                  attn_impl: Optional[str] = None,
                  paged_decode: bool = False,
+                 mesh=None,
                  device="cuda"):
         self.device = devmod.resolve(device)
         self.cfg = cfg
         self.params = params
         self.store = store
         # attention backend (models.backend.BACKENDS). None keeps the
-        # reference's split: "dense" prefill windows, "auto" decode
+        # reference's split: "dense" prefill windows, "auto" decode. A
+        # serving mesh forces "sharded" and a head-sharded pool
+        self.mesh = mesh
+        kv_shards = 1
+        if mesh is not None:
+            from repro_torch.distributed.sharding import serving_kv_shards
+            from repro_torch.models import backend as AB
+            kv_shards = serving_kv_shards(mesh, cfg)
+            AB.set_serving_mesh(mesh)
+            attn_impl = "sharded"
         self.attn_impl = attn_impl
+        self.kv_shards = kv_shards
         ek = dict(strategy=strategy, use_focus=use_focus,
                   force_recompute_fraction=force_recompute_fraction,
                   layerwise_load=layerwise_load,
@@ -159,7 +177,8 @@ class Engine:
         self.scheduler = Scheduler(sched or SchedulerConfig())
         self.counters = ServingCounters()
         self.pool = KVPool(cfg.num_layers, cfg.num_kv_heads, cfg.head_dim_,
-                           pool_blocks, block_size, counters=self.counters)
+                           pool_blocks, block_size, counters=self.counters,
+                           kv_shards=kv_shards)
         # zero-copy chunk sharing needs a store AND layout-local positions
         # (fix_rpe/fix_causality); a recompute fraction of 1.0 rewrites
         # every cached row, leaving nothing shareable
@@ -381,12 +400,12 @@ class Engine:
 
     def _count_attn_flops(self, tq: int, tk: int):
         """Analytic attention FLOPs for one pass (score + PV products over
-        all layers, 4*Tq*Tk*H*D each); single device, so the per-device
-        share equals the total."""
+        all layers, 4*Tq*Tk*H*D each); a head shard does 1/kv_shards of
+        them."""
         f = 4 * tq * tk * self.cfg.num_heads * self.cfg.head_dim_ \
             * self.cfg.num_layers
         self.counters.attn_flops_total += f
-        self.counters.attn_flops_device += f
+        self.counters.attn_flops_device += f // self.kv_shards
 
     def _run_prefills(self, reqs: Sequence[Request]):
         """Packed multi-request prefill: every admitted request's

@@ -13,7 +13,9 @@ runs on a background thread.
 Leaves are stored as numpy arrays: tensors are copied to the host as
 they are (numpy has no bfloat16 here, so a bf16 leaf raises). The
 reference's ``shardings`` argument of ``restore`` (re-laying leaves out
-over a device mesh) comes with the distributed port (ROADMAP A10).
+over a device mesh, and its elastic reshard) is not ported: the port's
+mesh (``launch/mesh.py``) serves in one process, and sharded training
+waits for a multi-process mesh (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -111,7 +113,7 @@ def restore(directory: str, step: Optional[int] = None,
             device=None) -> Any:
     """Load checkpoint ``step`` (default: the latest). Leaves are numpy
     arrays, or tensors on ``device`` when one is given. (The reference's
-    ``shardings`` argument waits for the distributed port, ROADMAP A10.)"""
+    ``shardings`` argument is not ported, ROADMAP A10.)"""
     if step is None:
         step = latest_step(directory)
         if step is None:

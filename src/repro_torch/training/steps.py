@@ -8,8 +8,10 @@ layer group (``cfg.remat``, set in the model) and AdamW. The params of a
 ``TrainState`` are leaf tensors that require grad; the serving engine
 and executor run under ``torch.no_grad()``, and params restored for
 serving (``serving/api.py``, ``params_path``) carry no grad. The
-reference's int8 error-feedback gradient compression across data-
-parallel ranks comes with the distributed port (ROADMAP A10).
+reference's int8 error-feedback gradient all-reduce is ported as
+``distributed/compression.py`` over per-shard gradient trees; the train
+step's ``grad_specs`` (grads laid out over a data-parallel mesh) waits
+for a multi-process mesh (ROADMAP A10).
 
 The serving roots are plain closures ``(params, batch) -> (logits,
 cache)`` over ``models.model``: ``batch`` holds ``tokens`` (or

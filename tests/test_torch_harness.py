@@ -64,7 +64,11 @@ def test_port_imports_no_jax_and_no_reference():
                      "repro_torch.configs.musicgen_medium",
                      "repro_torch.configs.recurrentgemma_9b",
                      "repro_torch.configs.llama3_2_vision_90b",
-                     "repro_torch.core.select"):
+                     "repro_torch.core.select",
+                     "repro_torch.launch.mesh",
+                     "repro_torch.distributed.sharding",
+                     "repro_torch.distributed.collectives",
+                     "repro_torch.distributed.compression"):
             assert must in sys.modules, must
         print(len(names))
     """)
@@ -104,19 +108,26 @@ def test_spec_validation_names_field():
         EngineSpec(strategy="nope", device="cpu").validate()
 
 
-@pytest.mark.parametrize("impl,item", [("flash_cp", "A10"),
-                                       ("sharded", "A10")])
-def test_unported_backends_name_roadmap_item(impl, item):
-    """Registered so a spec naming them validates, but running one says
-    which ROADMAP item ports it (both need a device mesh)."""
+@pytest.mark.parametrize("impl,fallback", [("sharded", "dense"),
+                                           ("flash_cp", "flash")])
+def test_mesh_backends_without_mesh_equal_fallback(impl, fallback):
+    """With no mesh installed, ``sharded`` is ``dense`` and ``flash_cp`` is
+    ``flash``, bit for bit, as in the reference (a one-device process
+    keeps working)."""
     import numpy as np
 
+    from repro_torch.models import backend as AB
     from repro_torch.models import model as M
+    AB.set_serving_mesh(None)
+    AB.set_cp_mesh(None)
     cfg = get_tiny("llama3-8b")
     params = M.init_params(cfg, torch.Generator().manual_seed(0))
-    toks = torch.from_numpy(np.arange(8, dtype=np.int32)[None])
-    with pytest.raises(NotImplementedError, match=item):
-        M.forward(cfg, params, tokens=toks, attn_impl=impl)
+    toks = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 24))
+        .astype(np.int32))
+    got = M.forward(cfg, params, tokens=toks, attn_impl=impl)
+    want = M.forward(cfg, params, tokens=toks, attn_impl=fallback)
+    assert torch.equal(got.logits, want.logits)
 
 
 @pytest.mark.parametrize("kind", ["xattn", "rglru"])

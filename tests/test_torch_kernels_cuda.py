@@ -369,39 +369,120 @@ def test_chunk_cuda_g16_head_dim_256_mqa_full_width(counts, dtype):
     np.testing.assert_allclose(_np(m), _np(mrf), **tol)
 
 
+# (A, S, H, Hkv, D, window, dead trailing keys): recurrentgemma-9b's local
+# layers (16 heads summed) and llama-3.2-vision-90b's attn layers (A 2048
+# rows over its 2056-slot cache, 64 heads summed)
+MASS_SHAPES = {"recurrentgemma": (4096, 4096, 16, 1, 256, 2048, 0),
+               "vision": (2048, 2056, 64, 8, 128, 0, 8)}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("chunks", [1, 16])
-def test_chunk_cuda_mass_long_rows_unbiased(counts, chunks):
+@pytest.mark.parametrize("shape", sorted(MASS_SHAPES))
+def test_chunk_cuda_mass_long_rows_unbiased(counts, shape, chunks):
     """recurrentgemma-9b's prefill shape (A = S = 4096 positions, H 16 /
-    Hkv 1, D 256, the 2048-key window), fp32, keys in one chunk (the
-    mass is then 16 in every live row) or in 16: the chunk mass within
-    3e-5 of an fp64 version and of the plain one, and unbiased (its mean
-    error within 1e-6). A running mass that took every tile's products
-    on the tensor cores drifted low over the 64 tiles of a row."""
+    Hkv 1, D 256, the 2048-key window) and llama-3.2-vision-90b's (A 2048
+    rows, S 2056 slots of which the last 8 are dead, H 64 / Hkv 8, D 128),
+    fp32, keys in one chunk (the mass is then H in every live row) or in
+    16: the chunk mass within 3e-5 of an fp64 version and of the plain
+    one, and unbiased (its mean error within 1e-6). A running mass that
+    took every tile's products on the tensor cores drifted low over the
+    tiles of a row. The errors are printed (``pytest -s``)."""
     dev = _need_cuda()
+    A, S, H, Hkv, D, win, dead = MASS_SHAPES[shape]
+    C = 16
     rng = np.random.default_rng(4096 + chunks)
-    A, H, Hkv, D, C, win = 4096, 16, 1, 256, 16, 2048
     q = rng.normal(size=(A, H, D)).astype(np.float32)
-    k = rng.normal(size=(A, Hkv, D)).astype(np.float32)
-    v = rng.normal(size=(A, Hkv, D)).astype(np.float32)
-    pos = np.arange(A, dtype=np.int32)
-    kch = (pos * chunks // A).astype(np.int32)
-    td = _t(q, k, v, pos, pos, kch, device=dev)
+    k = rng.normal(size=(S, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(S, Hkv, D)).astype(np.float32)
+    qpos = np.arange(A, dtype=np.int32)
+    kpos = np.arange(S, dtype=np.int32)
+    if dead:
+        kpos[-dead:] = -1
+    kch = (np.maximum(kpos, 0) * chunks // max(A, S - dead)) \
+        .astype(np.int32)
+    td = _t(q, k, v, qpos, kpos, kch, device=dev)
     o, m = cops.chunk_attention(*td, num_chunks=C, window=win)
     _, mp = chunk_attention_ref(*td, num_chunks=C, window=win)
     torch.cuda.synchronize()
     assert cops.chunk_attention.launches == 1
     qd, kd = (torch.from_numpy(x).to(dev, torch.float64) for x in (q, k))
-    s = torch.einsum("ahd,shd->has", qd, kd.expand(A, H, D)) / np.sqrt(D)
-    pt = torch.from_numpy(pos).to(dev)
-    live = (pt[:, None] >= pt[None]) & (pt[:, None] - pt[None] < win)
+    kd = kd.repeat_interleave(H // Hkv, dim=1)            # [S, H, D]
+    s = torch.einsum("ahd,shd->has", qd, kd) / np.sqrt(D)
+    qt, kt = (torch.from_numpy(x).to(dev) for x in (qpos, kpos))
+    live = (qt[:, None] >= kt[None]) & (kt[None] >= 0)
+    if win:
+        live &= qt[:, None] - kt[None] < win
     p = torch.softmax(s.masked_fill(~live[None], -np.inf), -1)
+    del s
     onehot = torch.nn.functional.one_hot(td[5].long(), C).double()
     m64 = torch.einsum("has,sc->ac", p, onehot)
     err = (m.double() - m64)
+    print(f"chunk mass {shape} chunks={chunks}: max abs err vs fp64 "
+          f"{float(err.abs().max()):.3e}, mean err {float(err.mean()):.3e}")
     assert float(err.abs().max()) <= 3e-5, float(err.abs().max())
     assert abs(float(err.mean())) <= 1e-6, float(err.mean())
     np.testing.assert_allclose(_np(m), _np(mp), rtol=0, atol=3e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_paged_cuda_head_slices_read_in_place(monkeypatch, counts, n,
+                                              dtype):
+    """A head-sharded serving mesh's per-shard launch at llama3-8b's
+    heads (H 32 / Hkv 8, D 128; pool 512 x 16, B 4, NBmax 64): the shard
+    view ``[:, :, h0:h1]`` of the pool blocks reaches the kernel itself
+    (no copy), each shard is within 3e-5 (bf16 3e-2) of the plain version
+    on the same view, and the shards' outputs put together equal the
+    unsharded launch byte for byte (the key split follows the pool's head
+    count); views whose last dims are not dense raise."""
+    dev = _need_cuda()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(8 + n)
+    B, NB, bs, NBmax, H, Hkv, D = 4, 512, 16, 64, 32, 8, 128
+    q = rng.normal(size=(B, H, D)).astype(np.float32)
+    kb = rng.normal(size=(NB, bs, Hkv, D)).astype(np.float32)
+    vb = rng.normal(size=(NB, bs, Hkv, D)).astype(np.float32)
+    kpos = (np.arange(NB * bs) % 1100).reshape(NB, bs).astype(np.int32)
+    kpos[rng.random((NB, bs)) < 0.1] = -1
+    rows = np.full((B, NBmax), -1, np.int32)
+    for b, nblk in enumerate((64, 50, 30, 10)):
+        rows[b, :nblk] = rng.choice(NB, size=nblk, replace=False)
+    qpos = np.array([1023, 800, -1, 1099], np.int32)
+    tq, tk, tv, tkp, trw, tqp = _t(q, kb, vb, kpos, rows, qpos, device=dev,
+                                   dtype=dt)
+    full = dops.paged_decode_attention(tq, tk, tv, tkp, trw, tqp)
+    seen = []
+    orig = dops._call
+
+    def rec(what, entry, ptrs, ints, q_, nsplit):
+        seen.append((ptrs[1], ptrs[2], ints[6], nsplit))
+        return orig(what, entry, ptrs, ints, q_, nsplit)
+    monkeypatch.setattr(dops, "_call", rec)
+    hs, gs = Hkv // n, H // n
+    outs = []
+    for s in range(n):
+        ks, vs = tk[:, :, s * hs:(s + 1) * hs], tv[:, :, s * hs:(s + 1) * hs]
+        qs = tq[:, s * gs:(s + 1) * gs].contiguous()
+        o = dops.paged_decode_attention(qs, ks, vs, tkp, trw, tqp)
+        k_in, v_in, kvh, ns = seen[-1]
+        assert k_in is ks and v_in is vs and not ks.is_contiguous()
+        assert kvh == Hkv
+        assert ns == dops.num_splits(B, NBmax * bs, Hkv, dt, block=bs)
+        r = dops.paged_decode_attention_ref(qs, ks, vs, tkp, trw, tqp)
+        np.testing.assert_allclose(_np(o), _np(r), **(
+            F32 if dtype == "float32" else BF16))
+        outs.append(o)
+    torch.cuda.synchronize()
+    assert dops.paged_decode_attention.launches == n + 1
+    assert torch.equal(torch.cat(outs, dim=1), full)
+    # every other column; every other head
+    for bad in (tk[..., ::2], tk[:, :, ::2]):
+        with pytest.raises(ValueError, match="dense"):
+            dops.paged_decode_attention(
+                tq[:, :bad.shape[2] * (H // Hkv), :bad.shape[3]]
+                .contiguous(), bad, bad, tkp, trw, tqp)
 
 
 @pytest.mark.cuda

@@ -443,18 +443,21 @@ def _decode(fd, q, k, v, qp, kp, window, nsplit=None):
 
 
 def _paged(fp, q, kb, vb, kp, rw, qp, window, nsplit=None):
-    """Pool-block inputs through the emulated paged kernel, with the
-    wrapper's split over whole blocks unless ``nsplit`` is given."""
+    """Pool-block inputs (or a head slice of the pool blocks) through the
+    emulated paged kernel, with the wrapper's slot stride and split over
+    whole blocks unless ``nsplit`` is given."""
     B, H, D = q.shape
     NB, bs, Hkv = kb.shape[:3]
     NBmax = rw.shape[1]
+    kvh = dops._slot_heads("paged", kb, vb, tuple(kb.shape), q.dtype,
+                           q.device)
     if nsplit is None:
-        nsplit = dops.num_splits(B, NBmax * bs, Hkv, q.dtype, block=bs)
+        nsplit = dops.num_splits(B, NBmax * bs, kvh, q.dtype, block=bs)
     out = torch.empty_like(q)
     work = torch.empty(max(1, dops.workspace_floats(B, H, D, nsplit)))
     assert fp(q.data_ptr(), kb.data_ptr(), vb.data_ptr(), kp.data_ptr(),
               rw.data_ptr(), qp.data_ptr(), out.data_ptr(), work.data_ptr(),
-              B, NB, NBmax, bs, H, Hkv, D, window,
+              B, NB, NBmax, bs, H, Hkv, kvh, D, window,
               int(q.dtype == torch.bfloat16), nsplit, None) == 0
     return out
 
@@ -644,6 +647,48 @@ def test_paged_source_block_sizes_and_splits(libs, bs, dtype):
                                      nsplit=ns))
         assert float(o[2].float().abs().sum()) == 0.0
     assert torch.equal(kb, kb0) and torch.equal(vb, vb0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_paged_source_head_slices(libs, n, dtype):
+    """A head-sharded serving mesh's per-shard launches: each shard reads
+    its head slice ``[:, :, h0:h1]`` of the pool blocks in place (a view
+    strided in the head axis) and equals the plain version on that view;
+    the shards' outputs put together equal the unsharded launch byte for
+    byte (the split follows the pool's head count); a slice whose last
+    dim is not dense is refused."""
+    rng = np.random.default_rng(40 + n)
+    B, NB, bs, NBmax, H, Hkv, D = 3, 24, 8, 6, 16, 4, 32
+    dt = getattr(torch, dtype)
+    q, kb, vb = (_t(rng.normal(size=s).astype(np.float32), dt)
+                 for s in ((B, H, D), (NB, bs, Hkv, D), (NB, bs, Hkv, D)))
+    kpos = rng.integers(0, 60, (NB, bs)).astype(np.int32)
+    kpos[rng.random((NB, bs)) < 0.2] = -1
+    rows = np.full((B, NBmax), -1, np.int32)
+    for b in range(B):
+        m = int(rng.integers(2, NBmax + 1))
+        rows[b, :m] = rng.choice(NB, size=m, replace=False)
+    qpos = np.array([50, -1, 59], np.int32)
+    kp, rw, qp = _t(kpos), _t(rows), _t(qpos)
+    full = _paged(libs[2], q, kb, vb, kp, rw, qp, 0)
+    hs, gs = Hkv // n, H // n
+    outs = []
+    for s in range(n):
+        ks, vs = kb[:, :, s * hs:(s + 1) * hs], vb[:, :, s * hs:(s + 1) * hs]
+        assert not ks.is_contiguous() and ks.data_ptr() == \
+            kb.data_ptr() + s * hs * D * kb.element_size()
+        qs = q[:, s * gs:(s + 1) * gs].contiguous()
+        o = _paged(libs[2], qs, ks, vs, kp, rw, qp, 0)
+        torch.testing.assert_close(
+            o.float(), paged_decode_attention_ref(qs, ks, vs, kp, rw,
+                                                  qp).float(),
+            **_tol(dtype))
+        outs.append(o)
+    assert torch.equal(torch.cat(outs, dim=1), full)
+    bad = kb.transpose(2, 3)[:, :, :, :hs]
+    with pytest.raises(ValueError, match="dense"):
+        dops._slot_heads("paged", bad, bad, tuple(bad.shape), dt, q.device)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

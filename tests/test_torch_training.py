@@ -8,8 +8,8 @@ and tiny mamba2-370m, both packages fed the same numpy inputs:
   params at the reference's own accumulation tolerance (rtol 2e-4, atol
   1e-4, ``tests/test_training.py``);
 - the reference's own cases of ``tests/test_training.py``, on the port,
-  at their tolerances (the int8 gradient compression waits for the
-  distributed port, ROADMAP A10);
+  at their tolerances (the int8 gradient compression is held in
+  ``tests/test_torch_distributed.py``);
 - checkpoints across the packages, serving from a checkpoint
   (``EngineSpec.params_path``), ``launch/train.py`` with resume, and the
   kernel wrappers staying differentiable on CPU tensors.
