@@ -136,12 +136,25 @@ Phases (each prints its own line; any failure raises and exits non-zero):
     ``flash_cp`` against ``flash`` within 1e-5; the int8 error-feedback
     all-reduce of llama3-8b's gradients (full width, 2 layers, 1024 tokens
     per shard) over 4 shards for 8 steps within the reference's bounds;
-14. a ``kernels`` JSON line (launches on the main paths, error, times,
+14. sharded training and the dry-run (after phase 13; ``run_sharded``):
+    llama3-8b cut to 2 layers, 3 steps unsharded and 3 ZeRO-1
+    data-parallel steps (``make_train_step(..., grad_specs=...)``) over a
+    (data 4, model 1) mesh on the card from the same init, 8 x 512
+    tokens, accum 2: losses within 1e-5, params within rtol 2e-4 / atol
+    1e-4 (AdamW's sign flips aside, ``FLIP_SHARE``), every split leaf's
+    shards exactly 1/4, the counted collective bytes equal to the
+    dry-run's closed form, the sharded peak memory within one fp32 copy
+    of the params of the unsharded one; mamba2-370m cut to 2 layers, 2
+    steps on data 4, saved, restored onto data 2 (every shard its slice
+    byte for byte) and a 3rd step against data 4's; phase 5's llama3-8b/2
+    step counted on meta (``count_cell``) over its measured time; four
+    llama3-8b cells of the dry-run on meta in CPU worker processes;
+15. a ``kernels`` JSON line (launches on the main paths, error, times,
     bound, the D 256 rows, the paged kernel's per-shard call and each
     family's path shape beside them), the mamba2 and training figures,
     per-engine TTFT / decode-step figures, the server's, the families',
-    the recurrent and vision ones and the mesh phases';
-15. last line: ``{"ok": true, "device": {...}}``.
+    the recurrent and vision ones, the mesh phases' and phase 14's;
+16. last line: ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before the mamba2 phase, the training
 runs, the engine serving the trained checkpoint, engines A and B,
@@ -167,11 +180,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and the rate
-# for each operand type (fp32 outside the tensor cores; bf16 and tf32 on
-# the tensor cores)
-HBM_BPS = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 # the chunk kernel's fp32 products run as 3xTF32: three TF32 products for
 # each fp32 product, so its fp32 bound counts 3x the operations at the
 # TF32 rate (the CUDA-core figure is kept beside it); the SSD kernel's
@@ -256,9 +264,17 @@ def _fmt(ms):
     return "not measured" if ms is None else f"{ms:.4f}"
 
 
+def _roofline():
+    """The H100 SXM's peaks (NVIDIA data sheet, dense): HBM bytes/s and
+    the rate for each operand type, from the port's one home for them."""
+    from repro_torch.launch import roofline
+    return roofline
+
+
 def bound(nbytes, flops, dtype):
-    t_b = nbytes / HBM_BPS
-    t_f = flops / PEAK_FLOPS[dtype]
+    rl = _roofline()
+    t_b = nbytes / rl.HBM_BW
+    t_f = flops / rl.PEAK_FLOPS_BY_TYPE[dtype]
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -965,10 +981,11 @@ def _ssd_bound(nC, L, H, P, N, nbytes, dt_name):
     pairs = L * (L + 1) // 2            # causal (i >= j) pairs per chunk
     core = nC * (2 * N * pairs + H * pairs)        # C B^T, decay * scores
     tc = nC * (2 * H * P * pairs + 2 * H * P * N * L)   # y and states
-    rate = PEAK_FLOPS["tf32" if dt_name == "float32" else "bfloat16"]
-    t_ops = core / PEAK_FLOPS["float32"] + TF32_PASSES * tc / rate
-    t_b = nbytes / HBM_BPS
-    b_cores = max(t_b, (core + tc) / PEAK_FLOPS["float32"]) * 1e3
+    peaks = _roofline().PEAK_FLOPS_BY_TYPE
+    rate = peaks["tf32" if dt_name == "float32" else "bfloat16"]
+    t_ops = core / peaks["float32"] + TF32_PASSES * tc / rate
+    t_b = nbytes / _roofline().HBM_BW
+    b_cores = max(t_b, (core + tc) / peaks["float32"]) * 1e3
     return (max(t_b, t_ops) * 1e3, "bytes" if t_b >= t_ops else
             "operations", b_cores, (core + tc) / 1e9)
 
@@ -1473,13 +1490,12 @@ def train_run(cfg, dev, card):
 
     from repro_torch.training.optimizer import tree_leaves
 
+    rl = _roofline()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     state, step, batch = _train_setup(cfg, dev)
     n_params = sum(x.numel() for x in tree_leaves(state.params))
-    # parameters that enter a matrix product (the embedding is a lookup)
-    n_matmul = n_params - state.params["embed"].numel()
     t0 = time.perf_counter()
     witness = grad_norm_witness(cfg, state, batch(0))
     init = [_eval_loss(cfg, state, batch(i)) for i in range(TRAIN_STEPS)]
@@ -1514,13 +1530,14 @@ def train_run(cfg, dev, card):
         step_ms=step_ms, step_ms_min=float(np.min(ms[1:])),
         step_ms_max=float(np.max(ms[1:])), step_ms_first=ms[0],
         tokens_per_s=tokens / (step_ms / 1e3),
-        # the matrix products of forward and backward, 6 x params x
-        # tokens over the params that multiply (remat's second forward
-        # and attention's products not counted), and its share of the
-        # fp32 peak (TF32 is off)
-        model_tflops_per_s=6 * n_matmul * tokens / (step_ms / 1e3) / 1e12,
-        model_share_of_fp32_peak=6 * n_matmul * tokens / (step_ms / 1e3)
-        / PEAK_FLOPS["float32"],
+        # the model FLOPs of a step (roofline.model_flops_6nd: 6 x
+        # params x tokens, the embedding included, remat's second forward
+        # and attention's products not) and their share of the fp32 peak
+        # (TF32 is off): the MFU, as the reference's roofline defines it
+        model_tflops_per_s=rl.model_flops_6nd(
+            cfg, "train", TRAIN_BATCH, TRAIN_SEQ) / (step_ms / 1e3) / 1e12,
+        mfu_fp32=rl.model_flops_6nd(cfg, "train", TRAIN_BATCH, TRAIN_SEQ)
+        / (step_ms / 1e3) / rl.PEAK_FLOPS_BY_TYPE["float32"],
         peak_mem_gb=peak / 1e9)
     log(f"train {cfg.name} ({cfg.num_layers} layers, {n_params / 1e9:.3f}B "
         f"params fp32) [{card}]: " + json.dumps(figs))
@@ -2731,6 +2748,347 @@ def run_recurrent_vision(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: sharded training and the dry-run
+# ---------------------------------------------------------------------------
+# a (data 4, model 1) mesh on the one card; 8 x 512 tokens, the 4096 of
+# phase 5's batch, so that accum 2 x dp 4 divides the rows
+SHARD_DP, SHARD_BATCH, SHARD_SEQ, SHARD_STEPS = 4, 8, 512, 3
+# tests/test_torch_training.py: each loss, and the final params (the
+# reference's own accumulation tolerance, tests/test_training.py)
+LOSS_RTOL = 1e-5
+PARAM_TOL = dict(rtol=2e-4, atol=1e-4)
+# AdamW's step lr * m / (sqrt(v) + eps) is ~ +-lr wherever |grad| >> eps
+# and swings with a grad near eps = 1e-8: an embedding element whose few
+# contributions nearly cancel moves by a good part of lr when the fp32
+# sums run in another order (data-parallel shards against one batch).
+# On the H100 at full width that was 4 of llama3-8b's 525M embedding
+# elements (gap 1.31e-4) and 1 of mamba2's 51.6M (1.39e-4), their v at
+# ~3.4e-10 (PERF.md §6). So, as tests/test_torch_training.py
+# allows tiny mamba2's first step: at most FLIP_SHARE of a leaf may lie
+# outside PARAM_TOL, each element within twice the lr summed over the
+# compared steps (the most a changed sign of the step can move it)
+FLIP_SHARE = 1e-6
+DRYRUN_CELLS = (("train_4k", False), ("prefill_32k", False),
+                ("prefill_32k", True), ("decode_32k", False))
+
+
+def _dryrun_cell(shape, cc):
+    """One llama3-8b dry-run cell on the single production mesh, on meta
+    (a worker process: CPU only)."""
+    from repro_torch.launch import dryrun
+    return dryrun.run_cell("llama3-8b", shape, "single", cc=cc)
+
+
+def _shard_setup(cfg, dev, seed=0):
+    """A fresh state from ``seed`` on ``dev``, the phase's AdamW config
+    and its synthetic batches."""
+    import torch
+
+    from repro_torch.training import steps as TS
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import AdamWConfig
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    data = SyntheticLM(DataConfig(seq_len=SHARD_SEQ, global_batch=SHARD_BATCH,
+                                  vocab_size=cfg.vocab_size))
+
+    def batch(i):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch(i).items()}
+    return (TS.init_train_state(cfg, gen), AdamWConfig(**_train_opt(cfg)),
+            batch)
+
+
+def _peak(dev):
+    import torch
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+
+
+def _reset_peak(dev):
+    import torch
+    _free()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _steps(step, state, batch, dev, first=0, n=SHARD_STEPS):
+    """``n`` steps from batch ``first``: (state, losses, ms per step on
+    the host clock around work that ends in a synchronise, lrs)."""
+    from repro_torch import device as devmod
+    losses, ms, lrs = [], [], []
+    for i in range(first, first + n):
+        b = batch(i)
+        devmod.sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        lrs.append(float(m["lr"]))
+        devmod.sync(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, losses, ms, lrs
+
+
+def _leaf_names(tree, prefix=""):
+    """Leaf paths in ``tree_leaves`` order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def _params_gap(names, got_leaves, want_leaves, extra=()):
+    """(worst abs diff, the leaves outside PARAM_TOL) of two leaf lists;
+    per leaf outside: its name, the elements outside, the worst gap and,
+    at that element, both values and those of ``extra`` (pairs of leaf
+    lists, such as the two runs' ``v``)."""
+    import torch
+    worst, bad = 0.0, []
+    for j, (n, g, w) in enumerate(zip(names, got_leaves, want_leaves,
+                                      strict=True)):
+        g, w = g.detach(), w.to(g.device)
+        d = (g - w).abs()
+        worst = max(worst, float(d.max()))
+        out = ~torch.isclose(g, w, **PARAM_TOL)
+        if out.any():
+            i = int(d.flatten().argmax())
+            bad.append(dict(leaf=n, shape=list(g.shape), numel=g.numel(),
+                            outside=int(out.sum()), gap=float(d.max()),
+                            at=[float(g.flatten()[i]), float(w.flatten()[i])]
+                            + [[float(a[j].detach().flatten()[i]),
+                                float(b[j].detach().flatten()[i])]
+                               for a, b in extra]))
+    return worst, bad
+
+
+def _flips_only(bad, lrs) -> bool:
+    """Every leaf outside PARAM_TOL has at most FLIP_SHARE of its elements
+    there, each within 2 x the summed lr (``FLIP_SHARE``)."""
+    return all(b["outside"] <= FLIP_SHARE * b["numel"]
+               and b["gap"] <= 2 * sum(lrs) for b in bad)
+
+
+def zero1_check(cfg, dev):
+    """``SHARD_STEPS`` steps of ``cfg`` unsharded, then data-parallel over
+    a (data 4, model 1) mesh on ``dev`` (``make_train_step(...,
+    grad_specs=...)``) from the same init: losses within LOSS_RTOL, final
+    params within PARAM_TOL (but for AdamW's sign flips, ``FLIP_SHARE``),
+    every ZeRO-1-split leaf's grad block and
+    ``m`` / ``v`` shards exactly 1/4 of the leaf (``shard_bytes`` and the
+    tensors), the counted reduce-scatter / all-gather / all-reduce bytes
+    equal to the dry-run's closed form, and on the card the sharded peak
+    memory within one fp32 copy of the params of the unsharded one."""
+    import numpy as np
+
+    from repro_torch.distributed import collectives as CO
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import data_axes, make_debug_mesh
+    from repro_torch.training import steps as TS
+    from repro_torch.training.optimizer import tree_leaves
+
+    _reset_peak(dev)
+    state, opt, batch = _shard_setup(cfg, dev)
+    param_bytes = sum(x.numel() * 4 for x in tree_leaves(state.params))
+    step = TS.make_train_step(cfg, opt, accum=TRAIN_ACCUM)
+    state, loss_plain, ms_plain, lrs = _steps(step, state, batch, dev)
+    peak_plain = _peak(dev)
+    names = _leaf_names(state.params)
+    want = [x.detach().cpu() for x in tree_leaves(state.params)]
+    want_v = [x.detach().cpu() for x in tree_leaves(state.opt["v"])]
+    del state, step
+    _reset_peak(dev)
+    mesh = make_debug_mesh((SHARD_DP, 1), device=dev)
+    shs = TS.train_shardings(cfg, mesh)
+    state, opt, batch = _shard_setup(cfg, dev)
+    sst = TS.shard_state(state, shs)
+    del state
+    step = TS.make_train_step(cfg, opt, accum=TRAIN_ACCUM,
+                              grad_specs=shs["opt"]["m"])
+    CO.reset_bytes()
+    sst, loss_sh, ms_sh, _ = _steps(step, sst, batch, dev)
+    peak_sh = _peak(dev)
+    counted = dict(CO.BYTES)
+    closed = {k: SHARD_STEPS * v for k, v in
+              dryrun.zero1_collective_bytes(cfg, mesh, TRAIN_ACCUM).items()}
+    worst, bad = _params_gap(
+        names, [SH.unshard(st) for st in tree_leaves(sst.params)], want,
+        extra=[([SH.unshard(st) for st in tree_leaves(sst.opt["v"])],
+                want_v)])
+    split = {"leaves": 0, "leaf_bytes": 0, "shard_bytes": 0}
+    for st, g, m, v in zip(tree_leaves(sst.params),
+                           tree_leaves(shs["opt"]["m"]),
+                           tree_leaves(sst.opt["m"]),
+                           tree_leaves(sst.opt["v"])):
+        if SH.data_dim(g.spec, data_axes(mesh)) is None:
+            continue
+        per = SH.shard_bytes(st.shape, st.dtype, g)
+        full = 4 * int(np.prod(st.shape))
+        if per * SHARD_DP != full or any(
+                x.numel() * 4 != per for x in list(m.shards.flat)
+                + list(v.shards.flat)):
+            raise RuntimeError(f"zero1: a shard of a {st.shape} leaf holds "
+                               f"{per} of {full} bytes")
+        split["leaves"] += 1
+        split["leaf_bytes"] += full
+        split["shard_bytes"] += per
+    rel = float(np.max(np.abs(np.array(loss_sh) - loss_plain)
+                       / np.abs(loss_plain)))
+    out = dict(model=f"{cfg.name}/{cfg.num_layers}", dp=SHARD_DP,
+               tokens=f"{SHARD_BATCH} x {SHARD_SEQ}", accum=TRAIN_ACCUM,
+               losses_plain=loss_plain, losses_sharded=loss_sh,
+               loss_rel_gap=rel, params_worst_abs=worst,
+               params_outside_tol=bad, flip_bound=2 * sum(lrs),
+               step_ms_plain=ms_plain,
+               step_ms_sharded=ms_sh, peak_gb_plain=peak_plain and
+               peak_plain / 1e9, peak_gb_sharded=peak_sh and peak_sh / 1e9,
+               param_fp32_gb=param_bytes / 1e9, zero1_split=split,
+               coll_bytes_counted=counted, coll_bytes_closed_form=closed)
+    log(f"zero1 {out['model']} on a (data {SHARD_DP}, model 1) mesh: "
+        + json.dumps(out))
+    if rel > LOSS_RTOL or not _flips_only(bad, lrs):
+        raise RuntimeError(f"zero1: sharded vs unsharded loss gap {rel:.3e}, "
+                           f"leaves outside {PARAM_TOL}: {bad}")
+    if split["shard_bytes"] * SHARD_DP != split["leaf_bytes"] or \
+            not split["leaves"]:
+        raise RuntimeError(f"zero1: shards are not 1/{SHARD_DP}: {split}")
+    if counted != closed:
+        raise RuntimeError(f"zero1: counted collective bytes {counted} != "
+                           f"the closed form {closed}")
+    if peak_sh is not None and peak_sh > peak_plain + param_bytes:
+        raise RuntimeError(f"zero1: sharded peak {peak_sh / 1e9:.2f} GB > "
+                           f"unsharded {peak_plain / 1e9:.2f} GB + one fp32 "
+                           f"copy of the params ({param_bytes / 1e9:.2f})")
+    return out
+
+
+def elastic_check(cfg, dev, tmp):
+    """2 steps on (data 4, model 1), ``checkpoint.save``, then
+    ``restore(shardings=...)`` onto (data 2, model 1): every restored
+    shard equals its slice of the saved array byte for byte, and a 3rd
+    step there matches a 3rd step on data 4 within LOSS_RTOL / PARAM_TOL
+    (but for AdamW's sign flips, ``FLIP_SHARE``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import steps as TS
+    from repro_torch.training.optimizer import tree_leaves
+
+    _reset_peak(dev)
+    sh4, sh2 = (TS.train_shardings(cfg, make_debug_mesh((n, 1), device=dev))
+                for n in (SHARD_DP, SHARD_DP // 2))
+    state, opt, batch = _shard_setup(cfg, dev)
+    st4 = TS.shard_state(state, sh4)
+    del state
+    step4 = TS.make_train_step(cfg, opt, accum=TRAIN_ACCUM,
+                               grad_specs=sh4["opt"]["m"])
+    st4, _, _, _ = _steps(step4, st4, batch, dev, n=2)
+    t0 = time.perf_counter()
+    ckpt.save(TS.state_to_tree(st4), tmp, 2)
+    tree = ckpt.restore(tmp, shardings=sh2)
+    io_s = time.perf_counter() - t0
+    saved = ckpt.restore(tmp)
+    shards = differ = 0
+    for st, arr in zip(tree_leaves(tree), tree_leaves(saved)):
+        for idx in np.ndindex(st.shards.shape):
+            want = torch.from_numpy(np.array(
+                arr[SH.shard_slices(arr.shape, st.sharding, idx)]))
+            shards += 1
+            differ += not torch.equal(st.shards[idx].detach().cpu(), want)
+    del saved
+    st2 = TS.sharded_state_from_tree(tree)
+    step2 = TS.make_train_step(cfg, opt, accum=TRAIN_ACCUM,
+                               grad_specs=sh2["opt"]["m"])
+    st2, l2, _, lrs = _steps(step2, st2, batch, dev, first=2, n=1)
+    st4, l4, _, _ = _steps(step4, st4, batch, dev, first=2, n=1)
+    worst, bad = _params_gap(
+        _leaf_names(st2.params),
+        [SH.unshard(st) for st in tree_leaves(st2.params)],
+        [SH.unshard(st) for st in tree_leaves(st4.params)])
+    rel = abs(l2[0] - l4[0]) / abs(l4[0])
+    out = dict(model=f"{cfg.name}/{cfg.num_layers}", saved_dp=SHARD_DP,
+               restored_dp=SHARD_DP // 2, shards=shards,
+               shards_differ=differ, save_restore_s=io_s,
+               loss_dp2=l2[0], loss_dp4=l4[0], loss_rel_gap=rel,
+               params_worst_abs=worst, params_outside_tol=bad,
+               flip_bound=2 * sum(lrs))
+    log("elastic restart: " + json.dumps(out))
+    if differ or rel > LOSS_RTOL or not _flips_only(bad, lrs):
+        raise RuntimeError(f"elastic restart: {out}")
+    return out
+
+
+def run_sharded(dev, card, training):
+    """Phase 14: the ZeRO-1 data-parallel train step and the elastic
+    restore on the card, the roofline figures of phase 5's llama3-8b/2
+    step (``count_step`` on meta over the measured step time), and the
+    dry-run's llama3-8b cells on the single production mesh, on meta in
+    worker processes while the card works."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+    rl = _roofline()
+    t_phase = time.perf_counter()
+    out = {}
+    with cf.ProcessPoolExecutor(len(DRYRUN_CELLS),
+                                mp_context=mp.get_context("spawn")) as pool:
+        futs = [pool.submit(_dryrun_cell, s, cc) for s, cc in DRYRUN_CELLS]
+        llama2 = get_config("llama3-8b").replace(num_layers=2)
+        out["zero1"] = zero1_check(llama2, dev)
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-elastic-") \
+                as tmp:
+            out["elastic"] = elastic_check(
+                get_config("mamba2-370m").replace(num_layers=2), dev, tmp)
+        _free()
+        # phase 5's llama3-8b/2 step (4 x 1024 tokens, accum 2, fp32):
+        # its matrix-product FLOPs counted on meta, over its step time
+        mesh = dryrun.meta_mesh(make_debug_mesh((1, 1), device="cpu"))
+        flops, _ = dryrun.count_cell(llama2, "train", TRAIN_BATCH,
+                                     TRAIN_SEQ, mesh, accum=TRAIN_ACCUM)
+        t = training["llama3-8b/2"]
+        out["roofline"] = dict(
+            count_step_flops=flops,
+            model_flops_6nd=rl.model_flops_6nd(llama2, "train",
+                                               TRAIN_BATCH, TRAIN_SEQ),
+            step_ms=t["step_ms"],
+            achieved_tflops=flops / (t["step_ms"] / 1e3) / 1e12,
+            share_of_fp32_peak=flops / (t["step_ms"] / 1e3)
+            / rl.PEAK_FLOPS_BY_TYPE["float32"],
+            mfu_fp32=t["mfu_fp32"])
+        log(f"roofline of the llama3-8b/2 train step [{card}]: "
+            + json.dumps(out["roofline"]))
+        cells = [f.result(timeout=600) for f in futs]
+    out["dryrun"] = {}
+    for (shape, cc), rec in zip(DRYRUN_CELLS, cells):
+        tag = shape + (" cc" if cc else "")
+        if rec["status"] != "ok":
+            raise RuntimeError(f"dry-run llama3-8b {tag}: {rec.get('error')}"
+                               f"\n{rec.get('traceback')}")
+        m, r = rec["memory"], rec["roofline"]
+        out["dryrun"][tag] = dict(
+            argument_gib=m["argument_gib"], resident_gib=m["resident_gib"],
+            fits_80gb=m["fits_80gb"], dominant=r["dominant"],
+            compute_s=r["compute_s"], memory_s=r["memory_s"],
+            collective_s=r["collective_s"], count_s=rec["count_s"])
+    log("dry-run llama3-8b, single production mesh (256 shards), meta, "
+        "accounting with the H100 SXM constants: "
+        + json.dumps(out["dryrun"]))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 14 (sharded training and the dry-run): "
+        f"{out['seconds']:.1f}s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2933,6 +3291,8 @@ def main() -> int:
     recvis = run_recurrent_vision(dev)
     # phase 13: context-parallel flash and the EF gradient all-reduce
     cp_ef = run_cp_ef(dev)
+    # phase 14: sharded training, the elastic restore and the dry-run
+    sharded = run_sharded(dev, card, training)
     # chunk_attention at the path's most frequent shape, on the inputs of
     # engine A's first call of that shape
     path_shape = hist[0][0]
@@ -2969,8 +3329,8 @@ def main() -> int:
     err_a = compare_logits("A(kernel)", tr_a, tok_a, tr_c, tok_c)
     err_b = compare_logits("B(paged_kernel)", tr_b, tok_b, tr_c, tok_c)
 
-    # phase 14: the kernels line, the mamba2, training, engine, family,
-    # recurrent / vision and mesh figures
+    # phase 15: the kernels line, the mamba2, training, engine, family,
+    # recurrent / vision, mesh and sharded-training figures
     sources = {
         "chunk_attention": (
             "src/repro_torch/kernels/chunk_attention/csrc/chunk_attention.cu",
@@ -3176,6 +3536,8 @@ def main() -> int:
     # launch is in mesh["kernel"]
     log(f"serving mesh and context parallel [{card}]: " + json.dumps(mesh)
         + "; " + json.dumps(cp_ef))
+    log(f"sharded training and the dry-run [{card}]: "
+        + json.dumps(sharded))
     log(f"end-to-end vs dense: A max abs logit diff {err_a:.3e}, "
         f"B {err_b:.3e}; total {time.perf_counter() - t_all:.1f}s")
     log(card)    # nvidia-smi's name, power.limit line, verbatim

@@ -13,14 +13,27 @@ The serving backend reads these specs through the one-process
 ``shd`` checks the rank of its tensor against the names and returns it:
 the reference turns it into a GSPMD sharding constraint, which a
 one-process port has no counterpart of (and which the reference itself
-skips when no rules are installed). The GSPMD consumers of the rules
-(sharded training, the dry-run) are not ported.
+skips when no rules are installed).
+
+The rules' other consumers place whole tensors: ``NamedSharding(mesh,
+spec)`` is the reference's record of a layout, ``shard(x, sharding)``
+cuts a logical tensor into a ``ShardedTensor`` (one tensor per mesh
+position, as a sharded ``jax.Array`` holds one buffer per device),
+``unshard`` puts it back together, and ``shard_bytes`` is what one device
+holds. The sharded train step (``training/steps.py`` with ``grad_specs``),
+``checkpoint.restore(shardings=...)`` and the dry-run
+(``launch/dryrun.py``) use them.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
-from typing import Iterable, Mapping, Sequence
+from dataclasses import dataclass
+from typing import Any, Iterable, Mapping, Sequence
+
+import numpy as np
+import torch
 
 _STATE = threading.local()
 
@@ -235,3 +248,139 @@ def kv_cache_spec(mesh, cfg, batch_shard: bool = True,
     else:
         h_ax = d_ax = None
     return {"b": b_ax, "s": seq_axis, "h": h_ax, "d": d_ax}
+
+
+# ---------------------------------------------------------------------------
+# Whole tensors laid out on a mesh
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class NamedSharding:
+    """A layout: ``spec`` (a ``P``) over ``mesh`` (``launch.mesh.Mesh``),
+    as the reference's ``jax.sharding.NamedSharding``."""
+    mesh: Any
+    spec: P
+
+
+def _dim_axes(spec: P, ndim: int) -> list:
+    """The mesh axes each of ``ndim`` dimensions is split over (a tuple,
+    empty where the dimension is replicated)."""
+    if len(spec) > ndim:
+        raise ValueError(f"spec {spec} has more entries than {ndim} dims")
+    out = []
+    for e in tuple(spec) + (None,) * (ndim - len(spec)):
+        if e is None or e is P.UNCONSTRAINED:
+            out.append(())
+        else:
+            out.append((e,) if isinstance(e, str) else tuple(e))
+    return out
+
+
+def data_dim(spec: P, data_axes: Iterable[str]):
+    """The dimension ``spec`` splits over any of ``data_axes``, or None."""
+    data_axes = tuple(data_axes)
+    for i, axes in enumerate(_dim_axes(spec, len(spec))):
+        if any(a in data_axes for a in axes):
+            return i
+    return None
+
+
+def shard_slices(shape: Sequence[int], sharding: NamedSharding,
+                 index: Sequence[int]) -> tuple:
+    """The slice of a tensor of ``shape`` held at mesh position ``index``.
+    A dimension split over axes (a, b) is cut into size(a) x size(b)
+    blocks, block a_i x size(b) + b_i at (a_i, b_i), the axes taken in
+    the spec's order (the rules list them in mesh-axis order), as GSPMD
+    cuts it; blocks are ceil(dim / blocks) long, so the last ones may be
+    short or empty, where GSPMD pads."""
+    mesh = sharding.mesh
+    names = mesh.axis_names
+    out = []
+    for size, axes in zip(shape, _dim_axes(sharding.spec, len(shape))):
+        k, n = 0, 1
+        for a in axes:
+            k = k * mesh.shape[a] + index[names.index(a)]
+            n *= mesh.shape[a]
+        c = -(-size // n)
+        out.append(slice(min(k * c, size), min((k + 1) * c, size)))
+    return tuple(out)
+
+
+def shard_bytes(shape: Sequence[int], dtype: torch.dtype,
+                sharding: NamedSharding) -> int:
+    """Bytes one device holds of a tensor of ``shape`` and ``dtype`` laid
+    out by ``sharding``: every split dimension rounded up to a whole
+    block, as GSPMD pads an uneven shard."""
+    n = 1
+    for size, axes in zip(shape, _dim_axes(sharding.spec, len(shape))):
+        parts = math.prod(sharding.mesh.shape[a] for a in axes)
+        n *= -(-size // parts)
+    return n * torch.empty((), dtype=dtype, device="meta").element_size()
+
+
+class ShardedTensor:
+    """A logical tensor of ``shape`` and ``dtype`` laid out by
+    ``sharding``: ``shards`` is a numpy object array shaped like the mesh,
+    one tensor per position on that position's device. Positions that
+    hold the same slice on the same device share one tensor (a
+    replicated leaf on a mesh whose shards share a card is one tensor,
+    not copies)."""
+
+    def __init__(self, shards: np.ndarray, sharding: NamedSharding,
+                 shape: Sequence[int], dtype: torch.dtype):
+        self.shards = shards
+        self.sharding = sharding
+        self.shape = tuple(shape)
+        self.dtype = dtype
+
+    def __repr__(self):
+        return (f"ShardedTensor({self.shape}, {self.dtype}, "
+                f"{self.sharding.spec} over {self.sharding.mesh.shape})")
+
+
+def _full(sl, shape) -> bool:
+    return all(s.start == 0 and s.stop == n for s, n in zip(sl, shape))
+
+
+def shard(x: torch.Tensor, sharding: NamedSharding) -> ShardedTensor:
+    """Lay ``x`` out by ``sharding`` (``jax.device_put(x, sharding)``).
+    A position whose slice is the whole of ``x`` on ``x``'s own device
+    holds ``x`` itself; a split slice is a contiguous copy of its own, so
+    that ``x`` can be freed; a slice is copied once per device however
+    many positions hold it there."""
+    devices = sharding.mesh.devices
+    shards = np.empty(devices.shape, dtype=object)
+    placed = {}
+    for idx in np.ndindex(devices.shape):
+        sl = shard_slices(x.shape, sharding, idx)
+        dev = torch.device(devices[idx])
+        key = (tuple((s.start, s.stop) for s in sl), str(dev))
+        if key not in placed:
+            if _full(sl, x.shape) and x.device == dev:
+                placed[key] = x
+            elif x.device == dev:
+                placed[key] = x[sl].clone(
+                    memory_format=torch.contiguous_format)
+            else:
+                placed[key] = x[sl].to(dev,
+                                       memory_format=torch.contiguous_format)
+        shards[idx] = placed[key]
+    return ShardedTensor(shards, sharding, x.shape, x.dtype)
+
+
+def unshard(st: ShardedTensor) -> torch.Tensor:
+    """The logical tensor back, on the first position's device (the one
+    shard itself when every position holds all of it)."""
+    first = st.shards.flat[0]
+    mesh = st.sharding.mesh
+    if all(_full(shard_slices(st.shape, st.sharding, idx), st.shape)
+           for idx in np.ndindex(mesh.devices.shape)):
+        return first
+    out = torch.empty(st.shape, dtype=st.dtype, device=first.device)
+    done = set()
+    for idx in np.ndindex(mesh.devices.shape):
+        sl = shard_slices(st.shape, st.sharding, idx)
+        key = tuple((s.start, s.stop) for s in sl)
+        if key not in done:
+            out[sl] = st.shards[idx].to(first.device)
+            done.add(key)
+    return out

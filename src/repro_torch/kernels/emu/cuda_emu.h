@@ -9,12 +9,14 @@
 // another: __syncthreads is a std::barrier over the block, warp shuffles
 // exchange through a per-warp buffer between two warp barriers (xor for
 // float, up for double), dynamic shared memory is a per-block buffer
-// filled with a poison byte. Device pointers are host pointers. The kernel
+// filled with 0xFF bytes (a NaN in fp32 and bf16, so a read of a byte
+// nothing wrote shows). Device pointers are host pointers. The kernel
 // sources opt in through hooks defined here when CPU_EMULATION is set and
 // as inline PTX otherwise: LAUNCH and dyn_smem, and for the chunk,
 // decode and SSD kernels cp_async_cg16 /
-// cp_async_ca4 / cp_async_commit / cp_async_wait (a synchronous 16- or
-// 4-byte copy or zero fill), ldmatrix x4 (plain and .trans) and the two
+// cp_async_ca4 / cp_async_commit / cp_async_wait (a 16- or 4-byte copy
+// or zero fill that lands at the issuing thread's wait for its group),
+// ldmatrix x4 (plain and .trans) and the two
 // mma.sync shapes (each lane writes its
 // fragments into a per-warp buffer, then computes its own outputs by the
 // PTX ISA's fragment layouts, between two warp barriers). It checks
@@ -144,23 +146,46 @@ inline uint32_t __float_as_uint(float f) {
 }
 inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.x; }
 
-// cp.async.cg 16 bytes / cp.async.ca 4 bytes (zero fill when !pred);
-// commit / wait are no-ops because the copy completes at once
-inline void cp_async_cg16(void* dst, const void* src, bool pred) {
+// cp.async.cg 16 bytes / cp.async.ca 4 bytes (zero fill when !pred).
+// The source is read when the copy is issued, and the bytes land in
+// shared memory only when the issuing thread's cp.async.wait_group lets
+// its group complete: the latest moment the hardware may complete them,
+// so a read of a stage before its wait (and its barrier) sees the
+// poison, not the data. Groups a thread never waits for never land.
+struct EmuCopy {
+  void* dst;
+  unsigned char bytes[16];
+  int n;
+};
+inline thread_local std::vector<std::vector<EmuCopy>> emu_groups;
+inline thread_local std::vector<EmuCopy> emu_open;
+inline void emu_cp_async(void* dst, const void* src, int n, bool pred) {
+  EmuCopy c{dst, {}, n};
   if (pred)
-    std::memcpy(dst, src, 16);
+    std::memcpy(c.bytes, src, n);
   else
-    std::memset(dst, 0, 16);
+    std::memset(c.bytes, 0, n);
+  emu_open.push_back(c);
+}
+inline void cp_async_cg16(void* dst, const void* src, bool pred) {
+  emu_cp_async(dst, src, 16, pred);
 }
 inline void cp_async_ca4(void* dst, const void* src, bool pred) {
-  if (pred)
-    std::memcpy(dst, src, 4);
-  else
-    std::memset(dst, 0, 4);
+  emu_cp_async(dst, src, 4, pred);
 }
-inline void cp_async_commit() {}
+inline void cp_async_commit() {
+  emu_groups.push_back(std::move(emu_open));
+  emu_open.clear();
+}
+// all but the N most recently committed groups land
 template <int N>
-inline void cp_async_wait() {}
+inline void cp_async_wait() {
+  while ((int)emu_groups.size() > N) {
+    for (const EmuCopy& c : emu_groups.front())
+      std::memcpy(c.dst, c.bytes, c.n);
+    emu_groups.erase(emu_groups.begin());
+  }
+}
 
 // mma.sync.aligned.m16n8k{8,16}.row.col.f32.{tf32,bf16}: element (row, k)
 // of A and (k, col) of B read from the lanes that hold them in the PTX
@@ -264,7 +289,7 @@ struct EmuLauncher {
           blk.shfld.assign(b.x, 0.0);
           blk.frag.assign(6 * b.x, 0u);
           blk.rowp.assign(b.x, nullptr);
-          blk.smem.assign(sm + 16, 0xAB);
+          blk.smem.assign(sm + 16, 0xFF);
           std::vector<std::thread> ts;
           for (unsigned t = 0; t < b.x; ++t)
             ts.emplace_back([&, t] {

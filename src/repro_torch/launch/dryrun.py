@@ -1,0 +1,469 @@
+"""Multi-pod dry-run on the meta device: every (arch x shape x mesh) cell
+of the reference's dry-run (``repro/launch/dryrun.py``), accounted for
+the NVIDIA H100.
+
+The reference lowers and compiles each cell for 256 or 512 fake XLA
+devices and reads XLA's memory analysis and post-SPMD HLO. The port
+builds the same cell, in bf16 and at full width, on ``torch.device
+("meta")``, which holds shapes and dtypes and no data, so no memory is
+allocated and no device is touched (nothing here sets ``XLA_FLAGS`` or
+initialises CUDA). For each cell it records:
+
+* **memory** per device, summed exactly from ``sharding.shard_bytes``
+  over the arguments and outputs laid out as the reference lays them
+  out on ``make_production_mesh`` (params by the rules, ZeRO-1 moments,
+  the batch over the data axes, caches by ``cache_shardings``). This is
+  the counterpart of ``memory_analysis()``'s argument and output sizes.
+  XLA's temporary buffers have no counterpart: ``temp_gib`` is null.
+  ``alias_gib`` is what the port updates in place (the train state, the
+  caches), and ``fits_80gb`` says whether arguments plus the outputs not
+  updated in place fit in the card's 80 GB;
+* **compute**: ``roofline.count_step`` over the unsharded full-width
+  step, the FLOPs of an even split over the chips (``flops_device``),
+  beside the reference's analytic cross-check. PyTorch runs meta
+  operators through Python decompositions (~0.3 s a layer and
+  microbatch of llama3-8b's train cell), so ``count_cell`` runs the step
+  at none and at one of the config's layer groups and one microbatch,
+  and scales: the groups are identical and the microbatches have one
+  shape, so the count is linear in both and the result exact;
+* **collectives**: for the data axes, the ZeRO-1 train step's grad
+  reduce-scatter, param all-gather and the all-reduces of what no
+  dimension splits, in closed form (``zero1_collective_bytes``, the bytes
+  ``distributed/collectives.py`` counts when the step runs). Tensor-
+  parallel collectives over "model" are reported as "not counted": the
+  port executes no tensor-parallel step;
+* **roofline** terms with the H100 constants (``launch/roofline.py``).
+
+The steps take the routes that reach no CUDA kernel, as the reference's
+``auto`` / ``flash`` cells reach no Pallas kernel: attention ``auto`` or
+``flash``, and mamba2's SSD intra-chunk term through its tensor-op route
+(the kernel wrappers take only ``cpu`` and ``cuda`` tensors).
+
+    python -m repro_torch.launch.dryrun --arch llama3-8b --shape decode_32k
+    python -m repro_torch.launch.dryrun --all --out results/dryrun
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+import traceback
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.sharding import P, NamedSharding
+from repro_torch.launch import roofline as RL
+from repro_torch.launch.mesh import (Mesh, data_axes, dp_size,
+                                     make_production_mesh)
+from repro_torch.models import backend as AB
+from repro_torch.models import model as M
+from repro_torch.models.config import LONG_CONTEXT_ARCHS, SHAPES
+from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
+                                            tree_leaves, tree_map2)
+from repro_torch.training.steps import (TrainState,
+                                        make_cachecraft_prefill_step,
+                                        make_decode_step, make_prefill_step,
+                                        make_train_step, train_shardings)
+
+META = torch.device("meta")
+CC_ACTIVE_FRAC = 0.35       # 30% chunk recompute + question tokens
+TRAIN_ACCUM = 8
+GIB = 2 ** 30
+
+
+def meta_mesh(mesh: Mesh) -> Mesh:
+    """``mesh``'s layout with every position on the meta device."""
+    return Mesh(np.full(mesh.devices.shape, META, dtype=object),
+                mesh.axis_names)
+
+
+def _batch_axis(mesh, B: int):
+    dax = data_axes(mesh)
+    dp = dp_size(mesh)
+    if B % dp == 0:
+        return dax if len(dax) > 1 else dax[0]
+    # try pod-only or data-only subsets
+    for sub in (("data",), ("pod",)):
+        axes = tuple(a for a in sub if a in mesh.axis_names)
+        if axes:
+            n = int(np.prod([mesh.shape[a] for a in axes]))
+            if B % n == 0:
+                return axes if len(axes) > 1 else axes[0]
+    return None
+
+
+def cache_shardings(cfg, mesh, cache_shape, B: int,
+                    seq_axis: Optional[str] = None,
+                    kind: str = "prefill"):
+    msz = mesh.shape["model"]
+    b_ax = _batch_axis(mesh, B)
+    if cfg.num_kv_heads % msz == 0:
+        h_ax, d_ax = "model", None
+    elif kind == "decode" and seq_axis is None:
+        # flash-decode sequence sharding: softmax/output reductions over
+        # the model axis are tiny vs per-tile score all-reduces from
+        # contraction(D)-sharded KV
+        h_ax, d_ax, seq_axis = None, None, "model"
+    elif cfg.head_dim_ % msz == 0:
+        h_ax, d_ax = None, "model"
+    else:
+        h_ax = d_ax = None
+    rnn_ax = "model" if cfg.rnn_width_ % msz == 0 else None
+    di_ax = "model" if cfg.d_inner % msz == 0 else None
+    ssm_ax = "model" if cfg.ssm_heads % msz == 0 else None
+
+    def leaf_spec(name: str, rank: int) -> P:
+        if name in ("k", "v"):
+            base = [b_ax, seq_axis, h_ax, d_ax]
+        elif name in ("mk", "mv"):
+            base = [b_ax, None, h_ax, d_ax]
+        elif name == "pos":
+            base = [b_ax, seq_axis]
+        elif name == "h":
+            base = [b_ax, rnn_ax]
+        elif name == "conv":
+            base = [b_ax, None, di_ax]
+        elif name == "s":
+            base = [b_ax, ssm_ax, None, None]
+        else:
+            base = [None] * rank
+        if rank == len(base) + 1:       # group-stacked leaf
+            base = [None] + base
+        return P(*base)
+
+    def walk(tree):
+        if isinstance(tree, dict) and all(
+                not isinstance(v, (dict, list)) for v in tree.values()):
+            return {k: NamedSharding(mesh, leaf_spec(k, v.ndim))
+                    for k, v in tree.items()}
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        return NamedSharding(mesh, P())
+
+    return walk(cache_shape)
+
+
+def _meta_state(cfg) -> TrainState:
+    params = M.init_params(cfg, torch.Generator(), device=META)
+    for x in tree_leaves(params):
+        x.requires_grad_(True)
+    return TrainState(step=torch.zeros((), dtype=torch.int32, device=META),
+                      params=params, opt=adamw_init(params))
+
+
+def build_cell_for(cfg, kind: str, B: int, S: int, mesh, *,
+                   seq_shard: bool = False, accum: int = TRAIN_ACCUM,
+                   cc: bool = False, attn: str = "auto"):
+    """The step of one cell on meta tensors. Returns (fn, args,
+    shardings of args, meta): ``fn(*args)`` runs the unsharded step;
+    ``shardings`` mirrors ``args`` with a ``NamedSharding`` per leaf."""
+    rules = SH.make_rules(mesh, cfg, seq_shard=seq_shard,
+                          batch_shard=_batch_axis(mesh, B) is not None)
+    dtype = M.torch_dtype(cfg.dtype)
+    b_ax = _batch_axis(mesh, B)
+    bsh = NamedSharding(mesh, P(b_ax) if b_ax else P())
+    meta = dict(cfg=cfg, rules=rules, B=B, S=S, kind=kind)
+
+    def tokens(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=META)
+
+    media, media_sh = {}, {}
+    if cfg.num_media_tokens:
+        media["media"] = torch.zeros((B, cfg.num_media_tokens, cfg.d_model),
+                                     dtype=dtype, device=META)
+        media_sh["media"] = bsh
+    if kind == "train":
+        state = _meta_state(cfg)
+        shs = train_shardings(cfg, mesh)
+        batch = {"labels": tokens(B, S), **media}
+        batch_sh = {"labels": bsh, **media_sh}
+        if cfg.input_mode == "embeds":
+            batch["embeds"] = torch.zeros((B, S, cfg.d_model), dtype=dtype,
+                                          device=META)
+        else:
+            batch["tokens"] = tokens(B, S)
+        batch_sh["embeds" if cfg.input_mode == "embeds" else "tokens"] = bsh
+        fn = make_train_step(cfg, AdamWConfig(), accum=accum)
+        state_sh = TrainState(step=shs["step"], params=shs["params"],
+                              opt=shs["opt"])
+        meta.update(accum=accum, grad_specs=shs["opt"]["m"])
+        return fn, (state, batch), (state_sh, batch_sh), meta
+    params = M.init_params(cfg, torch.Generator(), device=META)
+    with SH.axis_rules(rules):
+        pspecs = SH.spec_tree(M.param_axes(cfg))
+    psh = tree_map2(lambda x, sp: NamedSharding(mesh, sp), params, pspecs)
+    impl = attn if attn != "auto" else ("flash" if S > 8192 else "auto")
+    if kind == "prefill":
+        cache = M.init_cache(cfg, B, S, dtype=cfg.dtype, device=META,
+                             ring=not cc)
+        csh = cache_shardings(cfg, mesh, cache, B)
+        if cc:
+            if not cfg.supports_chunk_cache:
+                raise ValueError("cc-prefill inapplicable")
+            A = int(np.ceil(CC_ACTIVE_FRAC * S / 128) * 128)
+            batch = {"tokens": tokens(B, A), "positions": tokens(B, A),
+                     "cache": cache, **media}
+            batch_sh = {"tokens": bsh, "positions": bsh, "cache": csh,
+                        **media_sh}
+            meta["active_frac"] = A / S
+            fn = make_cachecraft_prefill_step(cfg, attn_impl=impl)
+            return fn, (params, batch), (psh, batch_sh), meta
+        batch = {"cache": cache, **media}
+        batch_sh = {"cache": csh, **media_sh}
+        if cfg.input_mode == "embeds":
+            batch["embeds"] = torch.zeros((B, S, cfg.d_model), dtype=dtype,
+                                          device=META)
+            batch_sh["embeds"] = bsh
+        else:
+            batch["tokens"] = tokens(B, S)
+            batch_sh["tokens"] = bsh
+        fn = make_prefill_step(cfg, attn_impl=impl)
+        return fn, (params, batch), (psh, batch_sh), meta
+    # decode
+    seq_axis = None
+    if b_ax is None and S % dp_size(mesh) == 0 and \
+            not cfg.is_attention_free:
+        seq_axis = "data"       # flash-decode seq parallelism (B=1)
+    cache = M.init_cache(cfg, B, S, dtype=cfg.dtype, device=META, ring=True)
+    csh = cache_shardings(cfg, mesh, cache, B, seq_axis=seq_axis,
+                          kind="decode")
+    batch = {"tokens": tokens(B), "positions": tokens(B), "cache": cache}
+    batch_sh = {"tokens": bsh, "positions": bsh, "cache": csh}
+    meta["seq_axis"] = seq_axis
+    return make_decode_step(cfg), (params, batch), (psh, batch_sh), meta
+
+
+def _tree_pairs(tree, shardings):
+    """(leaf, sharding) pairs of a tree of tensors (a ``TrainState`` or
+    dicts / lists) and the matching tree of ``NamedSharding``."""
+    if isinstance(tree, TrainState):
+        tree = {"step": tree.step, "params": tree.params, "opt": tree.opt}
+        shardings = {"step": shardings.step, "params": shardings.params,
+                     "opt": shardings.opt}
+    if isinstance(tree, (tuple, list)) and not isinstance(tree, P):
+        for t, s in zip(tree, shardings):
+            yield from _tree_pairs(t, s)
+    elif isinstance(tree, dict):
+        for k in tree:
+            yield from _tree_pairs(tree[k], shardings[k])
+    else:
+        yield tree, shardings
+
+
+def device_bytes(tree, shardings) -> int:
+    """Bytes one device holds of ``tree`` laid out by ``shardings``."""
+    return sum(SH.shard_bytes(x.shape, x.dtype, s)
+               for x, s in _tree_pairs(tree, shardings))
+
+
+def zero1_collective_bytes(cfg, mesh, accum: int) -> Dict[str, int]:
+    """Per-device bytes of the data-parallel ZeRO-1 train step's
+    collectives over the data axes, in closed form. Per microbatch: each
+    grad leaf reduce-scattered (its fp32 ZeRO-1 block), or all-reduced
+    where its ZeRO-1 spec splits no dimension over the data axes, and the
+    loss (one fp32 scalar) all-reduced. Per step: the global grad norm's
+    sum of squares (one fp32 scalar) all-reduced, and every data-split
+    param leaf all-gathered (the param's block under its param spec).
+    These are the bytes ``distributed/collectives.py`` counts when
+    ``make_train_step(..., grad_specs=...)`` runs on ``mesh``."""
+    params = M.init_params(cfg, torch.Generator(), device=META)
+    shs = train_shardings(cfg, mesh)
+    dax = data_axes(mesh)
+    rs = ar = ag = 0
+    for x, g, p in zip(tree_leaves(params), tree_leaves(shs["opt"]["m"]),
+                       tree_leaves(shs["params"])):
+        if SH.data_dim(g.spec, dax) is None:
+            ar += SH.shard_bytes(x.shape, torch.float32, g)
+        else:
+            rs += SH.shard_bytes(x.shape, torch.float32, g)
+            ag += SH.shard_bytes(x.shape, x.dtype, p)
+    return {"reduce-scatter": rs * accum, "all-gather": ag,
+            "all-reduce": (ar + 4) * accum + 4}
+
+
+def _outputs(kind, args, out, shardings, mesh, b_ax):
+    """(output bytes, of them updated in place) per device: the train
+    state and five fp32 metrics; or the last-position logits (batch over
+    the data axes, vocab over "model") and the cache."""
+    if kind == "train":
+        state_sh = shardings[0]
+        state = device_bytes(args[0], state_sh)
+        return state + 5 * 4, state
+    logits, cache = out
+    lsh = NamedSharding(mesh, P(b_ax, None, "model"))
+    cache_b = device_bytes(cache, shardings[1]["cache"])
+    return SH.shard_bytes(logits.shape, logits.dtype, lsh) + cache_b, cache_b
+
+
+def count_cell(cfg, kind: str, B: int, S: int, mesh, *,
+               accum: int = TRAIN_ACCUM, **kw):
+    """``roofline.count_step`` of a cell's step, and its output: for a
+    train step, one microbatch (B / accum rows) counted and multiplied
+    by ``accum``; a stack of more than one layer group counted at none
+    and at one group (the tail kept) and extrapolated linearly to
+    ``cfg.n_groups``."""
+    def run(c):
+        Bc = B // accum if kind == "train" else B
+        fn, args, _, meta = build_cell_for(c, kind, Bc, S, mesh, accum=1,
+                                           **kw)
+        outs = []
+        with SH.axis_rules(meta["rules"]):
+            counts = RL.count_step(lambda *a: outs.append(fn(*a)), *args)
+        reps = accum if kind == "train" else 1
+        return counts.flops * reps, outs[0]
+
+    G = cfg.n_groups
+    if G <= 1:
+        return run(cfg)
+    f0, out = run(cfg.replace(num_layers=cfg.n_tail))
+    f1, _ = run(cfg.replace(num_layers=len(cfg.pattern) + cfg.n_tail))
+    return f0 + G * (f1 - f0), out
+
+
+def run_cell_for(cfg, kind: str, B: int, S: int, mesh, *, cc: bool = False,
+                 seq_shard: bool = False, accum: int = TRAIN_ACCUM,
+                 attn: str = "auto", rec: Optional[dict] = None) -> Dict:
+    """One cell's record (``run_cell``'s body, for any config)."""
+    rec = dict(status="ok") if rec is None else rec
+    chips = int(np.prod(list(mesh.shape.values())))
+    if attn == "flash_cp":
+        AB.set_cp_mesh(mesh)
+    try:
+        t0 = time.time()
+        _, args, shardings, meta = build_cell_for(
+            cfg, kind, B, S, mesh, cc=cc, seq_shard=seq_shard, accum=accum,
+            attn=attn)
+        flops, out = count_cell(cfg, kind, B, S, mesh, accum=accum, cc=cc,
+                                seq_shard=seq_shard, attn=attn)
+        rec["count_s"] = round(time.time() - t0, 2)
+        arg_b = device_bytes(args, shardings)
+        out_b, alias_b = _outputs(kind, args, out, shardings, mesh,
+                                  _batch_axis(mesh, B))
+        resident = arg_b + out_b - alias_b
+        rec["memory"] = {
+            "argument_gib": arg_b / GIB, "output_gib": out_b / GIB,
+            "temp_gib": None, "alias_gib": alias_b / GIB,
+            "argument_bytes": arg_b, "output_bytes": out_b,
+            "resident_gib": resident / GIB,
+            "fits_80gb": resident <= RL.HBM_BYTES,
+        }
+        frac = meta.get("active_frac", 1.0)
+        coll = zero1_collective_bytes(cfg, mesh, accum) \
+            if kind == "train" else {}
+        rec["counted"] = {"flops_total": flops,
+                          "flops_device": flops / chips,
+                          "coll_bytes_data_axes": coll,
+                          "coll_bytes_tensor_parallel": "not counted"}
+        model_fl = RL.model_flops_6nd(cfg, kind, B, S)
+        an_flops = RL.analytic_flops(cfg, kind, B, S, active_frac=frac)
+        an_hbm = RL.analytic_hbm_bytes(cfg, kind, B, S, chips)
+        terms = RL.roofline_terms(flops / chips, an_hbm,
+                                  sum(coll.values()), model_fl, chips)
+        rec["analytic"] = {"flops_total": an_flops,
+                           "flops_device": an_flops / chips,
+                           "hbm_bytes_device": an_hbm,
+                           "model_flops_6nd": model_fl}
+        rec["roofline"] = terms.as_dict()
+        rec["chips"] = chips
+    except Exception as e:  # noqa: BLE001
+        rec["status"] = "error"
+        rec["error"] = f"{type(e).__name__}: {e}"
+        rec["traceback"] = traceback.format_exc()[-2000:]
+    finally:
+        if attn == "flash_cp":
+            AB.set_cp_mesh(None)
+    return rec
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
+             cc: bool = False, seq_shard: bool = False,
+             accum: int = TRAIN_ACCUM, attn: str = "auto") -> Dict:
+    rec = dict(arch=arch, shape=shape_name, mesh=mesh_kind, cc=cc,
+               seq_shard=seq_shard, attn=attn, status="ok")
+    if shape_name == "long_500k" and arch not in LONG_CONTEXT_ARCHS:
+        rec["status"] = "skipped"
+        rec["reason"] = ("pure full-attention arch: 0.5M-token dense KV "
+                         "per sequence is undeployable (DESIGN.md §6)")
+        return rec
+    cfg0 = get_config(arch)
+    if cc and not cfg0.supports_chunk_cache:
+        rec["status"] = "skipped"
+        rec["reason"] = "chunk-cache inapplicable (DESIGN.md §6)"
+        return rec
+    mesh = meta_mesh(make_production_mesh(multi_pod=(mesh_kind == "multi"),
+                                          device="cpu"))
+    spec = SHAPES[shape_name]
+    cfg = cfg0.replace(dtype="bfloat16", param_dtype="bfloat16")
+    return run_cell_for(cfg, spec["kind"], spec["global_batch"],
+                        spec["seq_len"], mesh, cc=cc, seq_shard=seq_shard,
+                        accum=accum, attn=attn, rec=rec)
+
+
+def cells(include_cc: bool = True):
+    for arch in ARCHS:
+        for shape in SHAPES:
+            for mesh_kind in ("single", "multi"):
+                yield dict(arch=arch, shape_name=shape, mesh_kind=mesh_kind)
+                if include_cc and shape == "prefill_32k" and \
+                        get_config(arch).supports_chunk_cache:
+                    yield dict(arch=arch, shape_name=shape,
+                               mesh_kind=mesh_kind, cc=True)
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch")
+    ap.add_argument("--shape", choices=list(SHAPES))
+    ap.add_argument("--mesh", choices=("single", "multi"), default="single")
+    ap.add_argument("--cc", action="store_true",
+                    help="the Cache-Craft partial prefill")
+    ap.add_argument("--seq-shard", action="store_true")
+    ap.add_argument("--attn", default="auto",
+                    choices=("auto", "flash", "flash_skip", "flash_cp"))
+    ap.add_argument("--accum", type=int, default=TRAIN_ACCUM)
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--out", default="results/dryrun")
+    ap.add_argument("--skip-existing", action="store_true")
+    args = ap.parse_args()
+
+    os.makedirs(args.out, exist_ok=True)
+    todo = list(cells()) if args.all else [dict(
+        arch=args.arch, shape_name=args.shape, mesh_kind=args.mesh,
+        cc=args.cc)]
+    for cell in todo:
+        tag = "{arch}_{shape_name}_{mesh_kind}".format(**cell) + \
+            ("_cc" if cell.get("cc") else "") + \
+            ("_seqshard" if args.seq_shard else "") + \
+            (f"_{args.attn}" if args.attn != "auto" else "")
+        path = os.path.join(args.out, tag + ".json")
+        if args.skip_existing and os.path.exists(path):
+            print("skip", tag, flush=True)
+            continue
+        t0 = time.time()
+        rec = run_cell(cell["arch"], cell["shape_name"], cell["mesh_kind"],
+                       cc=cell.get("cc", False), seq_shard=args.seq_shard,
+                       accum=args.accum, attn=args.attn)
+        rec["wall_s"] = round(time.time() - t0, 1)
+        with open(path, "w") as f:
+            json.dump(rec, f, indent=1)
+        msg = rec["status"]
+        if rec["status"] == "ok":
+            r, m = rec["roofline"], rec["memory"]
+            msg += (f" dom={r['dominant']} c={r['compute_s']:.3f}s "
+                    f"m={r['memory_s']:.3f}s n={r['collective_s']:.3f}s "
+                    f"mem={m['resident_gib']:.1f}GiB "
+                    f"fits={m['fits_80gb']}")
+        elif rec["status"] == "error":
+            msg += " " + rec["error"][:120]
+        print(f"{tag}: {msg} ({rec['wall_s']}s)", flush=True)
+
+
+if __name__ == "__main__":
+    main()

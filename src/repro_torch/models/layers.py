@@ -414,7 +414,9 @@ def ssd_chunked(x, dt, A_log, B_mat, C_mat, D, chunk: int, state0=None,
     ``_segsum``), on any device. That is the reference's own training
     route (its ``ssd_chunked`` never reaches the Pallas kernel), chosen by
     the caller's mode, not a fallback: the kernel has no backward, and
-    its wrapper raises rather than drop the gradient."""
+    its wrapper raises rather than drop the gradient. Tensors on the
+    ``meta`` device (shapes only, the dry-run's accounting) take the
+    same tensor-op route: the kernel launches on ``cuda`` tensors only."""
     Bsz, S, H, Pd = x.shape
     N = B_mat.shape[-1]
     L = min(chunk, S)
@@ -430,7 +432,7 @@ def ssd_chunked(x, dt, A_log, B_mat, C_mat, D, chunk: int, state0=None,
     # B and C arrive as column slices of the in-projection
     Bc = B_mat.float().contiguous().reshape(Bsz, nC, L, N)
     Cc = C_mat.float().contiguous().reshape(Bsz, nC, L, N)
-    if train:
+    if train or x.device.type == "meta":
         y_intra, chunk_state = (t.unflatten(0, (Bsz, nC)) for t in
                                 ssd_intra_ref(xc.flatten(0, 1),
                                               lac.flatten(0, 1),

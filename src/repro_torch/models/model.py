@@ -75,38 +75,40 @@ def _check_kind(kind: str):
 
 
 # ---------------------------------------------------------------------------
-# Parameter definitions: one source of truth for init and shapes
+# Parameter definitions: one source of truth for init, shapes and the
+# logical axes the sharding rules resolve (``param_axes``)
 # ---------------------------------------------------------------------------
 def _ssd_defs(cfg: ModelConfig) -> Dict[str, tuple]:
     d, di, ns, nh, w = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
                         cfg.ssm_heads, cfg.conv_width)
     return {
-        "ln1": ((d,), "zero"),
-        "in_proj": ((d, 2 * di + 2 * ns + nh), "fan_in"),
-        "conv": ((w, di), "fan_in"),
-        "A_log": ((nh,), "ssd_a"),
-        "D": ((nh,), "one"),
-        "dt_bias": ((nh,), "zero"),
-        "out_norm": ((di,), "zero"),
-        "out_proj": ((di, d), "fan_in"),
+        "ln1": ((d,), ("embed",), "zero"),
+        "in_proj": ((d, 2 * di + 2 * ns + nh), ("embed", None), "fan_in"),
+        "conv": ((w, di), (None, "rnn"), "fan_in"),
+        "A_log": ((nh,), ("ssm_heads",), "ssd_a"),
+        "D": ((nh,), ("ssm_heads",), "one"),
+        "dt_bias": ((nh,), ("ssm_heads",), "zero"),
+        "out_norm": ((di,), ("rnn",), "zero"),
+        "out_proj": ((di, d), ("rnn", "embed"), "fan_in"),
     }
 
 
 def _rglru_defs(cfg: ModelConfig) -> Dict[str, tuple]:
     d, r, w = cfg.d_model, cfg.rnn_width_, cfg.conv_width
     return {
-        "ln1": ((d,), "zero"),
-        "wx": ((d, r), "fan_in"),
-        "wy": ((d, r), "fan_in"),
-        "conv": ((w, r), "fan_in"),
-        "lam": ((r,), "rglru_lambda"),
-        "alpha": ((r,), "one"),
-        "beta": ((r,), "one"),
-        "wo_r": ((r, d), "fan_in"),
+        "ln1": ((d,), ("embed",), "zero"),
+        "wx": ((d, r), ("embed", "rnn"), "fan_in"),
+        "wy": ((d, r), ("embed", "rnn"), "fan_in"),
+        "conv": ((w, r), (None, "rnn"), "fan_in"),
+        "lam": ((r,), ("rnn",), "rglru_lambda"),
+        "alpha": ((r,), ("rnn",), "one"),
+        "beta": ((r,), ("rnn",), "one"),
+        "wo_r": ((r, d), ("rnn", "embed"), "fan_in"),
     }
 
 
 def _layer_defs(cfg: ModelConfig, kind: str) -> Dict[str, tuple]:
+    """name -> (shape, logical axes, init) of one layer of ``kind``."""
     _check_kind(kind)
     if kind == "ssd":
         return _ssd_defs(cfg)
@@ -116,28 +118,32 @@ def _layer_defs(cfg: ModelConfig, kind: str) -> Dict[str, tuple]:
         defs = _rglru_defs(cfg)
     else:
         defs = {
-            "ln1": ((d,), "zero"),
-            "wq": ((d, h, dh), "fan_in"),
-            "wk": ((d, hkv, dh), "fan_in"),
-            "wv": ((d, hkv, dh), "fan_in"),
-            "wo": ((h, dh, d), "fan_in2"),
+            "ln1": ((d,), ("embed",), "zero"),
+            "wq": ((d, h, dh), ("embed", "heads", "q_head_dim"), "fan_in"),
+            "wk": ((d, hkv, dh), ("embed", "kv_heads", "kv_head_dim"),
+                   "fan_in"),
+            "wv": ((d, hkv, dh), ("embed", "kv_heads", "kv_head_dim"),
+                   "fan_in"),
+            "wo": ((h, dh, d), ("heads", "q_head_dim", "embed"), "fan_in2"),
         }
     if kind == "xattn":
         # tanh gates on the cross-attention and its FFN, zero at init: the
         # layer starts as the identity
-        defs["gate_attn"] = ((), "zero")
-        defs["gate_ffn"] = ((), "zero")
-    defs["ln2"] = ((d,), "zero")
+        defs["gate_attn"] = ((), (), "zero")
+        defs["gate_ffn"] = ((), (), "zero")
+    defs["ln2"] = ((d,), ("embed",), "zero")
     if cfg.num_experts:
         e = cfg.num_experts
         # the reference's fan-in for "fan_in" is shape[0]: E for the
         # expert weights, kept as it is
-        defs["router"] = ((d, e), "fan_in")
-        defs["wi_e"] = ((e, d, 2, f), "fan_in")
-        defs["wo_e"] = ((e, f, d), "fan_in")
+        defs["router"] = ((d, e), ("embed", None), "fan_in")
+        defs["wi_e"] = ((e, d, 2, f), ("experts", "embed", None,
+                                       "expert_mlp"), "fan_in")
+        defs["wo_e"] = ((e, f, d), ("experts", "expert_mlp", "embed"),
+                        "fan_in")
     else:
-        defs["wi"] = ((d, 2, f), "fan_in")
-        defs["wo_ff"] = ((f, d), "fan_in")
+        defs["wi"] = ((d, 2, f), ("embed", None, "mlp"), "fan_in")
+        defs["wo_ff"] = ((f, d), ("mlp", "embed"), "fan_in")
     return defs
 
 
@@ -164,10 +170,13 @@ def _init_leaf(gen, shape, init, dtype, device, lead=()):
     return out if dtype == torch.float32 else out.to(dtype)
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
-    """Random init on ``generator``'s device (a CUDA generator creates
-    the weights directly on the card; the full-width model would take
-    minutes to create on the host). Same distributions as the reference
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> Params:
+    """Random init on ``device``, by default ``generator``'s device (a
+    CUDA generator creates the weights directly on the card; the
+    full-width model would take minutes to create on the host).
+    ``device="meta"`` gives the shapes and dtypes alone, with no memory
+    (the dry-run's full-width params). Same distributions as the reference
     (``N(0, 1/fan_in)`` projections, ``N(0, 0.02)`` embedding, zero norm
     weights; for ``ssd`` layers ``A_log = log U(1, 8)``, ``D = 1``, zero
     ``dt_bias``; for ``rglru`` layers ``lam = log(expm1(-log(u) / 8))``
@@ -176,7 +185,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
     ``gate_attn`` and ``gate_ffn`` at zero, which makes the layer the
     identity until they are trained), not the same numbers: tests that
     compare the two packages go through ``params_from_jax``."""
-    device = generator.device
+    device = generator.device if device is None else torch.device(device)
     dtype = torch_dtype(cfg.param_dtype)
     d, vp = cfg.d_model, cfg.padded_vocab
     groups = []
@@ -184,13 +193,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
         defs = _layer_defs(cfg, kind)
         groups.append({n: _init_leaf(generator, s, i, dtype, device,
                                      lead=(cfg.n_groups,))
-                       for n, (s, i) in defs.items()}
+                       for n, (s, _, i) in defs.items()}
                       if cfg.n_groups else {})
     tail = []
     for i in range(cfg.n_tail):
         kind = cfg.layer_kinds[cfg.n_groups * len(cfg.pattern) + i]
         tail.append({n: _init_leaf(generator, s, init, dtype, device)
-                     for n, (s, init) in _layer_defs(cfg, kind).items()})
+                     for n, (s, _, init) in _layer_defs(cfg, kind).items()})
     embed = torch.randn((vp, d), generator=generator, dtype=torch.float32,
                         device=device).mul_(0.02).to(dtype)
     return {
@@ -199,6 +208,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> Params:
         "final_norm": torch.zeros((d,), dtype=dtype, device=device),
         "groups": groups,
         "tail": tail,
+    }
+
+
+def param_axes(cfg: ModelConfig) -> Params:
+    """The logical axes of every parameter leaf, a tree shaped like
+    ``init_params``'s (the reference's ``param_axes``, tuple for tuple):
+    stacked ``groups`` leaves lead with ``None`` for the scan axis. The
+    sharding rules resolve it to PartitionSpecs (``sharding.spec_tree``)."""
+    def axes(kind, lead=()):
+        return {n: lead + a
+                for n, (_, a, _) in _layer_defs(cfg, kind).items()}
+    return {
+        "embed": ("vocab", "embed"),
+        "unembed": ("embed", "vocab"),
+        "final_norm": ("embed",),
+        "groups": [axes(kind, (None,)) for kind in cfg.pattern],
+        "tail": [axes(cfg.layer_kinds[cfg.n_groups * len(cfg.pattern) + i])
+                 for i in range(cfg.n_tail)],
     }
 
 

@@ -11,11 +11,11 @@ so a killed job never leaves a corrupt latest checkpoint; with
 runs on a background thread.
 
 Leaves are stored as numpy arrays: tensors are copied to the host as
-they are (numpy has no bfloat16 here, so a bf16 leaf raises). The
-reference's ``shardings`` argument of ``restore`` (re-laying leaves out
-over a device mesh, and its elastic reshard) is not ported: the port's
-mesh (``launch/mesh.py``) serves in one process, and sharded training
-waits for a multi-process mesh (ROADMAP A10).
+they are, a ``ShardedTensor`` put back together first (numpy has no
+bfloat16 here, so a bf16 leaf raises). ``restore(shardings=...)`` lays
+every leaf out on the given ``NamedSharding`` (``sharding.shard``),
+which may be on another mesh shape than the one that saved it (an
+elastic restart).
 """
 from __future__ import annotations
 
@@ -27,6 +27,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.distributed import sharding as SH
+from repro_torch.training.optimizer import tree_map2
 
 MANIFEST = "manifest.json"
 
@@ -62,6 +65,8 @@ def _unflatten(struct, leaves, prefix=""):
 
 
 def _host(x) -> np.ndarray:
+    if isinstance(x, SH.ShardedTensor):
+        x = SH.unshard(x)
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
@@ -110,10 +115,14 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore(directory: str, step: Optional[int] = None,
-            device=None) -> Any:
+            device=None, shardings: Any = None) -> Any:
     """Load checkpoint ``step`` (default: the latest). Leaves are numpy
-    arrays, or tensors on ``device`` when one is given. (The reference's
-    ``shardings`` argument is not ported, ROADMAP A10.)"""
+    arrays, or tensors on ``device`` when one is given, or, with
+    ``shardings`` (a tree of ``NamedSharding`` matching the saved
+    structure), ``ShardedTensor``s laid out on them: each device gets its
+    slice copied from the host, on any mesh shape (elastic restart)."""
+    if device is not None and shardings is not None:
+        raise ValueError("restore: give device or shardings, not both")
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -126,4 +135,8 @@ def restore(directory: str, step: Optional[int] = None,
     if device is not None:
         leaves = {k: torch.from_numpy(v).to(device)
                   for k, v in leaves.items()}
-    return _unflatten(manifest["structure"], leaves)
+    tree = _unflatten(manifest["structure"], leaves)
+    if shardings is not None:
+        tree = tree_map2(lambda x, s: SH.shard(torch.from_numpy(x), s),
+                         tree, shardings)
+    return tree

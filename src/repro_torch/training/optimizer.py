@@ -68,6 +68,17 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def tree_map2(fn, tree, other):
+    """``fn(leaf, other_leaf)`` over the leaves of ``tree``, taking the
+    same dict key or list index in ``other`` (whose leaves may be tuples,
+    such as PartitionSpecs)."""
+    if isinstance(tree, dict):
+        return {k: tree_map2(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map2(fn, v, o) for v, o in zip(tree, other)]
+    return fn(tree, other)
+
+
 def cosine_lr(cfg: AdamWConfig, step) -> torch.Tensor:
     """Linear warm-up, then cosine decay to ``min_lr_ratio``; fp32 on the
     device of ``step`` (an integer tensor, or an int for the CPU)."""
@@ -93,27 +104,40 @@ def adamw_init(params):
             "count": torch.zeros((), dtype=torch.int32, device=leaf.device)}
 
 
+def adamw_scalars(cfg: AdamWConfig, count, gnorm):
+    """The step's scalars from the count before it and the global grad
+    norm: (new count, lr, clip scale, bias corrections 1 and 2)."""
+    lr = cosine_lr(cfg, count)
+    count = count + 1
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    return count, lr, scale, 1 - cfg.b1 ** count, 1 - cfg.b2 ** count
+
+
+@torch.no_grad()
+def adamw_leaf(cfg: AdamWConfig, g, m, v, p, scale, lr, bc1, bc2):
+    """One leaf's update, in place on ``m``, ``v`` and ``p``: elementwise,
+    so a slice of a leaf updates to the same bits as the whole."""
+    g = g.float() * scale
+    m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+    v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+    del g
+    step = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+    p32 = p.float()
+    step += cfg.weight_decay * p32
+    p.copy_(p32 - lr * step)
+
+
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads, opt_state, params):
     """Returns ``(params, opt_state, metrics)``, the params and moments
     updated in place. Master math in fp32; params keep their storage
     dtype. The lr is read at the count before this update. ``grads`` is a
     tree like ``params``."""
-    count = opt_state["count"] + 1
-    lr = cosine_lr(cfg, opt_state["count"])
     gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-    bc1 = 1 - cfg.b1 ** count
-    bc2 = 1 - cfg.b2 ** count
+    count, lr, scale, bc1, bc2 = adamw_scalars(cfg, opt_state["count"],
+                                               gnorm)
     for g, m, v, p in zip(tree_leaves(grads), tree_leaves(opt_state["m"]),
                           tree_leaves(opt_state["v"]), tree_leaves(params)):
-        g = g.float() * scale
-        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-        del g
-        step = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        p32 = p.float()
-        step += cfg.weight_decay * p32
-        p.copy_(p32 - lr * step)
+        adamw_leaf(cfg, g, m, v, p, scale, lr, bc1, bc2)
     return params, {"m": opt_state["m"], "v": opt_state["v"],
                     "count": count}, {"lr": lr, "grad_norm": gnorm}

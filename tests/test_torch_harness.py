@@ -20,8 +20,9 @@ def test_port_imports_no_jax_and_no_reference():
     """Import repro_torch and EVERY submodule in a fresh interpreter, and
     chip_smoke.py, then check that neither jax nor any module of the
     reference package got loaded (module-level imports only; nothing is
-    built or launched). chip_smoke.py imports inside its functions, so
-    every import statement in it is read too."""
+    built or launched), that no ``XLA_FLAGS`` got set and CUDA was not
+    initialised (the dry-run included). chip_smoke.py imports inside its
+    functions, so every import statement in it is read too."""
     code = textwrap.dedent("""
         import ast, importlib, pkgutil, sys
         import repro_torch
@@ -68,12 +69,21 @@ def test_port_imports_no_jax_and_no_reference():
                      "repro_torch.launch.mesh",
                      "repro_torch.distributed.sharding",
                      "repro_torch.distributed.collectives",
-                     "repro_torch.distributed.compression"):
+                     "repro_torch.distributed.compression",
+                     "repro_torch.launch.roofline",
+                     "repro_torch.launch.dryrun"):
             assert must in sys.modules, must
+        # the dry-run runs on meta tensors: importing it sets no XLA
+        # flag (the reference's forces 512 host devices) and starts no
+        # CUDA
+        import os, torch
+        assert "XLA_FLAGS" not in os.environ
+        assert not torch.cuda.is_initialized()
         print(len(names))
     """)
     env = dict(os.environ, PYTHONPATH=SRC)
     env.pop("JAX_PLATFORMS", None)
+    env.pop("XLA_FLAGS", None)
     code = code.replace("ROOT", repr(os.path.dirname(SRC)))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)

@@ -8,10 +8,16 @@ so it also runs on a GPU host without them::
         tests/test_torch_kernels_cuda.py
 
 The numpy input makers here are shared with ``test_torch_kernels.py``."""
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch import device as devmod
 from repro_torch.kernels.chunk_attention import ops as cops
 from repro_torch.kernels.chunk_attention.ref import chunk_attention_ref
 from repro_torch.kernels.decode_attention import ops as dops
@@ -61,7 +67,17 @@ def counts():
 def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernel; run on the card)")
-    return torch.device("cuda")
+    return devmod.resolve("cuda")     # fp32 products in IEEE fp32, no TF32
+
+
+def _plain(ref, *ins, device, dtype=None, **kw):
+    """``ref``, a kernel's plain version, on the card, on the same rounded
+    inputs as the kernel: the oracle of the kernel-vs-plain tests. The
+    host CPU is not the oracle: on the card's machine, the host's first
+    fp32 product in a process came out ~1e-4 off in about 1% of fresh
+    processes while the kernel matched a float64 version (ROADMAP C8,
+    PERF.md §6)."""
+    return ref(*_t(*ins, device=device, dtype=dtype), **kw)
 
 
 # ---------------- inputs, made with numpy from a seed -----------------------
@@ -179,8 +195,8 @@ def test_chunk_cuda_kernel_vs_plain(counts, A, S, H, Hkv, D, C, window,
                                 num_chunks=C, window=window)
     torch.cuda.synchronize()
     assert cops.chunk_attention.launches == 1
-    orf, mrf = cops.chunk_attention(*_t(*ins, dtype=dt), num_chunks=C,
-                                    window=window)
+    orf, mrf = _plain(chunk_attention_ref, *ins, device=dev, dtype=dt,
+                      num_chunks=C, window=window)
     np.testing.assert_allclose(_np(o), _np(orf), **tol)
     np.testing.assert_allclose(_np(m), _np(mrf), **tol)
 
@@ -216,7 +232,8 @@ def test_chunk_cuda_split_key_window_vs_plain(counts, A, dtype):
                                 num_chunks=C)
     torch.cuda.synchronize()
     assert cops.chunk_attention.launches == 1
-    orf, mrf = cops.chunk_attention(*_t(*ins, dtype=dt), num_chunks=C)
+    orf, mrf = _plain(chunk_attention_ref, *ins, device=dev, dtype=dt,
+                      num_chunks=C)
     np.testing.assert_allclose(_np(o), _np(orf), **tol)
     np.testing.assert_allclose(_np(m), _np(mrf), **tol)
 
@@ -243,9 +260,10 @@ def test_chunk_cuda_ragged_rows_g3_vs_plain(counts, A, S, window, dtype):
                                 num_chunks=C, window=window)
     torch.cuda.synchronize()
     assert cops.chunk_attention.launches == 1
-    orf, mrf = cops.chunk_attention(*_t(q, k, v, qpos, kpos, kch, dtype=dt),
-                                    q_seg=_t(qseg)[0], k_seg=_t(kseg)[0],
-                                    num_chunks=C, window=window)
+    orf, mrf = _plain(chunk_attention_ref, q, k, v, qpos, kpos, kch,
+                      device=dev, dtype=dt, q_seg=_t(qseg, device=dev)[0],
+                      k_seg=_t(kseg, device=dev)[0], num_chunks=C,
+                      window=window)
     np.testing.assert_allclose(_np(o), _np(orf), **tol)
     np.testing.assert_allclose(_np(m), _np(mrf), **tol)
     assert float(o[:3].float().abs().sum()) == 0.0
@@ -285,8 +303,8 @@ def test_chunk_cuda_head_dim_256_full_width(counts, dtype):
     torch.cuda.synchronize()
     assert cops.chunk_attention.launches == 2
     assert torch.equal(o, o2) and torch.equal(m, m2)
-    orf, mrf = cops.chunk_attention(*_t(*ins, dtype=dt), num_chunks=C,
-                                    window=win)
+    orf, mrf = _plain(chunk_attention_ref, *ins, device=dev, dtype=dt,
+                      num_chunks=C, window=win)
     tol = F32 if dt == torch.float32 else BF16
     np.testing.assert_allclose(_np(o), _np(orf), **tol)
     np.testing.assert_allclose(_np(m), _np(mrf), **tol)
@@ -303,7 +321,8 @@ def test_chunk_cuda_g3_full_width(counts, dtype):
                                 num_chunks=16)
     torch.cuda.synchronize()
     assert cops.chunk_attention.launches == 1
-    orf, mrf = cops.chunk_attention(*_t(*ins, dtype=dt), num_chunks=16)
+    orf, mrf = _plain(chunk_attention_ref, *ins, device=dev, dtype=dt,
+                      num_chunks=16)
     tol = F32 if dt == torch.float32 else BF16
     np.testing.assert_allclose(_np(o), _np(orf), **tol)
     np.testing.assert_allclose(_np(m), _np(mrf), **tol)
@@ -332,8 +351,8 @@ def test_decode_cuda_head_dim_256_g2_full_width(counts, dtype):
         pb[blocks] = kpos[b].reshape(nb, bs)
     rows = order.reshape(B, nb)
     tol = F32 if dt == torch.float32 else BF16
-    r = dops.decode_attention(*_t(q, k, v, qpos, kpos, dtype=dt),
-                              window=win)
+    r = _plain(dops.decode_attention_ref, q, k, v, qpos, kpos, device=dev,
+               dtype=dt, window=win)
     o = dops.decode_attention(*_t(q, k, v, qpos, kpos, device=dev,
                                   dtype=dt), window=win)
     op = dops.paged_decode_attention(*_t(q, kb, vb, pb, rows, qpos,
@@ -362,8 +381,8 @@ def test_chunk_cuda_g16_head_dim_256_mqa_full_width(counts, dtype):
     torch.cuda.synchronize()
     assert cops.chunk_attention.launches == 2
     assert torch.equal(o, o2) and torch.equal(m, m2)
-    orf, mrf = cops.chunk_attention(*_t(*ins, dtype=dt), num_chunks=C,
-                                    window=win)
+    orf, mrf = _plain(chunk_attention_ref, *ins, device=dev, dtype=dt,
+                      num_chunks=C, window=win)
     tol = F32 if dt == torch.float32 else BF16
     np.testing.assert_allclose(_np(o), _np(orf), **tol)
     np.testing.assert_allclose(_np(m), _np(mrf), **tol)
@@ -499,8 +518,8 @@ def test_decode_cuda_gd_4096_full_width(counts, dtype):
     kpos = np.tile(np.arange(S, dtype=np.int32), (B, 1))
     kpos[1] += S                       # the ring after it wrapped once
     qpos = np.array([S - 1, 2 * S - 1], np.int32)
-    r = dops.decode_attention(*_t(q, k, v, qpos, kpos, dtype=dt),
-                              window=win)
+    r = _plain(dops.decode_attention_ref, q, k, v, qpos, kpos, device=dev,
+               dtype=dt, window=win)
     o = dops.decode_attention(*_t(q, k, v, qpos, kpos, device=dev,
                                   dtype=dt), window=win)
     o2 = dops.decode_attention(*_t(q, k, v, qpos, kpos, device=dev,
@@ -577,7 +596,8 @@ def test_decode_cuda_kernel_vs_plain(counts, B, S, H, Hkv, D, window,
     o = dops.decode_attention(*_t(*ins, device=dev, dtype=dt),
                               window=window)
     assert dops.decode_attention.launches == 1
-    r = dops.decode_attention(*_t(*ins, dtype=dt), window=window)
+    r = _plain(dops.decode_attention_ref, *ins, device=dev, dtype=dt,
+               window=window)
     assert o.dtype == dt
     np.testing.assert_allclose(_np(o), _np(r), **(F32 if dtype == "float32"
                                                   else BF16))
@@ -594,7 +614,8 @@ def test_paged_cuda_kernel_vs_plain(counts, B, NB, bs, H, Hkv, D, window,
     o = dops.paged_decode_attention(*_t(*ins, device=dev, dtype=dt),
                                     window=window)
     assert dops.paged_decode_attention.launches == 1
-    r = dops.paged_decode_attention(*_t(*ins, dtype=dt), window=window)
+    r = _plain(dops.paged_decode_attention_ref, *ins, device=dev, dtype=dt,
+               window=window)
     assert o.dtype == dt
     np.testing.assert_allclose(_np(o), _np(r), **(F32 if dtype == "float32"
                                                   else BF16))
@@ -732,7 +753,7 @@ def test_ssd_cuda_kernel_vs_plain(counts, nC, L, H, P, N, dtype):
     torch.cuda.synchronize()
     assert sops.ssd_intra.launches == 1
     assert y.dtype == st.dtype == torch.float32
-    yr, sr = sops.ssd_intra(*_t(*ins, dtype=dt))
+    yr, sr = _plain(sops.ssd_intra_ref, *ins, device=dev, dtype=dt)
     # both versions compute in fp32 from the same (rounded) inputs
     np.testing.assert_allclose(_np(y), _np(yr), **F32)
     np.testing.assert_allclose(_np(st), _np(sr), **F32)
@@ -1018,3 +1039,74 @@ def test_ssd_train_route_equals_kernel(counts):
     assert sops.ssd_intra.launches == 1
     np.testing.assert_allclose(_np(y_t), _np(y_k), **F32)
     np.testing.assert_allclose(_np(s_t), _np(s_k), **F32)
+
+
+# ---------------- ROADMAP C8: the chunk kernel in fresh processes ------------
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.cuda
+def test_chunk_cuda_fresh_process_stress():
+    """ROADMAP C8: the first chunk case (A 16, S 64, H 4/4, D 32, C 8),
+    launched first thing in 64 fresh processes, 8 at a time
+    (``scripts/chunk_stress.py``): each process's first launch through the
+    wrapper (fp32, 2 key ranges) within 3e-5 of the plain version on the
+    card and of a float64 version, 64 more launches byte-equal to it, and
+    the C entry point with 1 and 2 ranges in fp32 and 1 in bf16 on a
+    NaN-poisoned workspace, output and mass, byte-equal across 8
+    launches and within 3e-5 (bf16 3e-2) of the plain version."""
+    _need_cuda()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "scripts",
+                                                     "chunk_stress.py"),
+                        "--runs", "64", "--jobs", "8"], env=env,
+                       capture_output=True, text=True, timeout=900)
+    assert r.returncode == 0, r.stdout[-4000:] + r.stderr[-2000:]
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    assert res["runs"] == res["passed"] == 64, res
+
+
+# ---------------- the ZeRO-1 train step on the card --------------------------
+@pytest.mark.cuda
+def test_sharded_train_step_dp2_cuda_vs_unsharded(counts):
+    """3 steps of tiny llama3-8b data-parallel over a (data 2, model 1)
+    mesh on cuda:0 (``make_train_step(..., grad_specs=...)``) == 3
+    unsharded steps from the same init on the card: each loss within
+    1e-5, the params within the training tests' PARAM_TOL (rtol 2e-4,
+    atol 1e-4), every ``m`` shard half of its leaf; training launches no
+    kernel."""
+    from repro_torch.configs import get_tiny
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.training import steps as TS
+    from repro_torch.training.optimizer import AdamWConfig, tree_leaves
+    dev = _need_cuda()
+    cfg = get_tiny("llama3-8b")
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=20)
+    mesh = make_debug_mesh((2, 1), device=dev)
+    shs = TS.train_shardings(cfg, mesh)
+
+    def fresh():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        return TS.init_train_state(cfg, gen)
+    ref, sst = fresh(), TS.shard_state(fresh(), shs)
+    step = TS.make_train_step(cfg, opt, accum=2)
+    sstep = TS.make_train_step(cfg, opt, accum=2, grad_specs=shs["opt"]["m"])
+    rng = np.random.default_rng(0)
+    for _ in range(3):
+        t = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 33))
+                             .astype(np.int32)).to(dev)
+        b = {"tokens": t[:, :-1].contiguous(), "labels": t[:, 1:].contiguous()}
+        ref, m1 = step(ref, b)
+        sst, m2 = sstep(sst, b)
+        np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]),
+                                   rtol=1e-5)
+    torch.cuda.synchronize()
+    for a, st in zip(tree_leaves(ref.params), tree_leaves(sst.params)):
+        np.testing.assert_allclose(_np(SH.unshard(st)), _np(a), rtol=2e-4,
+                                   atol=1e-4)
+    for a, st in zip(tree_leaves(ref.opt["m"]), tree_leaves(sst.opt["m"])):
+        assert all(2 * x.numel() == a.numel() for x in st.shards.flat)
+    assert cops.chunk_attention.launches == 0
+    assert dops.decode_attention.launches == 0

@@ -83,9 +83,10 @@ def _t(x, dtype=None):
 
 
 def _chunk(fc, q, k, v, qpos, kpos, kch, qseg, kseg, C, window,
-           nsplit=None):
+           nsplit=None, fill=None):
     """[A,H,D] / [S,Hkv,D] inputs through the emulated kernel (B=1), with
-    the wrapper's key split unless ``nsplit`` is given."""
+    the wrapper's key split unless ``nsplit`` is given; output, workspace
+    and mass filled with ``fill`` before the launch when it is given."""
     A, H, D = q.shape
     S, Hkv = k.shape[:2]
     if nsplit is None:
@@ -95,6 +96,9 @@ def _chunk(fc, q, k, v, qpos, kpos, kch, qseg, kseg, C, window,
     out = torch.empty_like(ts[0])
     work = torch.empty(cops.workspace_floats(1, A, H, Hkv, D, C, nsplit))
     mass = torch.empty((1, A, C))
+    if fill is not None:
+        for t in (out, work, mass):
+            t.fill_(fill)
     err = fc(*[t.data_ptr() for t in ts], out.data_ptr(), work.data_ptr(),
              mass.data_ptr(), 1, A, S, H, Hkv, D, C, window,
              int(q.dtype == torch.bfloat16), nsplit, None)
@@ -325,6 +329,26 @@ extern "C" int ldm_tile(const uint16_t* A, const uint16_t* Bkn,
 extern "C" void tf32_round(const float* x, uint32_t* out, int n) {
   for (int i = 0; i < n; ++i) out[i] = tf32_rna(x[i]);
 }
+// the shim's cp.async: two groups of 16 bytes into poisoned shared
+// memory, read before any wait, after the wait that leaves one group in
+// flight, and after the last wait
+__global__ void cp_kernel(const float* src, float* out) {
+  float* s = reinterpret_cast<float*>(dyn_smem());
+  cp_async_cg16(s, src, true);
+  cp_async_commit();
+  cp_async_cg16(s + 4, src + 4, true);
+  cp_async_commit();
+  out[0] = s[0];
+  cp_async_wait<1>();
+  out[1] = s[0];
+  out[2] = s[4];
+  cp_async_wait<0>();
+  out[3] = s[4];
+}
+extern "C" int cp_order(const float* src, float* out) {
+  LAUNCH(cp_kernel, dim3(1), dim3(1), 32, 0)(src, out);
+  return 0;
+}
 """
 
 
@@ -347,6 +371,7 @@ def frag(tmp_path_factory):
     lib.mma_tile.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
     lib.tf32_round.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
     lib.ldm_tile.argtypes = [ctypes.c_void_p] * 5
+    lib.cp_order.argtypes = [ctypes.c_void_p] * 2
     return lib
 
 
@@ -424,6 +449,54 @@ def test_source_tf32_rounding_vs_numpy(frag):
     want = _tf32_np(x).view(np.uint32)
     np.testing.assert_array_equal(out, want)
     assert not np.any(out & np.uint32(0x1FFF))
+
+
+def test_emulated_cp_async_lands_at_its_wait(frag):
+    """In the shim a cp.async copy lands when the issuing thread's
+    cp.async.wait_group lets its group complete, the latest moment the
+    card may complete it, and shared memory starts as NaN: a kernel that
+    reads a stage before waiting for it reads NaN here, whatever the card
+    happened to do."""
+    src = np.arange(8, dtype=np.float32) + 1
+    out = np.zeros(4, np.float32)
+    frag.cp_order(src.ctypes.data, out.ctypes.data)
+    assert np.isnan(out[0]) and np.isnan(out[2])
+    assert out[1] == src[0] and out[3] == src[4]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunk_source_poisoned_buffers(libs, dtype):
+    """The intermittent card mismatch's shape (tests/test_torch_kernels_
+    cuda.py's first chunk case: A 16, S 64, H 4/4, D 32, C 8) through
+    every key split its tiles allow (fp32 1 and 2 ranges, bf16 1), with
+    the workspace, output and mass NaN before the launch: every output
+    within the tolerance of the plain version and NaN-free (the split
+    route reads only workspace rows it wrote), two launches byte-equal,
+    and equal to a launch on zeroed buffers."""
+    rng = np.random.default_rng(16 + 64)
+    A, S, H, Hkv, D, C = 16, 64, 4, 4, 32, 8
+    dt = getattr(torch, dtype)
+    q = _t(rng.normal(size=(A, H, D)).astype(np.float32), dt)
+    k = _t(rng.normal(size=(S, Hkv, D)).astype(np.float32), dt)
+    v = _t(rng.normal(size=(S, Hkv, D)).astype(np.float32), dt)
+    qpos = np.sort(rng.choice(S, A, replace=False)).astype(np.int32)
+    kpos = np.arange(S, dtype=np.int32)
+    kpos[-S // 8:] = -1
+    kch = np.minimum(np.maximum(kpos, 0) * C // S, C - 1).astype(np.int32)
+    ins = [q, k, v] + [_t(x) for x in (qpos, kpos, kch,
+                                       np.zeros(A, np.int32),
+                                       np.zeros(S, np.int32))]
+    o_r, m_r = chunk_attention_ref(*ins[:6], num_chunks=C)
+    tiles = -(-S // (32 if dtype == "float32" else 64))
+    for ns in range(1, min(2, tiles) + 1):
+        runs = [_chunk(libs[0], *ins, C, 0, nsplit=ns, fill=f)
+                for f in (float("nan"), float("nan"), 0.0)]
+        for o, m in runs:
+            assert not (o.float().isnan().any() or m.isnan().any())
+            torch.testing.assert_close(o.float(), o_r.float(), **_tol(dtype))
+            torch.testing.assert_close(m, m_r, **_tol(dtype))
+        for o, m in runs[1:]:
+            assert torch.equal(o, runs[0][0]) and torch.equal(m, runs[0][1])
 
 
 def _decode(fd, q, k, v, qp, kp, window, nsplit=None):
