@@ -149,12 +149,32 @@ Phases (each prints its own line; any failure raises and exits non-zero):
     byte for byte) and a 3rd step against data 4's; phase 5's llama3-8b/2
     step counted on meta (``count_cell``) over its measured time; four
     llama3-8b cells of the dry-run on meta in CPU worker processes;
-15. a ``kernels`` JSON line (launches on the main paths, error, times,
+15. tensor-parallel training (after phase 14; ``run_tp``): llama3-8b
+    cut to 2 layers, 3 steps on a (data 2, model 4) mesh on the card
+    (q / kv heads, the SwiGLU and the vocab split over "model") against
+    phase 14's unsharded steps: losses within 1e-5, params within rtol
+    2e-4 / atol 1e-4 (sign flips aside, ``FLIP_SHARE``), ``m`` and ``v``
+    within it; granite-moe-1b-a400m at full width cut to 2 layers and
+    whole, 3 unsharded steps, 3 from each of three inits whose embedding
+    elements are scaled by 1 + 2^-20 N(0, 1) (the controls: top-k
+    routing is discontinuous, ``MOE_CONTROL``), then 3 on (data 4, model
+    1) (the MoE aux term from global means alone) and 3 on (data 2,
+    model 2) (experts and vocab split), the routing flips of every step
+    counted against the unsharded run's: the 2-layer run on (4, 1) within
+    the parity standard, at 2 layers one sharded step from each
+    unsharded state within it wherever that step flips no route, every
+    run's loss gap and params outside the tolerance within 4x the
+    controls' most, its params within twice the summed lr; 8 x 512
+    tokens, accum 2; the counted collective bytes equal to the dry-run's
+    closed forms, mesh position 0's param / ``m`` / ``v`` bytes equal to
+    their layouts', each microbatch's aux printed beside the unsharded
+    one's;
+16. a ``kernels`` JSON line (launches on the main paths, error, times,
     bound, the D 256 rows, the paged kernel's per-shard call and each
     family's path shape beside them), the mamba2 and training figures,
     per-engine TTFT / decode-step figures, the server's, the families',
-    the recurrent and vision ones, the mesh phases' and phase 14's;
-16. last line: ``{"ok": true, "device": {...}}``.
+    the recurrent and vision ones, the mesh phases' and phases 14-15's;
+17. last line: ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before the mamba2 phase, the training
 runs, the engine serving the trained checkpoint, engines A and B,
@@ -1412,7 +1432,7 @@ def run_mamba2(dev):
 # ~1e-3 under AdamW's eps, and at 3e-4 its loss fell less in 8 steps than
 # it varies between batches. TRAIN_HELD is a batch no step trains on.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_STEPS = 4, 1024, 2, 8
-TRAIN_LR = {"ssm": 3e-3, "dense": 3e-4}           # by model family
+TRAIN_LR = {"ssm": 3e-3, "dense": 3e-4, "moe": 3e-4}   # by model family
 TRAIN_HELD = 1000
 
 
@@ -1943,9 +1963,13 @@ def measure_paged_shards(pi, n):
     blocks in place and is held against the plain version on that view;
     the shards' outputs put together against the one unsharded launch;
     the n launches timed against the unsharded one (events and the
-    card's clock). The bound is the unsharded call's: the shards read
-    the same bytes between them."""
+    card's clock), beside the plain version once per shard and the
+    library call once per shard (``scaled_dot_product_attention`` on the
+    shard's head slice of the keys pre-gathered by block row, as
+    ``measure_paged`` times it). The bound is the unsharded call's: the
+    shards read the same bytes between them."""
     import torch
+    import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.decode_attention.ref import \
@@ -1957,7 +1981,8 @@ def measure_paged_shards(pi, n):
     NBmax = pi["block_rows"].shape[1]
     hs, gs = Hkv // n, H // n
     safe, gpos = _paged_gather(pi)
-    n_keys = int(_decode_live(pi["q_pos"], gpos, window).sum())
+    live = _decode_live(pi["q_pos"], gpos, window)
+    n_keys = int(live.sum())
     brows = pi["block_rows"]
     ref_blocks = torch.unique(brows[brows >= 0].long())
     n_slots = int((pi["kpos_blocks"][ref_blocks] >= 0).sum())
@@ -1994,11 +2019,24 @@ def measure_paged_shards(pi, n):
         b_ms, b_by = bound(nbytes, 4 * D * H * n_keys, dt_name)
         t_s, t_f = cuda_ms(shards), cuda_ms(full)
         d_s, d_f = device_ms(shards), device_ms(full)
+        plain = lambda: [paged_decode_attention_ref(  # noqa: E731
+            qs, ks, vs, *rest, window=window) for qs, ks, vs in views]
+        kg = x["k_blocks"][safe].reshape(B, -1, Hkv, D).transpose(1, 2)
+        vg = x["v_blocks"][safe].reshape(B, -1, Hkv, D).transpose(1, 2)
+        libv = [(x["q"][:, s * gs:(s + 1) * gs, None],
+                 kg[:, s * hs:(s + 1) * hs].contiguous(),
+                 vg[:, s * hs:(s + 1) * hs].contiguous()) for s in range(n)]
+        lmask = live[:, None, None, :]
+        lib = lambda: [F.scaled_dot_product_attention(  # noqa: E731
+            qs, ks, vs, attn_mask=lmask, enable_gqa=True)
+            for qs, ks, vs in libv]
+        t_p, t_l, d_l = cuda_ms(plain), cuda_ms(lib), device_ms(lib)
         res[dt_name] = dict(
             err=err, gathered_vs_unsharded=gap,
             gathered_bit_equal=bool(torch.equal(gathered, o_full)),
             ms=t_s, device_ms=d_s, unsharded_ms=t_f,
-            unsharded_device_ms=d_f, bound_ms=b_ms, bound_by=b_by,
+            unsharded_device_ms=d_f, plain_ms=t_p, library_ms=t_l,
+            library_device_ms=d_l, bound_ms=b_ms, bound_by=b_by,
             splits=dops.num_splits(B, NBmax * bs, Hkv, dt, block=bs))
         log(f"kernel paged_decode_attention {n} head shards {dt_name} NB={NB} "
             f"bs={bs} B={B} NBmax={NBmax} H={H}/{Hkv} (per shard "
@@ -2007,8 +2045,9 @@ def measure_paged_shards(pi, n):
             f"{gap:.3e} (bit-equal "
             f"{res[dt_name]['gathered_bit_equal']}); {n} launches ms="
             f"{t_s:.4f} device_ms={_fmt(d_s)} vs one unsharded ms="
-            f"{t_f:.4f} device_ms={_fmt(d_f)}; bound_ms={b_ms:.4f} "
-            f"({b_by})")
+            f"{t_f:.4f} device_ms={_fmt(d_f)}; per shard plain_ms="
+            f"{t_p:.4f} library_ms={t_l:.4f} library_device_ms="
+            f"{_fmt(d_l)}; bound_ms={b_ms:.4f} ({b_by})")
     return res
 
 
@@ -2813,9 +2852,10 @@ def _reset_peak(dev):
         torch.cuda.reset_peak_memory_stats(dev)
 
 
-def _steps(step, state, batch, dev, first=0, n=SHARD_STEPS):
+def _steps(step, state, batch, dev, first=0, n=SHARD_STEPS, auxes=None):
     """``n`` steps from batch ``first``: (state, losses, ms per step on
-    the host clock around work that ends in a synchronise, lrs)."""
+    the host clock around work that ends in a synchronise, lrs); each
+    step's per-microbatch MoE aux loss appended to ``auxes``."""
     from repro_torch import device as devmod
     losses, ms, lrs = [], [], []
     for i in range(first, first + n):
@@ -2827,7 +2867,20 @@ def _steps(step, state, batch, dev, first=0, n=SHARD_STEPS):
         lrs.append(float(m["lr"]))
         devmod.sync(dev)
         ms.append((time.perf_counter() - t0) * 1e3)
+        if auxes is not None:
+            auxes.append([float(a) for a in m["aux_micro"]])
     return state, losses, ms, lrs
+
+
+def _host_state(state, keep=("params", "m", "v")):
+    """Copies on the host of an unsharded state's params, ``m`` and
+    ``v`` (those ``keep`` names), with the leaf names."""
+    from repro_torch.training.optimizer import tree_leaves
+    trees = {"params": state.params, "m": state.opt["m"],
+             "v": state.opt["v"]}
+    return dict(names=_leaf_names(state.params), **{
+        k: [x.detach().to("cpu", copy=True) for x in tree_leaves(trees[k])]
+        for k in keep})
 
 
 def _leaf_names(tree, prefix=""):
@@ -2850,7 +2903,7 @@ def _params_gap(names, got_leaves, want_leaves, extra=()):
     worst, bad = 0.0, []
     for j, (n, g, w) in enumerate(zip(names, got_leaves, want_leaves,
                                       strict=True)):
-        g, w = g.detach(), w.to(g.device)
+        g, w = g.detach(), w.detach().to(g.device)
         d = (g - w).abs()
         worst = max(worst, float(d.max()))
         out = ~torch.isclose(g, w, **PARAM_TOL)
@@ -2897,9 +2950,9 @@ def zero1_check(cfg, dev):
     step = TS.make_train_step(cfg, opt, accum=TRAIN_ACCUM)
     state, loss_plain, ms_plain, lrs = _steps(step, state, batch, dev)
     peak_plain = _peak(dev)
-    names = _leaf_names(state.params)
-    want = [x.detach().cpu() for x in tree_leaves(state.params)]
-    want_v = [x.detach().cpu() for x in tree_leaves(state.opt["v"])]
+    plain = dict(_host_state(state), losses=loss_plain, ms=ms_plain,
+                 lrs=lrs, peak=peak_plain)
+    names, want, want_v = plain["names"], plain["params"], plain["v"]
     del state, step
     _reset_peak(dev)
     mesh = make_debug_mesh((SHARD_DP, 1), device=dev)
@@ -2963,7 +3016,7 @@ def zero1_check(cfg, dev):
         raise RuntimeError(f"zero1: sharded peak {peak_sh / 1e9:.2f} GB > "
                            f"unsharded {peak_plain / 1e9:.2f} GB + one fp32 "
                            f"copy of the params ({param_bytes / 1e9:.2f})")
-    return out
+    return out, plain
 
 
 def elastic_check(cfg, dev, tmp):
@@ -3044,7 +3097,7 @@ def run_sharded(dev, card, training):
                                 mp_context=mp.get_context("spawn")) as pool:
         futs = [pool.submit(_dryrun_cell, s, cc) for s, cc in DRYRUN_CELLS]
         llama2 = get_config("llama3-8b").replace(num_layers=2)
-        out["zero1"] = zero1_check(llama2, dev)
+        out["zero1"], plain = zero1_check(llama2, dev)
         with tempfile.TemporaryDirectory(prefix="chip-smoke-elastic-") \
                 as tmp:
             out["elastic"] = elastic_check(
@@ -3085,6 +3138,382 @@ def run_sharded(dev, card, training):
         + json.dumps(out["dryrun"]))
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 14 (sharded training and the dry-run): "
+        f"{out['seconds']:.1f}s")
+    return out, plain
+
+
+# ---------------------------------------------------------------------------
+# phase 15: tensor-parallel training and the MoE aux term from global means
+# ---------------------------------------------------------------------------
+# llama3-8b/2 on (data 2, model 4): heads 32/4, kv 8/4, d_ff 14336/4 and
+# vocab 128256/4 all divide, so every Megatron route runs; granite-moe-1b
+# on (data 4, model 1), the aux term alone, and (data 2, model 2): its 32
+# experts, 16/8 heads and padded vocab split over 2
+TP_MESH = (2, 4)
+MOE_MESHES = ((4, 1), (2, 2))
+# Top-k routing is discontinuous: a near tie that another order of the
+# fp32 sums breaks the other way sends a token to other experts (a
+# routing flip, ``Routes``); the change spreads through attention and,
+# through AdamW's step (about lr whatever a grad's size), into the next
+# steps. The unsharded step itself drifts so from an init whose
+# embedding elements are scaled by 1 + MOE_CONTROL x N(0, 1), the noise
+# drawn with each seed of MOE_SEEDS (the controls; PERF.md §6). So
+# granite, at full width cut to MOE_CUT layers and whole, is held:
+# * over the whole run to the parity standard where MOE_STRICT names
+#   the run (no step of it flipped a route on the H100);
+# * at MOE_CUT layers step by step: one sharded step from the unsharded
+#   run's state before each of its steps, to the parity standard
+#   wherever that step flips no route;
+# * over the whole run on every mesh: its loss gap and its params
+#   outside PARAM_TOL within MOE_DRIFT x the most of the controls' (or
+#   within the parity standard), its params within twice the summed lr
+MOE_CUT = 2
+MOE_CONTROL = 2.0 ** -20
+MOE_SEEDS = (1, 2, 3)
+MOE_STRICT = {(MOE_CUT, (4, 1))}
+MOE_DRIFT = 4.0
+
+
+class Routes:
+    """Records the expert ids of every MoE layer's forward pass while it
+    lives (``close`` ends it): per ``Ctx`` (a microbatch, or a data shard
+    of one) in the order first seen, the sorted top-k ids [tokens, k] of
+    each layer. The recomputation inside the backward pass is not read."""
+
+    def __init__(self):
+        from repro_torch.models import model as M
+        from repro_torch.training import steps as TS
+        self.rec, self.bwd = [], False
+        route, grads = M._moe_route, TS._grads
+
+        def rec_route(ctx, p, h):
+            out = route(ctx, p, h)
+            if not self.bwd:
+                ids = out[3].detach()
+                self.rec.append((ctx, ids.sort(-1).values.reshape(
+                    -1, ids.shape[-1]).cpu()))
+            return out
+
+        def rec_grads(loss, leaves):
+            self.bwd = True
+            try:
+                return grads(loss, leaves)
+            finally:
+                self.bwd = False
+
+        def close():
+            M._moe_route, TS._grads = route, grads
+        self.close = close
+        M._moe_route, TS._grads = rec_route, rec_grads
+
+    def take(self, dp):
+        """The ids recorded since the last ``take`` per (microbatch,
+        layer) [tokens, k], the ``dp`` data shards' rows put together in
+        shard order."""
+        import torch
+        by = []
+        for ctx, ids in self.rec:
+            for c, lst in by:
+                if c is ctx:
+                    lst.append(ids)
+                    break
+            else:
+                by.append((ctx, [ids]))
+        self.rec = []
+        lists = [lst for _, lst in by]
+        return [[torch.cat([lists[i + d][j] for d in range(dp)])
+                 for j in range(len(lists[i]))]
+                for i in range(0, len(lists), dp)]
+
+
+def flips(a, b) -> int:
+    """Tokens, over microbatches and layers, whose expert sets differ
+    between two ``Routes.take``s."""
+    return int(sum(int((x != y).any(-1).sum())
+                   for ma, mb in zip(a, b, strict=True)
+                   for x, y in zip(ma, mb, strict=True)))
+
+
+def _snapshot(state):
+    """A copy of an unsharded state on its device."""
+    from repro_torch.training import steps as TS
+    from repro_torch.training.optimizer import tree_leaves, tree_unflatten
+
+    def cp(tree):
+        return tree_unflatten(tree, [x.detach().clone()
+                                     for x in tree_leaves(tree)])
+    return TS.TrainState(step=state.step.clone(), params=cp(state.params),
+                         opt={"m": cp(state.opt["m"]),
+                              "v": cp(state.opt["v"]),
+                              "count": state.opt["count"].clone()})
+
+
+def _plain_run(cfg, dev, routes=None, noise=0.0, seed=1, snaps=False):
+    """``SHARD_STEPS`` unsharded steps of ``cfg`` from ``_shard_setup``'s
+    init, each embedding element scaled by 1 + ``noise`` x N(0, 1) (the
+    noise drawn with ``seed``) where ``noise`` is given: ``_host_state``
+    and the run's figures; with ``routes`` each step's routing ("ids"),
+    with ``snaps`` copies on ``dev`` of the state before each step and
+    after the last ("snaps")."""
+    import torch
+
+    from repro_torch.training import steps as TS
+    _reset_peak(dev)
+    state, opt, batch = _shard_setup(cfg, dev)
+    if noise:
+        e = state.params["embed"]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        with torch.no_grad():
+            e.mul_(1 + noise * torch.randn(e.shape, generator=gen,
+                                           device=e.device))
+    aux = [] if cfg.num_experts else None
+    step = TS.make_train_step(cfg, opt, accum=TRAIN_ACCUM)
+    out = dict(ids=[], snaps=[] if snaps else None, losses=[], ms=[],
+               lrs=[])
+    if routes is not None:
+        routes.rec = []
+    for t in range(SHARD_STEPS):
+        if snaps:
+            out["snaps"].append(_snapshot(state))
+        state, loss, ms, lrs = _steps(step, state, batch, dev, first=t, n=1,
+                                      auxes=aux)
+        for k, v in (("losses", loss), ("ms", ms), ("lrs", lrs)):
+            out[k] += v
+        if routes is not None:
+            out["ids"].append(routes.take(1))
+    if snaps:
+        out["snaps"].append(_snapshot(state))
+    keep = ("params",) if noise else ("params", "m", "v")
+    return dict(out, **_host_state(state, keep), peak=_peak(dev), aux=aux)
+
+
+def _drift(run, plain):
+    """An unsharded run's drift from ``plain``: its worst loss gap
+    relative to ``plain``'s, its params outside PARAM_TOL and worst param
+    gap, and its routing flips per step."""
+    import numpy as np
+    worst, bad = _params_gap(plain["names"], run["params"], plain["params"])
+    return dict(loss_rel_gap=float(np.max(np.abs(np.array(
+        run["losses"]) - plain["losses"]) / np.abs(plain["losses"]))),
+        params_outside=sum(b["outside"] for b in bad),
+        params_worst_abs=worst,
+        flips=[flips(a, b) for a, b in zip(run["ids"], plain["ids"])])
+
+
+def tp_check(cfg, dev, shape, plain, routes=None, controls=None):
+    """``SHARD_STEPS`` steps of ``cfg`` on a ``shape`` (data, model) mesh
+    on ``dev`` from ``_shard_setup``'s init, against the unsharded run
+    ``plain`` (``_plain_run``): losses within LOSS_RTOL, params within
+    PARAM_TOL (AdamW's sign flips aside, ``FLIP_SHARE``), ``m`` and ``v``
+    within PARAM_TOL ("strict"), the counted collective bytes equal to
+    ``tp_collective_bytes`` plus ``zero1_collective_bytes``, and what
+    mesh position 0 holds of params, ``m`` and ``v`` equal to their
+    layouts' ``shard_bytes``. With ``controls`` (``_drift``s of unsharded
+    runs from perturbed inits, for a config with experts) the run's
+    routing flips per step against ``plain`` (``routes``), and the
+    parity standard only where ``MOE_STRICT`` names the run; else its
+    loss gap and params outside PARAM_TOL within ``MOE_DRIFT`` x the
+    controls' most, its params within twice the summed lr."""
+    import numpy as np
+
+    from repro_torch.distributed import collectives as CO
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.training import steps as TS
+    from repro_torch.training.optimizer import tree_leaves
+
+    _reset_peak(dev)
+    mesh = make_debug_mesh(shape, device=dev)
+    shs = TS.train_shardings(cfg, mesh)
+    state, opt, batch = _shard_setup(cfg, dev)
+    sst = TS.shard_state(state, shs)
+    del state
+    step = TS.make_train_step(cfg, opt, accum=TRAIN_ACCUM,
+                              grad_specs=shs["opt"]["m"])
+    CO.reset_bytes()
+    aux = [] if cfg.num_experts else None
+    losses, ms, lrs, ids = [], [], [], []
+    if routes is not None:
+        routes.rec = []
+    for t in range(SHARD_STEPS):
+        sst, loss, m_, lr = _steps(step, sst, batch, dev, first=t, n=1,
+                                   auxes=aux)
+        losses, ms, lrs = losses + loss, ms + m_, lrs + lr
+        if routes is not None:
+            ids.append(routes.take(shape[0]))
+    peak = _peak(dev)
+    counted = dict(CO.BYTES)
+    z = dryrun.zero1_collective_bytes(cfg, mesh, TRAIN_ACCUM)
+    t = dryrun.tp_collective_bytes(cfg, mesh, TRAIN_ACCUM, SHARD_BATCH,
+                                   SHARD_SEQ)
+    closed = {k: SHARD_STEPS * (z[k] + t[k]) for k in z}
+    trees = {"params": sst.params, "m": sst.opt["m"], "v": sst.opt["v"]}
+    pos = (0,) * len(shape)
+    held = {k: sum(x.shards[pos].numel() * x.shards[pos].element_size()
+                   for x in tree_leaves(tr)) for k, tr in trees.items()}
+    layout = {k: sum(SH.shard_bytes(x.shape, x.dtype, x.sharding)
+                     for x in tree_leaves(tr)) for k, tr in trees.items()}
+    un = {k: [SH.unshard(st) for st in tree_leaves(tr)]
+          for k, tr in trees.items()}
+    del sst, step, trees
+    worst, bad = _params_gap(plain["names"], un["params"], plain["params"],
+                             extra=[(un["v"], plain["v"])])
+    moments = {k: _params_gap(plain["names"], un[k], plain[k])
+               for k in ("m", "v")}
+    del un
+    rel = float(np.max(np.abs(np.array(losses) - plain["losses"])
+                       / np.abs(plain["losses"])))
+    strict = rel <= LOSS_RTOL and _flips_only(bad, lrs) and \
+        not moments["m"][1] and not moments["v"][1]
+    outside = sum(b["outside"] for b in bad)
+    out = dict(model=f"{cfg.name}/{cfg.num_layers}", mesh=list(shape),
+               tokens=f"{SHARD_BATCH} x {SHARD_SEQ}", accum=TRAIN_ACCUM,
+               losses_plain=plain["losses"], losses_sharded=losses,
+               loss_rel_gap=rel, params_worst_abs=worst,
+               params_outside_tol=bad if controls is None else outside,
+               flip_bound=2 * sum(lrs),
+               m_worst_abs=moments["m"][0], v_worst_abs=moments["v"][0],
+               step_ms_plain=plain["ms"], step_ms_sharded=ms,
+               peak_gb_plain=plain["peak"] and plain["peak"] / 1e9,
+               peak_gb_sharded=peak and peak / 1e9,
+               position0_bytes=held, layout_bytes=layout,
+               coll_bytes_counted=counted, coll_bytes_closed_form=closed,
+               strict=strict)
+    if aux is not None:
+        out.update(aux_plain=plain["aux"], aux_sharded=aux,
+                   aux_rel_gap=float(np.max(np.abs(np.array(aux) - np.array(
+                       plain["aux"])) / np.abs(plain["aux"]))))
+    need_strict = controls is None or \
+        (cfg.num_layers, tuple(shape)) in MOE_STRICT
+    if controls is not None:
+        out["flips"] = [flips(a, b) for a, b in zip(ids, plain["ids"])]
+        out["control_loss_rel_gap"] = max(c["loss_rel_gap"]
+                                          for c in controls)
+        out["control_params_outside"] = max(c["params_outside"]
+                                            for c in controls)
+        out["control_flips"] = [c["flips"] for c in controls]
+    log(f"tensor-parallel {out['model']} on a (data {shape[0]}, model "
+        f"{shape[1]}) mesh: " + json.dumps(out))
+    if need_strict and not strict:
+        raise RuntimeError(
+            f"tp {shape}: loss gap {rel:.3e}, leaves outside {PARAM_TOL}: "
+            f"params {bad}, m {moments['m'][1]}, v {moments['v'][1]}")
+    if controls is not None and not strict and (
+            rel > MOE_DRIFT * out["control_loss_rel_gap"] or
+            outside > MOE_DRIFT * out["control_params_outside"]):
+        raise RuntimeError(
+            f"tp {shape}: loss gap {rel:.3e}, {outside} params outside "
+            f"{PARAM_TOL}, beyond {MOE_DRIFT} x the controls' most "
+            f"({out['control_loss_rel_gap']:.3e}, "
+            f"{out['control_params_outside']})")
+    if worst > 2 * sum(lrs):
+        raise RuntimeError(f"tp {shape}: a param moved {worst:.3e}, beyond "
+                           f"twice the summed lr {2 * sum(lrs):.3e}")
+    if counted != closed:
+        raise RuntimeError(f"tp {shape}: counted collective bytes {counted}"
+                           f" != the closed form {closed}")
+    if held != layout:
+        raise RuntimeError(f"tp {shape}: position 0 holds {held}, the "
+                           f"layouts {layout}")
+    if aux is not None and not all(a > 0 for s in aux for a in s):
+        raise RuntimeError(f"tp {shape}: aux {aux}")
+    return out
+
+
+def one_step_check(cfg, dev, shape, plain, routes):
+    """Before each of the unsharded run's steps, one sharded step on a
+    ``shape`` mesh from the unsharded state (``plain["snaps"]``) on the
+    same batch: per step its routing flips, loss gap, ``m`` / ``v`` and
+    params against the unsharded step's; to the parity standard
+    ("strict") wherever the step flips no route."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.training import steps as TS
+    from repro_torch.training.optimizer import tree_leaves
+
+    mesh = make_debug_mesh(shape, device=dev)
+    shs = TS.train_shardings(cfg, mesh)
+    _, opt, batch = _shard_setup(cfg, dev)
+    per = []
+    for t in range(SHARD_STEPS):
+        start = _snapshot(plain["snaps"][t])
+        for x in tree_leaves(start.params):
+            x.requires_grad_(True)
+        sst = TS.shard_state(start, shs)
+        del start
+        step = TS.make_train_step(cfg, opt, accum=TRAIN_ACCUM,
+                                  grad_specs=shs["opt"]["m"])
+        routes.rec = []
+        sst, loss, _, lrs = _steps(step, sst, batch, dev, first=t, n=1)
+        f = flips(routes.take(shape[0]), plain["ids"][t])
+        want = plain["snaps"][t + 1]
+        gap = {k: _params_gap(plain["names"],
+                              [SH.unshard(x) for x in tree_leaves(g)],
+                              list(tree_leaves(w)))
+               for k, g, w in (("params", sst.params, want.params),
+                               ("m", sst.opt["m"], want.opt["m"]),
+                               ("v", sst.opt["v"], want.opt["v"]))}
+        del sst, step
+        rel = abs(loss[0] - plain["losses"][t]) / abs(plain["losses"][t])
+        strict = rel <= LOSS_RTOL and _flips_only(gap["params"][1], lrs) \
+            and not gap["m"][1] and not gap["v"][1]
+        per.append(dict(step=t + 1, flips=f, loss_rel_gap=rel,
+                        params_worst_abs=gap["params"][0],
+                        params_outside=sum(b["outside"]
+                                           for b in gap["params"][1]),
+                        m_worst_abs=gap["m"][0], v_worst_abs=gap["v"][0],
+                        strict=strict))
+        if not f and not strict:
+            raise RuntimeError(
+                f"one step on {shape} from the unsharded state before step "
+                f"{t + 1}: no route flipped, yet loss gap {rel:.3e}, "
+                f"leaves outside {PARAM_TOL}: params {gap['params'][1]}, "
+                f"m {gap['m'][1]}, v {gap['v'][1]}")
+    log(f"one sharded step from the unsharded state, {cfg.name}/"
+        f"{cfg.num_layers} on {list(shape)}: " + json.dumps(per))
+    return per
+
+
+def run_tp(dev, card, plain):
+    """Phase 15: llama3-8b/2 on (data 2, model 4) against phase 14's
+    unsharded steps (``plain``, emptied afterwards); granite-moe-1b-a400m
+    at full width, cut to ``MOE_CUT`` layers and then whole, unsharded,
+    its controls (``MOE_CONTROL``, ``MOE_SEEDS``), and on (data 4, model
+    1) and (data 2, model 2), 8 x 512 tokens, accum 2, ``SHARD_STEPS``
+    steps each (``tp_check``), at ``MOE_CUT`` layers also one sharded
+    step from each unsharded state (``one_step_check``)."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    llama2 = get_config("llama3-8b").replace(num_layers=2)
+    out = {"llama3-8b/2": tp_check(llama2, dev, TP_MESH, plain)}
+    plain.clear()
+    granite = get_config("granite-moe-1b-a400m")
+    routes = Routes()
+    try:
+        for cfg in (granite.replace(num_layers=MOE_CUT), granite):
+            cut = cfg.num_layers == MOE_CUT
+            name = f"{cfg.name}/{cfg.num_layers}"
+            base = _plain_run(cfg, dev, routes, snaps=cut)
+            ctl = [_drift(_plain_run(cfg, dev, routes, MOE_CONTROL, seed=s),
+                          base) for s in MOE_SEEDS]
+            _free()
+            out[f"{name} unsharded"] = dict(
+                losses=base["losses"], aux=base["aux"], step_ms=base["ms"],
+                peak_gb=base["peak"] and base["peak"] / 1e9, controls=ctl)
+            for shape in MOE_MESHES:
+                r = tp_check(cfg, dev, shape, base, routes, ctl)
+                if cut:
+                    r["one_step"] = one_step_check(cfg, dev, shape, base,
+                                                   routes)
+                out[f"{name} {list(shape)}"] = r
+            del base
+            _free()
+    finally:
+        routes.close()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 15 (tensor-parallel training, the MoE aux term) [{card}]: "
         f"{out['seconds']:.1f}s")
     return out
 
@@ -3292,7 +3721,10 @@ def main() -> int:
     # phase 13: context-parallel flash and the EF gradient all-reduce
     cp_ef = run_cp_ef(dev)
     # phase 14: sharded training, the elastic restore and the dry-run
-    sharded = run_sharded(dev, card, training)
+    sharded, plain = run_sharded(dev, card, training)
+    # phase 15: tensor-parallel training and the MoE aux term, against
+    # phase 14's unsharded llama3-8b/2 steps
+    tp = run_tp(dev, card, plain)
     # chunk_attention at the path's most frequent shape, on the inputs of
     # engine A's first call of that shape
     path_shape = hist[0][0]
@@ -3329,7 +3761,7 @@ def main() -> int:
     err_a = compare_logits("A(kernel)", tr_a, tok_a, tr_c, tok_c)
     err_b = compare_logits("B(paged_kernel)", tr_b, tok_b, tr_c, tok_c)
 
-    # phase 15: the kernels line, the mamba2, training, engine, family,
+    # phase 16: the kernels line, the mamba2, training, engine, family,
     # recurrent / vision, mesh and sharded-training figures
     sources = {
         "chunk_attention": (
@@ -3434,7 +3866,8 @@ def main() -> int:
            for dt, sfx in (("float32", ""), ("bfloat16", "_bf16"))
            for k in ("err", "gathered_vs_unsharded", "gathered_bit_equal",
                      "ms", "device_ms", "unsharded_ms",
-                     "unsharded_device_ms", "bound_ms", "splits")})
+                     "unsharded_device_ms", "plain_ms", "library_ms",
+                     "library_device_ms", "bound_ms", "splits")})
     # each family's engine A (and the recurrent and vision model roots):
     # its launches, and the kernel held and timed on the recorded inputs
     # of its most frequent call shape
@@ -3538,6 +3971,17 @@ def main() -> int:
         + "; " + json.dumps(cp_ef))
     log(f"sharded training and the dry-run [{card}]: "
         + json.dumps(sharded))
+    log(f"tensor-parallel training [{card}]: " + json.dumps({
+        k: v if k == "seconds" or "mesh" not in v else {
+            m: v[m] for m in (
+                "mesh", "loss_rel_gap", "params_worst_abs", "m_worst_abs",
+                "v_worst_abs", "step_ms_plain", "step_ms_sharded",
+                "peak_gb_plain", "peak_gb_sharded", "position0_bytes",
+                "coll_bytes_counted", "strict", "one_step", "flips",
+                "aux_rel_gap", "control_loss_rel_gap",
+                "control_params_outside", "control_flips")
+            if m in v}
+        for k, v in tp.items()}))
     log(f"end-to-end vs dense: A max abs logit diff {err_a:.3e}, "
         f"B {err_b:.3e}; total {time.perf_counter() - t_all:.1f}s")
     log(card)    # nvidia-smi's name, power.limit line, verbatim

@@ -22,14 +22,33 @@ The reference runs a body once per device of a mesh axis under
   None keeps the whole sum (an all-reduce). ``parts`` may be a generator:
   the sum is kept as it goes, so at most one part is held besides it.
 
+Three differentiable collectives over the "model" axis carry the
+tensor-parallel (Megatron) layers of the train step, each an
+``autograd.Function`` whose backward is the collective's transpose:
+
+* ``copy_to_model(x, n)`` hands ``x`` to each of ``n`` model shards; its
+  backward is the ``psum`` of the shards' grads (an all-reduce);
+* ``reduce_from_model(parts)`` is the ``psum`` of the shards' partial
+  results; its backward hands each part the incoming grad;
+* ``gather_over_model(blocks, dim)`` is ``all_gather``; its backward
+  gives each block its slice of the grad and moves nothing, since every
+  shard computes the whole grad of the gathered tensor.
+
+Over one shard each is the identity and counts nothing. Under remat the
+recomputed forward runs its collectives again, and they count again.
+
 ``BYTES`` counts, per collective kind (``all-gather``, ``all-reduce``,
 ``reduce-scatter``), the bytes each call's output holds on one device,
 the convention of the reference's HLO count (``repro/launch/roofline.py``
 ``analyze_hlo``: a collective's output shape). ``reset_bytes()`` sets the
-counts to 0, as a kernel's ``launches`` is reset.
+counts to 0, as a kernel's ``launches`` is reset. One process runs the
+collectives of every group of devices; ``counting(False)`` leaves out
+the calls made for the groups that do not hold mesh position 0, so that
+the counts stay one device's.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Iterable, List, Sequence
 
 import torch
@@ -68,11 +87,29 @@ def shard_map(body: Callable, *, mesh, in_specs: Sequence[P], axis: str):
 
 
 BYTES = {"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0}
+# a module global, not thread-local: autograd runs a CUDA backward on a
+# worker thread of its own
+_COUNTING = [True]
 
 
 def reset_bytes():
     for k in BYTES:
         BYTES[k] = 0
+
+
+@contextlib.contextmanager
+def counting(on: bool):
+    """Count the collectives called inside (``on``) or not."""
+    prev, _COUNTING[0] = _COUNTING[0], bool(on)
+    try:
+        yield
+    finally:
+        _COUNTING[0] = prev
+
+
+def _count(kind: str, nbytes: int):
+    if _COUNTING[0]:
+        BYTES[kind] += nbytes
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -84,7 +121,7 @@ def all_gather(parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
     device (``jax.lax.all_gather(..., tiled=True)``)."""
     dev = parts[0].device
     out = torch.cat([p.to(dev) for p in parts], dim=dim)
-    BYTES["all-gather"] += _nbytes(out)
+    _count("all-gather", _nbytes(out))
     return out
 
 
@@ -95,19 +132,32 @@ def psum(parts: Iterable[torch.Tensor]) -> torch.Tensor:
     total = next(it)
     for p in it:
         total = total + p.to(total.device)
-    BYTES["all-reduce"] += _nbytes(total)
+    _count("all-reduce", _nbytes(total))
     return total
 
 
-def reduce_scatter(parts: Iterable, dim) -> list:
+def pmax(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Elementwise maximum of per-shard tensors on the first shard's
+    device (``jax.lax.pmax``), an all-reduce."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = torch.maximum(total, p.to(total.device))
+    _count("all-reduce", _nbytes(total))
+    return total
+
+
+def reduce_scatter(parts: Iterable, dim, counted=None) -> list:
     """``psum`` of the parts in shard order, then shard s keeps block s
     along ``dim`` (a copy of its own, on the device of part s). Each part
     is a tensor, or a list of tensors with ``dim`` a list of the same
     length (None: the shard keeps the whole sum). Returns, per shard, its
     block (or list of blocks). The first part's tensors become the sum:
-    the caller hands over parts it no longer needs."""
+    the caller hands over parts it no longer needs. ``counted``, a list
+    of bools like ``dim``, leaves the tensors marked False uncounted (the
+    same collective of another group of devices)."""
     single = isinstance(dim, int) or dim is None
     dims = [dim] if single else list(dim)
+    counted = [True] * len(dims) if counted is None else list(counted)
     total, devices = None, []
     for part in parts:
         part = [part] if single else list(part)
@@ -120,9 +170,10 @@ def reduce_scatter(parts: Iterable, dim) -> list:
         del part
     n = len(devices)
     out = [[] for _ in range(n)]
-    for t, d in zip(total, dims):
+    for t, d, c in zip(total, dims, counted):
         if d is None:
-            BYTES["all-reduce"] += _nbytes(t)
+            if c:
+                _count("all-reduce", _nbytes(t))
             for s, dev in enumerate(devices):
                 out[s].append(t if dev == t.device else t.to(dev))
             continue
@@ -130,8 +181,68 @@ def reduce_scatter(parts: Iterable, dim) -> list:
             raise ValueError(f"dim {d} of size {t.shape[d]} does not "
                              f"split over {n} shards")
         blocks = t.tensor_split(n, d)
-        BYTES["reduce-scatter"] += _nbytes(blocks[0])
+        if c:
+            _count("reduce-scatter", _nbytes(blocks[0]))
         for s, dev in enumerate(devices):
             out[s].append(blocks[s].to(dev).clone(
                 memory_format=torch.contiguous_format))
     return [o[0] for o in out] if single else out
+
+
+# ---------------------------------------------------------------------------
+# Differentiable collectives over the model axis (Megatron's f and g)
+# ---------------------------------------------------------------------------
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n):
+        return tuple(x.view_as(x) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return psum(grads), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *parts):
+        ctx.devices = [p.device for p in parts]
+        return psum(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(g.to(d) for d in ctx.devices)
+
+
+class _GatherOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dim, *blocks):
+        ctx.dim = dim
+        ctx.sizes = [b.shape[dim] for b in blocks]
+        ctx.devices = [b.device for b in blocks]
+        return all_gather(blocks, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None,) + tuple(
+            p.to(d) for p, d in zip(g.split(ctx.sizes, ctx.dim),
+                                    ctx.devices))
+
+
+def copy_to_model(x: torch.Tensor, n: int) -> list:
+    """``x`` handed to each of ``n`` model shards; backward: the psum of
+    their grads (a counted all-reduce)."""
+    return [x] if n == 1 else list(_CopyToModel.apply(x, n))
+
+
+def reduce_from_model(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The psum of the model shards' partial results (a counted
+    all-reduce); backward: each part gets the incoming grad."""
+    return parts[0] if len(parts) == 1 else _ReduceFromModel.apply(*parts)
+
+
+def gather_over_model(blocks: Sequence[torch.Tensor], dim: int) \
+        -> torch.Tensor:
+    """The model shards' blocks concatenated along ``dim`` (a counted
+    all-gather); backward: each block its slice of the grad."""
+    return blocks[0] if len(blocks) == 1 else \
+        _GatherOverModel.apply(dim, *blocks)

@@ -23,6 +23,12 @@ position, as a sharded ``jax.Array`` holds one buffer per device),
 holds. The sharded train step (``training/steps.py`` with ``grad_specs``),
 ``checkpoint.restore(shardings=...)`` and the dry-run
 (``launch/dryrun.py``) use them.
+
+``tp_plan`` reads the rules for the tensor-parallel train step: per
+param leaf split over "model", whether its layer works on the blocks
+Megatron-style (``"split"``) or all-gathers them first and runs
+replicated (``"gather"``). A data shard's layers then see such a leaf as
+``Blocks``, its model shards' blocks in shard order.
 """
 from __future__ import annotations
 
@@ -335,6 +341,83 @@ class ShardedTensor:
     def __repr__(self):
         return (f"ShardedTensor({self.shape}, {self.dtype}, "
                 f"{self.sharding.spec} over {self.sharding.mesh.shape})")
+
+
+# ---------------------------------------------------------------------------
+# The tensor-parallel execution plan
+# ---------------------------------------------------------------------------
+# the leaves a layer splits Megatron-style, by name, and the dimension of
+# the per-layer tensor the split cuts: attention by q / kv heads, the
+# SwiGLU by its hidden width (column then row), the MoE by experts, and
+# the vocabulary of both embeddings
+MEGATRON_DIMS = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "wi": 2, "wo_ff": 0,
+                 "wi_e": 0, "wo_e": 0, "embed": 0, "unembed": 1}
+
+
+@dataclass(frozen=True)
+class TPLeaf:
+    """A param leaf's route in ``tp_plan``: ``"split"`` or ``"gather"``
+    over the model axis, on dimension ``dim`` of the per-layer tensor
+    (a stacked ``groups`` leaf has one more, leading)."""
+    route: str
+    dim: int
+
+
+@dataclass
+class Blocks:
+    """A leaf split over the model axis as a data shard's layers see it:
+    the model shards' blocks in shard order, the dimension of the
+    per-layer tensor they cut, and the plan's route."""
+    parts: list
+    dim: int
+    route: str
+
+    def unbind(self) -> list:
+        """A stacked ``[G, ...]`` leaf's blocks, one ``Blocks`` a layer."""
+        return [Blocks(list(ts), self.dim, self.route)
+                for ts in zip(*(p.unbind(0) for p in self.parts))]
+
+
+def tp_plan(mesh, cfg, axes_tree):
+    """The tensor-parallel route of every param leaf: a tree like
+    ``axes_tree`` (``models.model.param_axes(cfg)``) holding None where
+    ``make_rules(mesh, cfg)`` leaves the leaf whole on every model shard,
+    else a ``TPLeaf``. A leaf goes ``"split"`` where the rules cut it on
+    its Megatron dimension (``MEGATRON_DIMS``: q heads when ``heads``
+    resolves to "model", kv heads when ``kv_heads`` does, the SwiGLU's
+    ``mlp``, ``experts``, ``vocab``), and ``"gather"`` otherwise: q / kv
+    weights cut on the head dim (heads that do not divide), the
+    recurrent blocks' ``rnn`` and ``ssm_heads`` and any leaf not named.
+    The kv weights are not split unless the q weights are."""
+    msz = mesh.shape.get("model", 1)
+    with axis_rules(make_rules(mesh, cfg)):
+        specs = spec_tree(axes_tree)
+
+    def leaf(name, axes, spec, lead):
+        if msz == 1:
+            return None
+        for i, ax in enumerate(_dim_axes(spec, len(axes))):
+            if "model" in ax:
+                dim = i - lead
+                return TPLeaf("split" if MEGATRON_DIMS.get(name) == dim
+                              else "gather", dim)
+        return None
+
+    def layer(axes, spec, lead):
+        out = {n: leaf(n, axes[n], spec[n], lead) for n in axes}
+        if "wq" in out and getattr(out["wq"], "route", None) != "split":
+            for n in ("wk", "wv", "wo"):
+                if out[n] is not None:
+                    out[n] = TPLeaf("gather", out[n].dim)
+        return out
+    top = {n: leaf(n, axes_tree[n], specs[n], 0)
+           for n in ("embed", "unembed", "final_norm")}
+    # a stack of no whole group holds empty group dicts (init_params)
+    top["groups"] = [layer(a, s, 1) if cfg.n_groups else {}
+                     for a, s in zip(axes_tree["groups"], specs["groups"])]
+    top["tail"] = [layer(a, s, 0) for a, s in zip(axes_tree["tail"],
+                                                  specs["tail"])]
+    return top
 
 
 def _full(sl, shape) -> bool:

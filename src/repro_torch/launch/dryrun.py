@@ -28,10 +28,13 @@ initialises CUDA). For each cell it records:
   shape, so the count is linear in both and the result exact;
 * **collectives**: for the data axes, the ZeRO-1 train step's grad
   reduce-scatter, param all-gather and the all-reduces of what no
-  dimension splits, in closed form (``zero1_collective_bytes``, the bytes
-  ``distributed/collectives.py`` counts when the step runs). Tensor-
-  parallel collectives over "model" are reported as "not counted": the
-  port executes no tensor-parallel step;
+  dimension splits, in closed form (``zero1_collective_bytes``); and the
+  tensor-parallel step's collectives over "model" (with the MoE aux
+  term's and dispatch's over the data axes), in closed form too
+  (``tp_collective_bytes``). Together they are the bytes
+  ``distributed/collectives.py`` counts when the step runs. A serving
+  cell reports the train plan's forward over its tokens, which the
+  roofline leaves out: the port serves with no such plan;
 * **roofline** terms with the H100 constants (``launch/roofline.py``).
 
 The steps take the routes that reach no CUDA kernel, as the reference's
@@ -61,6 +64,7 @@ from repro_torch.launch import roofline as RL
 from repro_torch.launch.mesh import (Mesh, data_axes, dp_size,
                                      make_production_mesh)
 from repro_torch.models import backend as AB
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.config import LONG_CONTEXT_ARCHS, SHAPES
 from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
@@ -74,6 +78,11 @@ META = torch.device("meta")
 CC_ACTIVE_FRAC = 0.35       # 30% chunk recompute + question tokens
 TRAIN_ACCUM = 8
 GIB = 2 ** 30
+
+
+def _cc_tokens(S: int) -> int:
+    """The active tokens of a Cache-Craft partial prefill of S."""
+    return int(np.ceil(CC_ACTIVE_FRAC * S / 128) * 128)
 
 
 def meta_mesh(mesh: Mesh) -> Mesh:
@@ -207,7 +216,7 @@ def build_cell_for(cfg, kind: str, B: int, S: int, mesh, *,
         if cc:
             if not cfg.supports_chunk_cache:
                 raise ValueError("cc-prefill inapplicable")
-            A = int(np.ceil(CC_ACTIVE_FRAC * S / 128) * 128)
+            A = _cc_tokens(S)
             batch = {"tokens": tokens(B, A), "positions": tokens(B, A),
                      "cache": cache, **media}
             batch_sh = {"tokens": bsh, "positions": bsh, "cache": csh,
@@ -288,6 +297,85 @@ def zero1_collective_bytes(cfg, mesh, accum: int) -> Dict[str, int]:
             "all-reduce": (ar + 4) * accum + 4}
 
 
+def _elsize(name) -> int:
+    return torch.empty((), dtype=M.torch_dtype(name)).element_size()
+
+
+def tp_collective_bytes(cfg, mesh, accum: int, batch: int, seq: int,
+                        train: bool = True,
+                        dp: Optional[int] = None) -> Dict[str, int]:
+    """Per-device bytes of the train step's collectives beyond ZeRO-1's,
+    in closed form, for ``batch`` x ``seq`` tokens in ``accum``
+    microbatches, following ``sharding.tp_plan``. With T = a data shard's
+    tokens of a microbatch and ``dt`` the compute dtype's bytes, per
+    microbatch over "model": each ``"gather"`` leaf of a layer
+    all-gathered (its whole per-layer tensor); a split attention layer's
+    output summed (T d dt) and, in the backward, the grads of its input
+    copies summed (T d dt; with its kv heads not split, also those of k
+    and v, T_kv Hkv D dt each); a split SwiGLU the same (T d dt forward,
+    T d dt backward); split experts their fp32 combine (T d 4) forward,
+    the grads of their tokens (T d dt) and gates (T k 4) backward; the
+    vocab-split embedding's rows (T d dt) and loss (three [T] fp32
+    all-reduces forward, the normed input's grad T d dt backward). Under
+    remat a group layer's forward collectives count twice. Over the data
+    axes, for a config with experts: per microbatch the aux term's
+    ``fe`` and ``me`` ([2, layers, E] fp32) all-reduced, and per MoE
+    layer, where the shards cut a GShard group, the expert ids of the
+    microbatch (int32 [dp T, k]) all-gathered.
+
+    ``train=False`` gives a serving cell's forward under the same plan
+    (``batch`` x ``seq`` tokens over ``dp`` data shards, by default the
+    mesh's): no backward, no remat, no loss, no aux term, the logits left
+    split by vocab."""
+    nm = mesh.shape.get("model", 1)
+    dp = dp_size(mesh) if dp is None else dp
+    T = batch // accum // dp * seq
+    dt, pb, d = _elsize(cfg.dtype), _elsize(cfg.param_dtype), cfg.d_model
+    plan = SH.tp_plan(mesh, cfg, M.param_axes(cfg))
+    shapes = M.init_params(cfg, torch.Generator(), device=META)
+    kinds = cfg.layer_kinds
+    layers = [(kinds[g * len(cfg.pattern) + i], plan["groups"][i],
+               {n: x.shape[1:] for n, x in shapes["groups"][i].items()},
+               cfg.remat) for g in range(cfg.n_groups)
+              for i in range(len(cfg.pattern))]
+    layers += [(kinds[cfg.n_groups * len(cfg.pattern) + i], plan["tail"][i],
+                {n: x.shape for n, x in shapes["tail"][i].items()}, False)
+               for i in range(cfg.n_tail)]
+    bw = 1 if train else 0              # the backward's collectives
+    ag = ar = 0
+    if nm > 1:
+        if cfg.input_mode != "embeds":
+            ar += T * d * dt
+        ar += bw * (T * d * dt + 3 * T * 4)
+        for kind, routes, shp, remat in layers:
+            rf = 2 if remat and train else 1
+            split = {n for n, r in routes.items()
+                     if r is not None and r.route == "split"}
+            ag += rf * sum(int(np.prod(shp[n])) * pb
+                           for n, r in routes.items()
+                           if r is not None and r.route == "gather")
+            if "wq" in split:
+                ar += rf * T * d * dt + bw * T * d * dt
+                if "wk" not in split:
+                    t_kv = (T // seq * cfg.num_media_tokens
+                            if kind == "xattn" else T)
+                    ar += bw * 2 * t_kv * cfg.num_kv_heads * \
+                        cfg.head_dim_ * dt
+            if "wi" in split:
+                ar += rf * T * d * dt + bw * T * d * dt
+            if "wi_e" in split:
+                ar += rf * T * d * 4 + bw * (T * d * dt +
+                                              T * cfg.experts_per_token * 4)
+    if cfg.num_experts and dp > 1:
+        moe = [k for k in kinds if k != "ssd"]
+        ar += bw * 2 * len(moe) * cfg.num_experts * 4
+        g, gs = L.moe_groups(T, total=T * dp)
+        if gs != g:
+            ag += len(moe) * dp * T * cfg.experts_per_token * 4
+    return {"all-gather": ag * accum, "all-reduce": ar * accum,
+            "reduce-scatter": 0}
+
+
 def _outputs(kind, args, out, shardings, mesh, b_ax):
     """(output bytes, of them updated in place) per device: the train
     state and five fp32 metrics; or the last-position logits (batch over
@@ -357,15 +445,17 @@ def run_cell_for(cfg, kind: str, B: int, S: int, mesh, *, cc: bool = False,
         frac = meta.get("active_frac", 1.0)
         coll = zero1_collective_bytes(cfg, mesh, accum) \
             if kind == "train" else {}
+        tp = cell_tp_bytes(cfg, kind, B, S, mesh, accum, cc)
         rec["counted"] = {"flops_total": flops,
                           "flops_device": flops / chips,
                           "coll_bytes_data_axes": coll,
-                          "coll_bytes_tensor_parallel": "not counted"}
+                          "coll_bytes_tensor_parallel": tp}
         model_fl = RL.model_flops_6nd(cfg, kind, B, S)
         an_flops = RL.analytic_flops(cfg, kind, B, S, active_frac=frac)
         an_hbm = RL.analytic_hbm_bytes(cfg, kind, B, S, chips)
-        terms = RL.roofline_terms(flops / chips, an_hbm,
-                                  sum(coll.values()), model_fl, chips)
+        terms = RL.roofline_terms(
+            flops / chips, an_hbm, sum(coll.values()) +
+            (sum(tp.values()) if kind == "train" else 0), model_fl, chips)
         rec["analytic"] = {"flops_total": an_flops,
                            "flops_device": an_flops / chips,
                            "hbm_bytes_device": an_hbm,
@@ -404,6 +494,22 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
     return run_cell_for(cfg, spec["kind"], spec["global_batch"],
                         spec["seq_len"], mesh, cc=cc, seq_shard=seq_shard,
                         accum=accum, attn=attn, rec=rec)
+
+
+def cell_tp_bytes(cfg, kind: str, B: int, S: int, mesh,
+                  accum: int = TRAIN_ACCUM, cc: bool = False) -> Dict:
+    """A cell's ``tp_collective_bytes``: the train step's; or, for a
+    serving cell, the train plan's forward over its B rows of S (prefill),
+    the active tokens (cc) or 1 (decode), the rows over the data axes
+    that split the batch. The port serves with no such plan, so the
+    roofline leaves a serving cell's out."""
+    if kind == "train":
+        return tp_collective_bytes(cfg, mesh, accum, B, S)
+    toks = 1 if kind == "decode" else (_cc_tokens(S) if cc else S)
+    b_ax = _batch_axis(mesh, B) or ()
+    dp = int(np.prod([mesh.shape[a] for a in
+                      ((b_ax,) if isinstance(b_ax, str) else b_ax)]))
+    return tp_collective_bytes(cfg, mesh, 1, B, toks, train=False, dp=dp)
 
 
 def cells(include_cc: bool = True):

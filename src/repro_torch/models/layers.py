@@ -272,6 +272,89 @@ def swiglu(x, wi, wo):
     return (h @ wo).to(x.dtype)
 
 
+def moe_groups(T: int, group_size: int = 512, total: Optional[int] = None):
+    """(g, gs): g the GShard group, the largest divisor of the token
+    count ``total`` (default ``T``) up to ``group_size``; gs = gcd(T, g),
+    the groups ``T`` consecutive tokens of those ``total`` are cut into
+    (a data shard's rows of a global microbatch), each inside one g-token
+    group."""
+    total = T if total is None else total
+    g = min(group_size, total)
+    while total % g:
+        g -= 1
+    return g, int(np.gcd(T, g))
+
+
+def moe_capacity(g: int, k: int, capacity_factor: float, E: int) -> int:
+    """Slots per expert and group: max(4, ceil(g k cf / E))."""
+    return max(4, int(np.ceil(g * k * capacity_factor / E)))
+
+
+def moe_route(xg, router_w, k: int):
+    """xg [G, g, d] -> (router probs [G, g, E] fp32, the top-k gates
+    renormalised over the k [G, g, k], their expert ids [G, g, k]); ties
+    go to the lower expert id, as ``jax.lax.top_k``."""
+    logits = torch.einsum("gtd,de->gte", xg.float(), router_w.float())
+    probs = torch.softmax(logits, dim=-1)
+    top = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals = top.values[..., :k]
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
+    return probs, gate_vals, top.indices[..., :k]
+
+
+def moe_slots(gate_idx, C: int, E: int):
+    """The GShard dispatch of expert ids [G, g, k]: each round i takes its
+    tokens in cumsum order after the kept tokens of the rounds before it,
+    up to C per expert and group. Returns (slot [G, g, k] long, kept
+    [G, g, k] bool). Integers only: no gradient."""
+    counts = torch.zeros((gate_idx.shape[0], E), dtype=torch.long,
+                         device=gate_idx.device)
+    pos_k, keep_k = [], []
+    for i in range(gate_idx.shape[-1]):
+        oh = F.one_hot(gate_idx[..., i], E)                  # [G,g,E]
+        pos = torch.cumsum(oh, dim=1) - 1 + counts[:, None, :]
+        keep = (pos < C) & (oh > 0)
+        counts = counts + (oh * keep).sum(dim=1)
+        sel = gate_idx[..., i, None]
+        pos_k.append(pos.gather(-1, sel)[..., 0])
+        keep_k.append(keep.gather(-1, sel)[..., 0])
+    return torch.stack(pos_k, -1), torch.stack(keep_k, -1)
+
+
+def moe_experts(xg, gate_vals, gate_idx, slot, kept, wi, wo, C: int,
+                e0: int = 0):
+    """Experts e0 .. e0 + wi.shape[0] of the GShard FFN on the tokens xg
+    [G, g, d] dispatched by ``moe_slots`` (the overflow dropped), their
+    outputs combined with the gates: [G, g, d] fp32. wi [E', d, 2, F], wo
+    [E', F, d]. A token routed to no expert of the range adds nothing, so
+    the experts of a model shard give a partial sum."""
+    G, g = xg.shape[:2]
+    E_ = wi.shape[0]
+    dt = xg.dtype
+    dispatch = torch.zeros((G, g, E_, C), dtype=dt, device=xg.device)
+    combine = torch.zeros((G, g, E_, C), dtype=torch.float32,
+                          device=xg.device)
+    for i in range(gate_idx.shape[-1]):
+        e = gate_idx[..., i] - e0
+        mine = kept[..., i] & (e >= 0) & (e < E_)
+        # slot C is the drop column (the reference's one_hot of -1)
+        at = F.one_hot(torch.where(mine, slot[..., i], C), C + 1)[..., :C]
+        oh = F.one_hot(e.clamp(0, E_ - 1), E_)
+        disp_i = (oh[..., None] * at[..., None, :]).to(dt)   # [G,g,E',C]
+        dispatch = dispatch + disp_i
+        combine = combine + disp_i.float() * gate_vals[..., i, None, None]
+
+    ein = torch.einsum("gtec,gtd->gecd", dispatch.float(),
+                       xg.float()).to(dt)
+    a = torch.einsum("gecd,edf->gecf", ein.float(),
+                     wi[:, :, 0].float()).to(dt)
+    b = torch.einsum("gecd,edf->gecf", ein.float(),
+                     wi[:, :, 1].float()).to(dt)
+    hid = F.silu(a) * b
+    out_e = torch.einsum("gecf,efd->gecd", hid.float(), wo.float())
+    return torch.einsum("gtec,gecd->gtd", combine, out_e)
+
+
 def moe_ffn(x, router_w, wi, wo, *, experts_per_token: int,
             capacity_factor: float, group_size: int = 512):
     """GShard-style einsum-dispatch MoE, the reference's function.
@@ -282,53 +365,17 @@ def moe_ffn(x, router_w, wi, wo, *, experts_per_token: int,
     the capacity C = max(4, ceil(g k cf / E)) per expert and group; the
     overflow is dropped. router_w [d, E], wi [E, d, 2, F], wo [E, F, d].
     Returns (out like x, router probs [G, g, E] fp32)."""
-    orig_shape = x.shape
     d = x.shape[-1]
-    xt = x.reshape(-1, d)
-    T = xt.shape[0]
+    T = x.numel() // d
     E = router_w.shape[-1]
-    g = min(group_size, T)
-    while T % g:
-        g -= 1
-    G = T // g
-    xg = xt.reshape(G, g, d)
     k = experts_per_token
-    C = max(4, int(np.ceil(g * k * capacity_factor / E)))
-
-    logits = torch.einsum("gtd,de->gte", xg.float(), router_w.float())
-    probs = torch.softmax(logits, dim=-1)
-    # top-k with ties to the lower expert id, as jax.lax.top_k
-    top = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate_vals = top.values[..., :k]
-    gate_idx = top.indices[..., :k]                          # [G,g,k]
-    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
-
-    dt = x.dtype
-    counts = torch.zeros((G, E), dtype=torch.long, device=x.device)
-    dispatch = torch.zeros((G, g, E, C), dtype=dt, device=x.device)
-    combine = torch.zeros((G, g, E, C), dtype=torch.float32,
-                          device=x.device)
-    for i in range(k):
-        oh = F.one_hot(gate_idx[..., i], E)                  # [G,g,E]
-        pos = torch.cumsum(oh, dim=1) - 1 + counts[:, None, :]
-        keep = (pos < C) & (oh > 0)
-        # slot C is the drop column (the reference's one_hot of -1)
-        disp_i = F.one_hot(torch.where(keep, pos, C), C + 1)[..., :C] \
-            .to(dt)                                          # [G,g,E,C]
-        dispatch = dispatch + disp_i
-        combine = combine + disp_i.float() * gate_vals[..., i, None, None]
-        counts = counts + (oh * keep).sum(dim=1)
-
-    ein = torch.einsum("gtec,gtd->gecd", dispatch.float(),
-                       xg.float()).to(dt)
-    a = torch.einsum("gecd,edf->gecf", ein.float(),
-                     wi[:, :, 0].float()).to(dt)
-    b = torch.einsum("gecd,edf->gecf", ein.float(),
-                     wi[:, :, 1].float()).to(dt)
-    hid = F.silu(a) * b
-    out_e = torch.einsum("gecf,efd->gecd", hid.float(), wo.float())
-    out = torch.einsum("gtec,gecd->gtd", combine, out_e)
-    return out.reshape(orig_shape).to(x.dtype), probs
+    g, _ = moe_groups(T, group_size)
+    xg = x.reshape(T // g, g, d)
+    C = moe_capacity(g, k, capacity_factor, E)
+    probs, gate_vals, gate_idx = moe_route(xg, router_w, k)
+    slot, kept = moe_slots(gate_idx, C, E)
+    out = moe_experts(xg, gate_vals, gate_idx, slot, kept, wi, wo, C)
+    return out.reshape(x.shape).to(x.dtype), probs
 
 
 def moe_aux_loss(probs, num_experts: int) -> torch.Tensor:

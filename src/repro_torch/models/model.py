@@ -38,17 +38,32 @@ by any pass given ``media`` and read by the others. The
 reference donates caches to its jitted steps; here the cache tensors are
 updated IN PLACE (``index_put_`` / ``copy_`` into views of the stacked
 leaves) and the returned cache shares storage with the one passed in.
+
+Tensor-parallel training (``training/steps.py`` on a mesh with a model
+axis): a leaf that ``sharding.tp_plan`` splits over the model axis comes
+in as ``sharding.Blocks``. A block all-gathers its ``"gather"`` leaves
+first and runs replicated; attention with split q heads, the SwiGLU and
+the MoE experts run once per model shard on its blocks, between
+``copy_to_model`` and ``reduce_from_model`` (``distributed/
+collectives.py``); the embedding looks up each shard's vocab range and
+sums, and ``forward`` leaves the vocab-split logits to the loss
+(``logits=None``). ``run_stack_lockstep`` runs the data shards of one
+microbatch of a config with experts layer by layer, so that the MoE
+dispatch of a group that spans shards sees all of them.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
+from repro_torch.distributed import collectives as CO
+from repro_torch.distributed.sharding import Blocks
 from repro_torch.models import backend as AB
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -346,6 +361,9 @@ class Ctx:
     paged_rows: Optional[torch.Tensor] = None        # [B,S] slot rows
     paged_block_rows: Optional[torch.Tensor] = None  # [B,NBmax] block rows
     paged_block_size: int = 0
+    # tokens of the global microbatch a data shard's rows belong to: the
+    # MoE groups and capacity follow it (None: this call's own tokens)
+    moe_tokens: Optional[int] = None
     # live-row write index, computed once per forward and shared by all
     # layers (the reference's ``mode="drop"`` scatter: -1 rows write
     # nothing)
@@ -369,8 +387,17 @@ def _proj(x, w):
     return out.reshape(*x.shape[:-1], *w.shape[1:])
 
 
+def _out_proj(out, wo):
+    """Attention output [B,T,H,D] @ wo [H,D,d] -> [B,T,d]."""
+    B, T, H, D = out.shape
+    return (out.reshape(B * T, H * D) @ wo.reshape(H * D, -1)).reshape(
+        B, T, -1).to(out.dtype)
+
+
 def _self_attention(ctx: Ctx, kind: str, p, x, state):
     cfg = ctx.cfg
+    if isinstance(p["wq"], Blocks):
+        return _attention_tp(ctx, kind, p, x), state, None, None
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
@@ -428,19 +455,79 @@ def _self_attention(ctx: Ctx, kind: str, p, x, state):
         raise ValueError(ctx.mode)
 
     out, row_mass, key_mass = AB.attend(ctx, kind, q, k_all, v_all, kv_pos)
-    B, T = x.shape[:2]
-    H, D = out.shape[2:]
-    out = (out.reshape(B * T, H * D) @ p["wo"].reshape(H * D, -1)).reshape(
-        B, T, -1).to(out.dtype)
-    return out, new_state, row_mass, key_mass
+    return _out_proj(out, p["wo"]), new_state, row_mass, key_mass
+
+
+def _cross_attend(q, mk, mv):
+    """Cross-attention of q [B,Tq,H,D] to the media's K and V (no RoPE,
+    no mask): dense up to 2^21 score elements, blocked flash past them,
+    as the reference."""
+    B, Tq = q.shape[:2]
+    M = mk.shape[1]
+    if Tq * M <= (1 << 21):
+        mask = torch.ones((B, Tq, M), dtype=torch.bool, device=q.device)
+        return L.gqa_attend_dense(q, mk, mv, mask)[0]
+    # every (query, key) pair live: query positions 1, key positions 0
+    return L.gqa_attend_flash(
+        q, mk, mv, torch.ones((B, Tq), dtype=torch.int32, device=q.device),
+        torch.zeros((B, M), dtype=torch.int32, device=q.device))
+
+
+def _attention_tp(ctx: Ctx, kind: str, p, x):
+    """Train-mode attention with the q heads split over the model axis
+    (Megatron): model shard m projects its q heads from its copy of
+    ``x``, attends them to their kv heads and projects them out with its
+    rows of ``wo``; the shards' outputs are summed (``reduce_from_model``).
+    Where the kv heads split too, each shard projects its own; else the
+    kv projection runs once, replicated, and each shard takes the kv head
+    of every q head it holds (``copy_to_model``)."""
+    cfg = ctx.cfg
+    wq, wo = p["wq"].parts, p["wo"].parts
+    n = len(wq)
+    xs = CO.copy_to_model(x, n)
+    cross = kind == "xattn"
+
+    def kv(src, wk, wv):
+        k, v = _proj(src, wk), _proj(src, wv)
+        if not cross:
+            k = L.apply_rope(k, ctx.positions, cfg.rope_theta)
+        return k, v
+
+    if isinstance(p["wk"], Blocks):
+        # the media need no gradient: every shard reads the same tensor
+        kvs = [kv(ctx.media if cross else xs[m], p["wk"].parts[m],
+                  p["wv"].parts[m]) for m in range(n)]
+    else:
+        k, v = kv(ctx.media if cross else x, p["wk"], p["wv"])
+        ks, vs = CO.copy_to_model(k, n), CO.copy_to_model(v, n)
+        group = cfg.num_heads // cfg.num_kv_heads
+        kvs, h0 = [], 0
+        for m in range(n):
+            idx = torch.arange(h0, h0 + wq[m].shape[1],
+                               device=x.device) // group
+            kvs.append((ks[m].index_select(2, idx),
+                        vs[m].index_select(2, idx)))
+            h0 += wq[m].shape[1]
+    outs = []
+    for m in range(n):
+        q = _proj(xs[m], wq[m])
+        if cross:
+            out = _cross_attend(q, *kvs[m])
+        else:
+            q = L.apply_rope(q, ctx.positions, cfg.rope_theta)
+            out = AB.attend(ctx, kind, q, *kvs[m], ctx.positions)[0]
+        outs.append(_out_proj(out, wo[m]))
+    return CO.reduce_from_model(outs)
 
 
 def _cross_attention(ctx: Ctx, p, x, state):
-    """Gated cross-attention to the media (no RoPE, no mask): a pass
+    """Gated cross-attention to the media (``_cross_attend``): a pass
     given ``media`` projects its K and V (and stores them in the cache,
-    when there is one), any other pass reads them from the cache. Dense
-    up to 2^21 score elements, blocked flash past them, as the
-    reference. Returns ``tanh(gate_attn)`` x the attention output."""
+    when there is one), any other pass reads them from the cache.
+    Returns ``tanh(gate_attn)`` x the attention output."""
+    if isinstance(p["wq"], Blocks):
+        return torch.tanh(p["gate_attn"]) * _attention_tp(
+            ctx, "xattn", p, x), state
     q = _proj(x, p["wq"])
     if ctx.mode in ("train", "prefill", "partial") and \
             ctx.media is not None:
@@ -451,32 +538,66 @@ def _cross_attention(ctx: Ctx, p, x, state):
             state["mv"].copy_(mv)
     else:
         mk, mv = state["mk"], state["mv"]
-    B, Tq = q.shape[:2]
-    M = mk.shape[1]
-    if Tq * M <= (1 << 21):
-        mask = torch.ones((B, Tq, M), dtype=torch.bool, device=q.device)
-        out = L.gqa_attend_dense(q, mk, mv, mask)[0]
-    else:
-        # every (query, key) pair live: query positions 1, key positions 0
-        out = L.gqa_attend_flash(
-            q, mk, mv, torch.ones((B, Tq), dtype=torch.int32, device=q.device),
-            torch.zeros((B, M), dtype=torch.int32, device=q.device))
-    H, D = out.shape[2:]
-    out = (out.reshape(B * Tq, H * D) @ p["wo"].reshape(H * D, -1)).reshape(
-        B, Tq, -1)
+    out = _out_proj(_cross_attend(q, mk, mv), p["wo"])
     return torch.tanh(p["gate_attn"]) * out, state
 
 
 def _ffn(ctx: Ctx, p, x):
-    """SwiGLU, or the MoE FFN with its load-balancing loss: (out, aux);
-    aux is the number 0.0 without experts (no device work for it)."""
+    """The SwiGLU FFN; with ``wi`` split over the model axis, each shard's
+    columns of ``wi`` and rows of ``wo_ff`` on its copy of ``x``, summed
+    (Megatron)."""
+    wi, wo = p["wi"], p["wo_ff"]
+    if isinstance(wi, Blocks):
+        xs = CO.copy_to_model(x, len(wi.parts))
+        return CO.reduce_from_model([L.swiglu(xm, a, b) for xm, a, b in
+                                     zip(xs, wi.parts, wo.parts)])
+    return L.swiglu(x, wi, wo)
+
+
+def _moe_route(ctx: Ctx, p, h):
+    """The MoE FFN up to its router: (the FFN's normed input grouped
+    [Gs, gs, d], router probs, gates, expert ids), grouped by
+    ``L.moe_groups`` over the global microbatch (``ctx.moe_tokens``)."""
     cfg = ctx.cfg
-    if cfg.num_experts:
-        out, probs = L.moe_ffn(x, p["router"], p["wi_e"], p["wo_e"],
-                               experts_per_token=cfg.experts_per_token,
-                               capacity_factor=cfg.capacity_factor)
-        return out, L.moe_aux_loss(probs, cfg.num_experts)
-    return L.swiglu(x, p["wi"], p["wo_ff"]), 0.0
+    x = L.rms_norm(h, p["ln2"], cfg.norm_eps)
+    d = x.shape[-1]
+    T = x.numel() // d
+    _, gs = L.moe_groups(T, total=ctx.moe_tokens)
+    xg = x.reshape(T // gs, gs, d)
+    return (xg,) + L.moe_route(xg, p["router"], cfg.experts_per_token)
+
+
+def _moe_capacity(ctx: Ctx, xg) -> int:
+    cfg = ctx.cfg
+    g, _ = L.moe_groups(xg.shape[0] * xg.shape[1], total=ctx.moe_tokens)
+    return L.moe_capacity(g, cfg.experts_per_token, cfg.capacity_factor,
+                          cfg.num_experts)
+
+
+def _moe_apply(ctx: Ctx, kind: str, p, h, xg, gate_vals, gate_idx, slot,
+               kept):
+    """The MoE experts on the dispatch ``slot`` / ``kept`` and the residual:
+    with the experts split over the model axis, each shard runs its own
+    on its copy of the tokens and gates, and the partial combines are
+    summed."""
+    C = _moe_capacity(ctx, xg)
+    wi, wo = p["wi_e"], p["wo_e"]
+    if isinstance(wi, Blocks):
+        n = len(wi.parts)
+        xs = CO.copy_to_model(xg, n)
+        gvs = CO.copy_to_model(gate_vals, n)
+        parts, e0 = [], 0
+        for m in range(n):
+            parts.append(L.moe_experts(xs[m], gvs[m], gate_idx, slot, kept,
+                                       wi.parts[m], wo.parts[m], C, e0))
+            e0 += wi.parts[m].shape[0]
+        out = CO.reduce_from_model(parts)
+    else:
+        out = L.moe_experts(xg, gate_vals, gate_idx, slot, kept, wi, wo, C)
+    y = out.reshape(h.shape).to(h.dtype)
+    if kind == "xattn":
+        y = torch.tanh(p["gate_ffn"]) * y
+    return h + y
 
 
 def _rglru_block(ctx: Ctx, p, x, state):
@@ -539,8 +660,18 @@ def _ssd_block(ctx: Ctx, p, x, state):
     return out, state
 
 
-def apply_block(ctx: Ctx, kind: str, p, h, state):
-    _check_kind(kind)
+def _whole(p):
+    """A layer's leaves with its ``"gather"`` blocks all-gathered over the
+    model axis (``gather_over_model``), so that the block runs them
+    replicated."""
+    return {n: CO.gather_over_model(v.parts, v.dim)
+            if isinstance(v, Blocks) and v.route == "gather" else v
+            for n, v in p.items()}
+
+
+def _mixer(ctx: Ctx, kind: str, p, h, state):
+    """The block before its FFN: (h + mixer output, state, row mass, key
+    mass); the masses zero where the mixer gives none."""
     cfg = ctx.cfg
     x = L.rms_norm(h, p["ln1"], cfg.norm_eps)
     row_mass = torch.zeros((h.shape[0], h.shape[1], cfg.stats_chunks),
@@ -549,8 +680,7 @@ def apply_block(ctx: Ctx, kind: str, p, h, state):
                            device=h.device)
     if kind == "ssd":                   # no FFN, no attention statistics
         out, state = _ssd_block(ctx, p, x, state)
-        return h + out, state, row_mass, key_mass, 0.0
-    if kind == "xattn":
+    elif kind == "xattn":
         out, state = _cross_attention(ctx, p, x, state)
     elif kind == "rglru":
         out, state = _rglru_block(ctx, p, x, state)
@@ -560,16 +690,42 @@ def apply_block(ctx: Ctx, kind: str, p, h, state):
             row_mass = rm
         if km is not None and km.shape == key_mass.shape:
             key_mass = km
-    h = h + out
-    y, aux = _ffn(ctx, p, L.rms_norm(h, p["ln2"], cfg.norm_eps))
+    return h + out, state, row_mass, key_mass
+
+
+def apply_block(ctx: Ctx, kind: str, p, h, state):
+    """One layer: (h, state, row mass, key mass, the router probs of a
+    MoE layer or None)."""
+    _check_kind(kind)
+    cfg = ctx.cfg
+    p = _whole(p)
+    h, state, row_mass, key_mass = _mixer(ctx, kind, p, h, state)
+    if kind == "ssd":
+        return h, state, row_mass, key_mass, None
+    if cfg.num_experts:
+        xg, probs, gate_vals, gate_idx = _moe_route(ctx, p, h)
+        slot, kept = L.moe_slots(gate_idx, _moe_capacity(ctx, xg),
+                                 cfg.num_experts)
+        h = _moe_apply(ctx, kind, p, h, xg, gate_vals, gate_idx, slot, kept)
+        return h, state, row_mass, key_mass, probs
+    y = _ffn(ctx, p, L.rms_norm(h, p["ln2"], cfg.norm_eps))
     if kind == "xattn":
         y = torch.tanh(p["gate_ffn"]) * y
-    return h + y, state, row_mass, key_mass, aux
+    return h + y, state, row_mass, key_mass, None
 
 
 # ---------------------------------------------------------------------------
 # Full stack
 # ---------------------------------------------------------------------------
+def _remat(fn, *args, whole: bool = True):
+    """``fn(*args)`` checkpointed: only the inputs are kept, and the
+    backward pass runs ``fn`` again; ``whole``, to its end (no early stop:
+    the collectives at a sharded group's end recompute as GSPMD's remat
+    recomputes them)."""
+    with set_checkpoint_early_stop(not whole):
+        return checkpoint(fn, *args, use_reentrant=False)
+
+
 @dataclass
 class ModelOutput:
     logits: torch.Tensor
@@ -587,11 +743,27 @@ def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
     # repeated token in a fixed order on the CPU too (an indexed gather's
     # backward accumulates across threads there), so a train step gives
     # the same bytes every run
-    return F.embedding(tokens.long(), params["embed"].to(
-        torch_dtype(cfg.dtype)))
+    dtype = torch_dtype(cfg.dtype)
+    w = params["embed"]
+    if not isinstance(w, Blocks):
+        return F.embedding(tokens.long(), w.to(dtype))
+    # vocab split over the model axis: each shard looks up the tokens of
+    # its range and writes zeros elsewhere; the shards' rows are summed
+    tok, parts, lo = tokens.long(), [], 0
+    for blk in w.parts:
+        n = blk.shape[0]
+        mine = (tok >= lo) & (tok < lo + n)
+        e = F.embedding((tok - lo).clamp(0, max(n - 1, 0)), blk.to(dtype))
+        parts.append(torch.where(mine[..., None], e, torch.zeros(
+            (), dtype=dtype, device=e.device)))
+        lo += n
+    return CO.reduce_from_model(parts)
 
 
 def lm_head(cfg: ModelConfig, params: Params, h: torch.Tensor):
+    """The vocabulary's logits; the vocab-split ``unembed`` of the
+    tensor-parallel step has its loss of its own
+    (``training/steps.py``)."""
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     w = params["unembed"].to(torch_dtype(cfg.dtype))
     return (h.reshape(-1, h.shape[-1]) @ w).reshape(*h.shape[:-1], -1)
@@ -599,13 +771,15 @@ def lm_head(cfg: ModelConfig, params: Params, h: torch.Tensor):
 
 def run_stack(cfg: ModelConfig, params: Params, h: torch.Tensor, ctx: Ctx,
               cache: Optional[dict] = None, collect_stats: bool = False,
-              g0: int = 0, g1: Optional[int] = None, tail: bool = True):
+              g0: int = 0, g1: Optional[int] = None, tail: bool = True,
+              moe_probs: Optional[list] = None):
     """Apply layer groups [g0, g1) (+ optional tail) to hidden states h.
 
     Returns ``(h, cache_window, stats [Lwindow,B,T,C] | None, key_stats
     [Lwindow,B,S] | None, aux)``, ``aux`` the window's MoE loss summed
     over layers. ``cache`` is the FULL cache; its window [g0, g1) (+ tail)
-    is updated in place and returned as views."""
+    is updated in place and returned as views. ``moe_probs``, a list,
+    gets each MoE layer's router probs in layer order."""
     pattern = cfg.pattern
     g1 = cfg.n_groups if g1 is None else g1
     want_cache = cache is not None
@@ -614,45 +788,56 @@ def run_stack(cfg: ModelConfig, params: Params, h: torch.Tensor, ctx: Ctx,
     # per leaf: in training their gradients meet in one stack into the
     # stacked leaf (indexing x[g] per layer would add a full-size zero
     # gradient per layer)
-    layers = [{n: x.unbind(0) for n, x in pg.items()}
+    layers = [{n: x.unbind() if isinstance(x, Blocks) else x.unbind(0)
+               for n, x in pg.items()}
               for pg in params["groups"]] if g1 > g0 else []
 
     def group(h, g):
-        masses, aux = [], 0.0
+        masses, probs = [], []
         for pi, kind in enumerate(pattern):
             p = {n: xs[g] for n, xs in layers[pi].items()}
             st = ({n: x[g] for n, x in cache["groups"][pi].items()}
                   if want_cache else None)
-            h, _st, rm, km, a = apply_block(ctx, kind, p, h, st)
+            h, _st, rm, km, pr = apply_block(ctx, kind, p, h, st)
             masses.append((rm, km))
-            aux = aux + a
-        return h, masses, aux
+            if pr is not None:
+                probs.append(pr)
+        return h, masses, probs
 
-    def keep(masses):
+    def keep(masses, probs):
+        """The statistics kept, and the MoE loss of ``probs``' layers."""
         if collect_stats:
             stats_list.extend(rm for rm, _ in masses)
             kstats_list.extend(km for _, km in masses)
+        if moe_probs is not None:
+            moe_probs.extend(probs)
+        aux = 0.0
+        for pr in probs:
+            aux = aux + L.moe_aux_loss(pr, cfg.num_experts)
+        return aux
 
-    # remat per layer group in training, as the reference's jax.checkpoint:
+    # remat per layer group in training, as the reference's jax.checkpoint
+    # (``_remat``, whole where the group holds tensor-parallel blocks):
     # only the group's input is kept, its activations are recomputed in
     # the backward pass (train mode has no cache to write twice)
     remat = cfg.remat and ctx.mode == "train"
+    sharded = any(isinstance(x, Blocks) for pg in params["groups"]
+                  for x in pg.values())
     aux_total = 0.0
     for g in range(g0, g1):
         if remat:
-            h, masses, aux = checkpoint(group, h, g, use_reentrant=False)
+            h, masses, probs = _remat(group, h, g, whole=sharded)
         else:
-            h, masses, aux = group(h, g)
-        keep(masses)
-        aux_total = aux_total + aux
+            h, masses, probs = group(h, g)
+        aux_total = aux_total + keep(masses, probs)
     if tail:
         for i in range(cfg.n_tail):
             kind = cfg.layer_kinds[cfg.n_groups * len(pattern) + i]
-            h, _st, rm, km, aux = apply_block(
+            h, _st, rm, km, pr = apply_block(
                 ctx, kind, params["tail"][i], h,
                 cache["tail"][i] if want_cache else None)
-            keep([(rm, km)])
-            aux_total = aux_total + aux
+            aux_total = aux_total + keep([(rm, km)],
+                                         [] if pr is None else [pr])
 
     new_cache = None
     if want_cache:
@@ -685,16 +870,16 @@ def forward(cfg: ModelConfig, params: Params, *,
             paged_rows: Optional[torch.Tensor] = None,
             paged_block_rows: Optional[torch.Tensor] = None,
             paged_block_size: int = 0,
-            logits_slice: str = "all") -> ModelOutput:
+            logits_slice: str = "all",
+            moe_tokens: Optional[int] = None,
+            moe_probs: Optional[list] = None) -> ModelOutput:
     """``embeds`` [B,T,d] (musicgen's ``input_mode="embeds"``: frame
     embeddings from a stub frontend) replaces the token embedding;
     ``media`` [B,M,d] (the vision model's patch embeddings from a stub
-    frontend) is what ``xattn`` layers attend to."""
+    frontend) is what ``xattn`` layers attend to. ``moe_tokens`` and
+    ``moe_probs``: ``Ctx.moe_tokens`` and ``run_stack``'s."""
     dtype = torch_dtype(cfg.dtype)
-    if embeds is None:
-        h = embed_tokens(cfg, params, tokens)
-    else:
-        h = embeds.to(dtype)
+    h = _embed_inputs(cfg, params, tokens, embeds)
     if h.dim() == 2:
         h = h[:, None]
     B, T = h.shape[:2]
@@ -707,14 +892,91 @@ def forward(cfg: ModelConfig, params: Params, *,
               attn_impl=attn_impl, decode_slot=decode_slot,
               slots=slots, seg_ids=seg_ids, kv_seg=kv_seg,
               paged_rows=paged_rows, paged_block_rows=paged_block_rows,
-              paged_block_size=paged_block_size)
+              paged_block_size=paged_block_size, moe_tokens=moe_tokens)
     h, new_cache, stats, kstats, aux_total = run_stack(
-        cfg, params, h, ctx, cache=cache, collect_stats=collect_stats)
+        cfg, params, h, ctx, cache=cache, collect_stats=collect_stats,
+        moe_probs=moe_probs)
     if logits_slice == "last":
         h = h[:, -1:]
-    logits = lm_head(cfg, params, h)
+    logits = None if isinstance(params["unembed"], Blocks) else \
+        lm_head(cfg, params, h)
     return ModelOutput(logits=logits, cache=new_cache, stats=stats,
                        key_stats=kstats, aux_loss=aux_total, hidden=h)
+
+
+def _embed_inputs(cfg: ModelConfig, params: Params, tokens, embeds):
+    if embeds is None:
+        return embed_tokens(cfg, params, tokens)
+    return embeds.to(torch_dtype(cfg.dtype))
+
+
+def run_stack_lockstep(cfg: ModelConfig, params: List[Params],
+                       inputs: List[dict], moe_tokens: int,
+                       sync: Callable, scope: Callable = None):
+    """The train-mode forward of the data shards of one microbatch of a
+    config with experts, up to the final hidden states. ``params`` and
+    ``inputs`` (``tokens`` or ``embeds``, and ``media``) per shard. The
+    shards run layer by layer in shard order: at each MoE layer every
+    shard routes its tokens, then ``sync`` (the expert ids [Gs, gs, k] of
+    every shard -> each shard's ``(slot, kept)``) dispatches them over
+    the global microbatch's groups (``moe_tokens`` tokens), then every
+    shard runs its experts. Remat (``cfg.remat``) checkpoints each half
+    of a group's layers, around the dispatch. ``scope(d)`` is entered
+    around shard d's work. Returns (the shards' final hidden states, per
+    shard the router probs of each MoE layer)."""
+    n = len(params)
+    scope = scope or (lambda d: contextlib.nullcontext())
+    hs, ctxs = [], []
+    for d, (p, x) in enumerate(zip(params, inputs)):
+        with scope(d):
+            h = _embed_inputs(cfg, p, x.get("tokens"), x.get("embeds"))
+        B, T = h.shape[:2]
+        media = x.get("media")
+        hs.append(h)
+        ctxs.append(Ctx(cfg=cfg, mode="train", positions=torch.arange(
+            T, dtype=torch.int32, device=h.device).expand(B, T),
+            media=None if media is None else media.to(h.dtype),
+            moe_tokens=moe_tokens))
+    layers = []                 # (kind, per-shard leaves, in a group)
+    unbound = [[{k: v.unbind() if isinstance(v, Blocks) else v.unbind(0)
+                 for k, v in pg.items()} for pg in p["groups"]]
+               for p in params]
+    for g in range(cfg.n_groups):
+        for pi, kind in enumerate(cfg.pattern):
+            layers.append((kind, [{k: v[g] for k, v in u[pi].items()}
+                                  for u in unbound], True))
+    for i in range(cfg.n_tail):
+        kind = cfg.layer_kinds[cfg.n_groups * len(cfg.pattern) + i]
+        layers.append((kind, [p["tail"][i] for p in params], False))
+
+    def pre(ctx, kind, p, h):
+        p = _whole(p)
+        h = _mixer(ctx, kind, p, h, None)[0]
+        return (h,) + _moe_route(ctx, p, h)
+
+    def whole_block(ctx, kind, p, h):
+        return apply_block(ctx, kind, p, h, None)[0]
+
+    probs = [[] for _ in range(n)]
+    for kind, ps, grouped in layers:
+        run = _remat if cfg.remat and grouped else (lambda f, *a: f(*a))
+        if kind == "ssd":
+            for d in range(n):
+                with scope(d):
+                    hs[d] = run(whole_block, ctxs[d], kind, ps[d], hs[d])
+            continue
+        routed = []
+        for d in range(n):
+            with scope(d):
+                routed.append(run(pre, ctxs[d], kind, ps[d], hs[d]))
+        plans = sync([r[4] for r in routed])
+        for d, ((h, xg, pr, gv, gi), (slot, kept)) in enumerate(
+                zip(routed, plans)):
+            probs[d].append(pr)
+            with scope(d):
+                hs[d] = run(_moe_apply, ctxs[d], kind, ps[d], h, xg, gv, gi,
+                            slot, kept)
+    return hs, probs
 
 
 # Convenience entry points ---------------------------------------------------

@@ -10,17 +10,25 @@ and executor run under ``torch.no_grad()``, and params restored for
 serving (``serving/api.py``, ``params_path``) carry no grad.
 
 With ``grad_specs`` (a tree of ``sharding.NamedSharding``, the ZeRO-1
-layout of ``train_shardings``) the step runs data-parallel with ZeRO-1
-over the mesh's data axes, one shard after another in one process: each
-shard's forward and backward on its rows, the fp32 grads
-reduce-scattered into accumulators laid out by ``grad_specs``, AdamW on
-each shard's slice of params, ``m`` and ``v``, and the params
-all-gathered back (``distributed/collectives.py``, which counts the
-bytes). It computes the unsharded step's function; only the order of the
-cross-shard sums differs. Tensor-parallel execution (a non-data axis
-larger than 1; the reference gets it from GSPMD) and the MoE aux loss
-(a product of two batch means, not a sum over shards) raise (ROADMAP
-A18, A19). The reference's int8 error-feedback all-reduce
+layout of ``train_shardings``) the step runs over the mesh in one
+process, data shard after data shard: the rows split by the data index,
+each data shard's forward and backward on its rows, its layers
+tensor-parallel over the model axis as ``sharding.tp_plan`` reads the
+rules (the reference gets the same function from GSPMD; each data
+shard's forward takes the blocks of every model index), the fp32 grads
+reduce-scattered over the data axes, per model index on that index's
+blocks, into accumulators laid out by ``grad_specs``, AdamW on each
+shard's slice of params, ``m`` and ``v``, and the params all-gathered
+back (``distributed/collectives.py``, which counts the bytes). It
+computes the unsharded step's function; only the order of the fp32
+sums differs. With experts, every data shard's forward
+of a microbatch runs first, with the global microbatch's GShard groups
+and capacity; where a group spans shards, the shards run layer by layer
+(``M.run_stack_lockstep``) so that its dispatch sees all of them. The
+aux loss ``E sum_e fe_e me_e`` takes the global
+``fe`` (an all-reduce over the data axes; ``fe`` carries no gradient),
+each shard's term its own ``me`` over the data-parallel size. The
+reference's int8 error-feedback all-reduce
 (``distributed/compression.py``) is not part of its train step, nor of
 this one.
 
@@ -39,10 +47,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as CO
 from repro_torch.distributed import sharding as SH
 from repro_torch.distributed.collectives import (all_gather, psum,
                                                  reduce_scatter)
 from repro_torch.launch.mesh import data_axes, dp_size
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
@@ -118,15 +128,45 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
     out = M.forward(cfg, params, tokens=batch.get("tokens"),
                     embeds=batch.get("embeds"), media=batch.get("media"),
                     mode="train")
-    logits = out.logits.float()
-    labels = batch["labels"].long()
+    nll = _nll(out.logits.float(), batch["labels"], label_count)
+    loss = nll + MOE_AUX_COEF * out.aux_loss
+    return loss, {"nll": nll, "aux": out.aux_loss}
+
+
+def _nll(logits, labels, label_count=None):
+    labels = labels.long()
     logp = F.log_softmax(logits, dim=-1)
     take = logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
     count = mask.sum() if label_count is None else label_count
-    nll = -(take * mask).sum() / torch.clamp(count, min=1.0)
-    loss = nll + MOE_AUX_COEF * out.aux_loss
-    return loss, {"nll": nll, "aux": out.aux_loss}
+    return -(take * mask).sum() / torch.clamp(count, min=1.0)
+
+
+def _vocab_parallel_nll(cfg, params, h, labels, label_count):
+    """``_nll`` of the final hidden states ``h`` with ``unembed`` split
+    over the model axis by vocab: each shard's logits columns, the row
+    max (a pmax), the sum of exponentials and the label's logit (each a
+    psum over the shards, of [rows, S] fp32)."""
+    hn = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    w = params["unembed"]
+    dtype = M.torch_dtype(cfg.dtype)
+    logits = [(x.reshape(-1, x.shape[-1]) @ b.to(dtype)).reshape(
+        *x.shape[:-1], -1).float()
+        for x, b in zip(CO.copy_to_model(hn, len(w.parts)), w.parts)]
+    mx = CO.pmax([lg.detach().amax(-1) for lg in logits])
+    se = CO.reduce_from_model([torch.exp(lg - mx[..., None]).sum(-1)
+                               for lg in logits])
+    lab = labels.long().clamp(min=0)
+    picks, lo = [], 0
+    for lg in logits:
+        n = lg.shape[-1]
+        mine = (lab >= lo) & (lab < lo + n)
+        v = lg.gather(-1, (lab - lo).clamp(0, n - 1)[..., None])[..., 0]
+        picks.append(torch.where(mine, v, torch.zeros((), device=v.device)))
+        lo += n
+    take = CO.reduce_from_model(picks) - mx - torch.log(se)
+    mask = (labels >= 0).float()
+    return -(take * mask).sum() / torch.clamp(label_count, min=1.0)
 
 
 def _grads(loss, leaves):
@@ -154,7 +194,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     ``NamedSharding`` like the params, ``train_shardings(...)["opt"]
     ["m"]``); the step then runs data-parallel over its mesh on a state
     laid out by ``train_shardings`` (``shard_state``), see the module
-    docstring."""
+    docstring.
+
+    The metrics: ``loss``, ``nll`` and ``aux`` as the reference reports
+    them (above one microbatch ``nll`` is the loss and ``aux`` 0), ``lr``,
+    ``grad_norm`` and, for a config with experts, ``aux_micro``: each
+    microbatch's aux loss."""
     if grad_specs is not None:
         return _sharded_train_step(cfg, opt_cfg, accum, grad_specs)
 
@@ -164,10 +209,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         if accum == 1:
             loss, aux = loss_fn(cfg, params, batch)
             flat = _grads(loss, leaves)
+            micro = [aux["aux"]]
         else:
-            lsum = 0.0
+            lsum, micro = 0.0, []
             for i, mb in enumerate(_micro(batch, accum)):
-                loss, _ = loss_fn(cfg, params, mb)
+                loss, a = loss_fn(cfg, params, mb)
+                micro.append(a["aux"])
                 grads = _grads(loss, leaves)
                 # accumulate in fp32 whatever the param dtype, so the
                 # running sum is order-deterministic and does not narrow
@@ -186,6 +233,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         state.step = state.step + 1
         metrics = {"loss": loss.detach(), "nll": aux["nll"].detach(),
                    "aux": aux["aux"], **om}
+        if cfg.num_experts:
+            # a stack with no MoE layer (the dry-run's count at 0 groups)
+            # has the number 0.0 for its aux
+            metrics["aux_micro"] = torch.stack([torch.as_tensor(
+                a, device=loss.device).detach() for a in micro])
         return state, metrics
 
     return train_step
@@ -257,69 +309,190 @@ def unshard_state(state: TrainState) -> TrainState:
         "count": state.opt["count"]})
 
 
+def _check_layout(m_leaves, specs):
+    for st, sp in zip(m_leaves, specs):
+        if st.sharding != sp:
+            raise ValueError(f"moment laid out by {st.sharding}, grads "
+                             f"by {sp}: lay the state out with "
+                             "train_shardings")
+
+
+def _rows(batch, accum, dp):
+    B = next(iter(batch.values())).shape[0]
+    if B % (accum * dp):
+        raise ValueError(f"global batch {B} does not split into "
+                         f"{accum} microbatches over {dp} data shards")
+    return B // accum // dp
+
+
+def _moe_sync(cfg, dp):
+    """The dispatch of one MoE layer over the data shards of a
+    microbatch: each shard's expert ids [Gs, gs, k] -> its (slot, kept).
+    Where the shards cut no GShard group (gs == g) each dispatches its
+    own groups; else the ids are all-gathered over the data axes (int32)
+    and the global groups dispatched in shard order, so a group that
+    spans shards fills its capacity across them."""
+    E, k = cfg.num_experts, cfg.experts_per_token
+
+    def sync(gis):
+        t = gis[0].shape[0] * gis[0].shape[1]
+        g, gs = L.moe_groups(t, total=t * dp)
+        C = L.moe_capacity(g, k, cfg.capacity_factor, E)
+        if gs == g:
+            return [L.moe_slots(gi, C, E) for gi in gis]
+        ids = all_gather([gi.reshape(-1, k).to(torch.int32) for gi in gis],
+                         0).long()
+        slot, kept = (x.reshape(-1, k) for x in
+                      L.moe_slots(ids.reshape(-1, g, k), C, E))
+        return [(slot[d * t:(d + 1) * t].reshape(gi.shape).to(gi.device),
+                 kept[d * t:(d + 1) * t].reshape(gi.shape).to(gi.device))
+                for d, gi in enumerate(gis)]
+    return sync
+
+
 def _sharded_train_step(cfg, opt_cfg, accum, grad_specs):
+    """The step on the mesh of ``grad_specs`` (see the module docstring).
+    One process runs every device group's collectives; those of data
+    shards and model indices other than 0 run under
+    ``collectives.counting(False)``, so that ``BYTES`` counts one
+    device's (``dryrun.tp_collective_bytes`` plus
+    ``zero1_collective_bytes``)."""
     specs = list(tree_leaves(grad_specs))
     mesh = specs[0].mesh
     dax = data_axes(mesh)
-    other = {a: n for a, n in mesh.shape.items() if a not in dax}
-    if any(n > 1 for n in other.values()):
-        raise NotImplementedError(
-            f"sharded train step on mesh {mesh.shape}: only the data axes "
-            "may exceed 1; tensor-parallel execution is not ported "
-            "(ROADMAP A19)")
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE aux loss is a product of two batch means, "
-            "not a sum over data shards; the sharded train step does not "
-            "compute it (ROADMAP A18)")
-    # the data shards in mesh order (every other axis has size 1)
-    shards = list(np.ndindex(mesh.devices.shape))
-    dp = len(shards)
-    dims = [SH.data_dim(sp.spec, dax) for sp in specs]
+    if any(n > 1 for a, n in mesh.shape.items()
+           if a not in dax and a != "model"):
+        raise ValueError(f"sharded train step on mesh {mesh.shape}: the "
+                         "rules split only the data axes and 'model'")
+    names = mesh.axis_names
+    nm = mesh.shape.get("model", 1)
+    dshards = list(np.ndindex(*(mesh.shape[a] for a in dax)))
+    dp = len(dshards)
+
+    def at(d, m):
+        idx = [0] * len(names)
+        for a, i in zip(dax, dshards[d]):
+            idx[names.index(a)] = i
+        if "model" in names:
+            idx[names.index("model")] = m
+        return tuple(idx)
+
+    routes = list(tree_leaves(SH.tp_plan(mesh, cfg, M.param_axes(cfg))))
+    ddims = [SH.data_dim(sp.spec, dax) for sp in specs]
+    # the distinct model blocks of each leaf: (leaf, model index)
+    units = [(j, u) for j, r in enumerate(routes)
+             for u in (range(nm) if r is not None else (0,))]
+    sync = _moe_sync(cfg, dp)
+
+    def scope(d):
+        return CO.counting(d == 0)
 
     def train_step(state: TrainState, batch):
         p_leaves = list(tree_leaves(state.params))
         m_leaves = list(tree_leaves(state.opt["m"]))
         v_leaves = list(tree_leaves(state.opt["v"]))
-        for st, sp in zip(m_leaves, specs):
-            if st.sharding != sp:
-                raise ValueError(f"moment laid out by {st.sharding}, grads "
-                                 f"by {sp}: lay the state out with "
-                                 "train_shardings")
-        B = next(iter(batch.values())).shape[0]
-        if B % (accum * dp):
-            raise ValueError(f"global batch {B} does not split into "
-                             f"{accum} microbatches over {dp} data shards")
-        rows = B // accum // dp
+        _check_layout(m_leaves, specs)
+        rows = _rows(batch, accum, dp)
 
-        def shard_grads(mb, losses):
-            """Each data shard's fp32 grads on its rows of ``mb``, in
-            shard order, its loss over ``mb``'s label count appended to
-            ``losses``; each list is handed over to the sum."""
+        def params_of(d):
+            return tree_unflatten(state.params, [
+                st.shards[at(d, 0)] if r is None else SH.Blocks(
+                    [st.shards[at(d, m)] for m in range(nm)], r.dim, r.route)
+                for st, r in zip(p_leaves, routes)])
+
+        def leaves_of(d):
+            return [p_leaves[j].shards[at(d, u)] for j, u in units]
+
+        def shard_losses(mb, sbs, count):
+            """Per data shard, its loss over ``mb``'s label count (a
+            tensor with its graph, or a function that builds it), and
+            the MoE aux term's value over the microbatch."""
+            def nll(d, params, h, logits):
+                if logits is None:
+                    return _vocab_parallel_nll(cfg, params, h,
+                                               sbs[d]["labels"],
+                                               count.to(h.device))
+                return _nll(logits.float(), sbs[d]["labels"],
+                            count.to(logits.device))
+            if not cfg.num_experts:
+                def one(d):
+                    params = params_of(d)
+                    out = M.forward(cfg, params, tokens=sbs[d].get("tokens"),
+                                    embeds=sbs[d].get("embeds"),
+                                    media=sbs[d].get("media"), mode="train")
+                    return nll(d, params, out.hidden, out.logits)
+                return [lambda d=d: one(d) for d in range(dp)], 0.0
+            params = [params_of(d) for d in range(dp)]
+            total = mb["labels"].numel()
+            t = total // dp
+            g, gs = L.moe_groups(t, total=total)
+            if gs == g:
+                # every GShard group lies within one shard: each shard's
+                # own forward dispatches its groups
+                probs = [[] for _ in range(dp)]
+                outs = []
+                for d in range(dp):
+                    with scope(d):
+                        o = M.forward(cfg, params[d],
+                                      tokens=sbs[d].get("tokens"),
+                                      embeds=sbs[d].get("embeds"),
+                                      media=sbs[d].get("media"),
+                                      mode="train", moe_tokens=total,
+                                      moe_probs=probs[d])
+                    outs.append((o.hidden, o.logits))
+            else:
+                hs, probs = M.run_stack_lockstep(
+                    cfg, params, sbs, moe_tokens=total, sync=sync,
+                    scope=scope)
+                outs = []
+                for d in range(dp):
+                    with scope(d):
+                        outs.append((hs[d], None if isinstance(
+                            params[d]["unembed"], SH.Blocks)
+                            else M.lm_head(cfg, params[d], hs[d])))
+            E = cfg.num_experts
+            me = [torch.stack([p.mean(dim=(0, 1)) for p in ps])
+                  for ps in probs]
+            fe = [torch.stack([F.one_hot(p.argmax(-1), E).float().mean(
+                dim=(0, 1)) for p in ps]) for ps in probs]
+            stats = [torch.stack([f, m.detach()]) for f, m in zip(fe, me)]
+            tot = psum(stats) / dp if dp > 1 else stats[0]
+            losses = []
+            for d, (h, logits) in enumerate(outs):
+                with scope(d):
+                    aux = E * torch.sum(tot[0].to(me[d].device) * me[d]) / dp
+                    losses.append(nll(d, params[d], h, logits)
+                                  + MOE_AUX_COEF * aux)
+            return losses, E * torch.sum(tot[0] * tot[1])
+
+        def shard_grads(mb, losses, auxes):
             count = (mb["labels"] >= 0).float().sum()
-            for s, idx in enumerate(shards):
-                dev = torch.device(mesh.devices[idx])
-                sb = {k: v[s * rows:(s + 1) * rows].to(dev)
-                      for k, v in mb.items()}
-                leaves = [st.shards[idx] for st in p_leaves]
-                loss, _ = loss_fn(cfg, tree_unflatten(state.params, leaves),
-                                  sb, label_count=count.to(dev))
-                grads = _grads(loss, leaves)
+            sbs = [{k: v[d * rows:(d + 1) * rows].to(
+                torch.device(mesh.devices[at(d, 0)]))
+                for k, v in mb.items()} for d in range(dp)]
+            per, aux = shard_losses(mb, sbs, count)
+            auxes.append(aux)
+            for d in range(dp):
+                with scope(d):
+                    loss = per[d]() if callable(per[d]) else per[d]
+                    per[d] = None
+                    grads = _grads(loss, leaves_of(d))
                 losses.append(loss.detach())
                 # fp32 whatever the param dtype, as in the unsharded step
                 yield [g.float() for g in grads]
                 del grads
 
-        acc, lsum = None, None
+        acc, lsum, auxes = None, None, []
+        dims = [ddims[j] for j, _ in units]
+        counted = [u == 0 for _, u in units]
         for mb in _micro(batch, accum):
             losses = []
-            blocks = reduce_scatter(shard_grads(mb, losses), dims)
+            blocks = reduce_scatter(shard_grads(mb, losses, auxes), dims,
+                                    counted)
             lsum = psum(losses) if lsum is None else lsum + psum(losses)
             if acc is None:
                 acc = blocks
             else:
-                # a leaf no dim of which splits is one sum, shared by the
-                # shards on its device: add it once
                 done = set()
                 for a_s, b_s in zip(acc, blocks):
                     for a, b in zip(a_s, b_s):
@@ -330,50 +503,73 @@ def _sharded_train_step(cfg, opt_cfg, accum, grad_specs):
         for a in {id(a): a for a_s in acc for a in a_s}.values():
             a.div_(accum)
         loss = lsum / accum
-        # the global grad norm: each shard's sum of squares over its
-        # blocks (a leaf no dim of which splits counts on shard 0 only),
-        # summed over shards
-        sq = [sum(torch.sum(torch.square(a)) for j, a in enumerate(a_s)
-                  if dims[j] is not None or s == 0)
-              for s, a_s in enumerate(acc)]
+        sq = [sum(torch.sum(torch.square(a)) for i, a in enumerate(a_s)
+                  if dims[i] is not None or d == 0)
+              for d, a_s in enumerate(acc)]
         gnorm = torch.sqrt(psum(sq))
         count_new, lr, scale, bc1, bc2 = adamw_scalars(
             opt_cfg, state.opt["count"], gnorm)
-        for j, d in enumerate(dims):
+        unit_at = {ju: i for i, ju in enumerate(units)}
+        for j, dd in enumerate(ddims):
             pst, mst, vst = p_leaves[j], m_leaves[j], v_leaves[j]
-            if d is None:
-                done = set()
-                for s, idx in enumerate(shards):
-                    trio = (mst.shards[idx], vst.shards[idx],
-                            pst.shards[idx])
-                    if tuple(map(id, trio)) in done:
-                        continue
-                    done.add(tuple(map(id, trio)))
-                    adamw_leaf(opt_cfg, acc[s][j], *trio, scale, lr, bc1,
-                               bc2)
-                continue
-            new = []
-            for s, idx in enumerate(shards):
-                p = pst.shards[idx]
-                sl = SH.shard_slices(pst.shape, specs[j], idx)
-                block = p.detach()[sl].clone()
-                adamw_leaf(opt_cfg, acc[s][j], mst.shards[idx],
-                           vst.shards[idx], block, scale, lr, bc1, bc2)
-                new.append(block)
-            whole = all_gather(new, d)
-            del new
-            with torch.no_grad():
-                for p in {id(x): x for x in pst.shards.flat}.values():
-                    p.copy_(whole.to(p.device))
-            del whole
-            for a_s in acc:
-                a_s[j] = None
+            seen = set()
+            for m in range(nm):
+                trios = [(mst.shards[at(d, m)], vst.shards[at(d, m)],
+                          pst.shards[at(d, m)]) for d in range(dp)]
+                key = tuple(id(x) for t in trios for x in t)
+                if key in seen:
+                    continue
+                seen.add(key)
+                i = unit_at[(j, m if routes[j] is not None else 0)]
+                with CO.counting(m == 0):
+                    _update_blocks(opt_cfg, pst, specs[j], dd, trios,
+                                   [a_s[i] for a_s in acc],
+                                   [at(d, m) for d in range(dp)],
+                                   (scale, lr, bc1, bc2))
+            for u in range(nm if routes[j] is not None else 1):
+                for a_s in acc:
+                    a_s[unit_at[(j, u)]] = None
         state.opt["count"] = count_new
         state.step = state.step + 1
-        return state, {"loss": loss, "nll": loss, "aux": 0.0, "lr": lr,
-                       "grad_norm": gnorm}
+        aux = auxes[0] if cfg.num_experts and accum == 1 else 0.0
+        metrics = {"loss": loss, "nll": loss - MOE_AUX_COEF * aux,
+                   "aux": aux, "lr": lr, "grad_norm": gnorm}
+        if cfg.num_experts:
+            metrics["aux_micro"] = torch.stack(auxes)
+        return state, metrics
 
     return train_step
+
+
+def _update_blocks(opt_cfg, pst, spec, dd, trios, grads, idxs, scalars):
+    """AdamW on one model block of a leaf over the data shards: each
+    shard's ZeRO-1 slice of the block (the whole block where ``dd``, the
+    data-split dim, is None), then the slices all-gathered back into
+    every replica of the block."""
+    scale, lr, bc1, bc2 = scalars
+    if dd is None:
+        done = set()
+        for (m, v, p), g in zip(trios, grads):
+            if tuple(map(id, (m, v, p))) not in done:
+                done.add(tuple(map(id, (m, v, p))))
+                adamw_leaf(opt_cfg, g.to(p.device), m, v, p, scale, lr,
+                           bc1, bc2)
+        return
+    new = []
+    for (m, v, p), g, idx in zip(trios, grads, idxs):
+        z = SH.shard_slices(pst.shape, spec, idx)
+        b = SH.shard_slices(pst.shape, pst.sharding, idx)
+        rel = tuple(slice(zs.start - bs.start, zs.stop - bs.start)
+                    for zs, bs in zip(z, b))
+        block = p.detach()[rel].clone()
+        adamw_leaf(opt_cfg, g.to(p.device), m, v, block, scale, lr, bc1,
+                   bc2)
+        new.append(block)
+    whole = all_gather(new, dd)
+    del new
+    with torch.no_grad():
+        for p in {id(t[2]): t[2] for t in trios}.values():
+            p.copy_(whole.to(p.device))
 
 
 # ---------------------------------------------------------------------------

@@ -55,6 +55,9 @@ from repro_torch.training import checkpoint as ckpt
 from repro_torch.training import steps as TS
 from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
                                             tree_leaves, tree_unflatten)
+# AdamW's sign-flip allowance, and the MoE dispatch recorder (a fixture)
+from test_torch_tp_training import assert_params_or_flips
+from test_torch_tp_training import moe_dispatch  # noqa: F401
 
 torch.set_num_threads(2)
 CPU = torch.device("cpu")
@@ -309,22 +312,6 @@ def test_embeds_config_trains_and_embedding_grad_is_zero():
     TS.make_train_step(cfg, AdamWConfig(**OPT))(state, _tb(b))
 
 
-def test_sharded_step_refuses_moe_and_tensor_parallel():
-    """The MoE aux loss (a product of two batch means) and a model axis
-    above 1 raise, naming their ROADMAP items."""
-    opt = AdamWConfig(**OPT)
-    moe = get_tiny("granite-moe-1b-a400m")
-    mesh = make_debug_mesh((2, 1), device="cpu")
-    with pytest.raises(NotImplementedError, match="A18"):
-        TS.make_train_step(moe, opt, grad_specs=TS.train_shardings(
-            moe, mesh)["opt"]["m"])
-    cfg = get_tiny("llama3-8b").replace(**MESH_CFG)
-    tp = make_debug_mesh((2, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="A19"):
-        TS.make_train_step(cfg, opt, grad_specs=TS.train_shardings(
-            cfg, tp)["opt"]["m"])
-
-
 # ---------------- elastic restore --------------------------------------------
 def test_elastic_checkpoint_reshard(tmp_path):
     """Save on a (1, 8) layout, restore onto (2, 4): every shard equals
@@ -486,10 +473,40 @@ with mesh, SH.axis_rules(SH.make_rules(mesh, cfg)):
                  "cache": cache}).compile()
     args["decode"] = c.memory_analysis().argument_size_in_bytes
 res["argument_bytes"] = args
+
+# 4. the sharded train step executed tensor-parallel: 3 steps of tiny
+# llama3-8b on (data 2, model 4) and of tiny granite-moe-1b on (data 2,
+# model 2), capacity factor 0.5 (the 128-token GShard group spans both
+# data shards, and tokens drop)
+for tag, arch, shape, kw in TP_RUNS:
+    cfg = get_tiny(arch).replace(**kw)
+    mesh = make_debug_mesh(shape)
+    out = os.path.join(OUT, tag)
+    with mesh, SH.axis_rules(SH.make_rules(mesh, cfg)):
+        state = JS.init_train_state(cfg, jax.random.PRNGKey(1))
+        ckpt.save(jax.tree.map(np.asarray, JS.state_to_tree(state)), out, 0)
+        _, grad_specs, sshard = train_shardings(cfg, mesh, state)
+        state = jax.device_put(state, sshard)
+        bsh = {k: NamedSharding(mesh, P("data")) for k in ("tokens", "labels")}
+        step = jax.jit(JS.make_train_step(cfg, opt, accum=2,
+                                          grad_specs=grad_specs),
+                       in_shardings=(sshard, bsh))
+        losses = []
+        for i in range(3):
+            b = jax.device_put({k: batches[f"{k}{i}"]
+                                for k in ("tokens", "labels")}, bsh)
+            state, m = step(jax.device_put(state, sshard), b)
+            losses.append(float(m["loss"]))
+        ckpt.save(jax.tree.map(np.asarray, JS.state_to_tree(state)), out, 3)
+    res[tag] = losses
 json.dump(res, open(os.path.join(OUT, "ref.json"), "w"))
 print("REF_OK")
 """
 REF_DP = 2
+# (tag, arch, (data, model), config changes) of the tensor-parallel runs
+TP_RUNS = (("tp_llama", "llama3-8b", (2, 4), dict(num_layers=2)),
+           ("tp_granite", "granite-moe-1b-a400m", (2, 2),
+            dict(num_layers=2, capacity_factor=0.5)))
 
 
 @pytest.fixture(scope="module")
@@ -501,7 +518,8 @@ def ref(tmp_path_factory):
                                       enumerate(bs) for k in b})
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     r = subprocess.run([sys.executable, "-c", textwrap.dedent(
-        REF_CODE.replace("DP", str(REF_DP))), str(out)], cwd=ROOT, env=env,
+        REF_CODE.replace("DP", str(REF_DP)).replace(
+            "TP_RUNS", repr(TP_RUNS))), str(out)], cwd=ROOT, env=env,
         capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "REF_OK" in r.stdout
@@ -538,6 +556,49 @@ def test_sharded_step_matches_reference_jit(ref):
             np.asarray(x, np.float32)
             for x in jax.tree.leaves(want["opt"][k])])
     assert int(un.step) == int(want["step"]) == 3
+
+
+@pytest.mark.parametrize("tag", [r[0] for r in TP_RUNS])
+def test_tp_step_matches_reference_jit(ref, tag, moe_dispatch):
+    """3 steps of the port's step tensor-parallel, from the reference's
+    init (``state_from_jax``), == the reference's ZeRO-1 step jitted on 8
+    forced host devices: tiny llama3-8b on (data 2, model 4) (q heads
+    split, kv heads all-gathered) and tiny granite-moe-1b on (data 2,
+    model 2) (experts split, vocab split, the microbatch's 128-token
+    GShard group cut by the data shards and tokens dropped). Each loss
+    at LOSS_RTOL, ``m`` and ``v`` at PARAM_TOL, the params at PARAM_TOL
+    but for AdamW's sign flips (``test_torch_tp_training.py``)."""
+    _, arch, shape, kw = next(r for r in TP_RUNS if r[0] == tag)
+    cfg = get_tiny(arch).replace(**kw)
+    mesh = make_debug_mesh(shape, device="cpu")
+    shs = TS.train_shardings(cfg, mesh)
+    d = os.path.join(ref["dir"], tag)
+    st = TS.shard_state(TS.state_from_jax(cfg, ckpt.restore(d, step=0),
+                                          CPU), shs)
+    step = TS.make_train_step(cfg, AdamWConfig(**OPT), accum=2,
+                              grad_specs=shs["opt"]["m"])
+    losses, lrs = [], []
+    for b in ref["batches"]:
+        st, m = step(st, _tb(b))
+        losses.append(float(m["loss"]))
+        lrs.append(float(m["lr"]))
+    np.testing.assert_allclose(losses, ref[tag], rtol=LOSS_RTOL)
+    want = ckpt.restore(d, step=3)
+    un = TS.unshard_state(st)
+    wv = [torch.from_numpy(np.asarray(x, np.float32))
+          for x in jax.tree.leaves(want["opt"]["v"])]
+    assert_params_or_flips(
+        list(tree_leaves(un.params)),
+        [torch.from_numpy(np.asarray(x, np.float32))
+         for x in jax.tree.leaves(want["params"])],
+        list(tree_leaves(un.opt["v"])), wv, sum(lrs), 3)
+    for k in ("m", "v"):
+        _assert_params(_np_leaves(un.opt[k]), [
+            np.asarray(x, np.float32)
+            for x in jax.tree.leaves(want["opt"][k])])
+    assert int(un.step) == int(want["step"]) == 3
+    if cfg.num_experts:
+        assert moe_dispatch["cut"] and moe_dispatch["dropped"]
 
 
 def _tiny_cell(kind):
@@ -630,15 +691,30 @@ def no_kernels(monkeypatch):
 def test_full_width_dryrun_on_meta(no_kernels, arch, shape, cc):
     """Full-width cells on the single production mesh: status ok, no
     kernel wrapper reached, CUDA never initialised, every record field
-    filled (temp bytes null, tensor-parallel collectives "not counted"),
-    and the counted FLOPs within a factor 2 of the reference's closed
-    form (``analytic_flops``, which leaves out remat's second forward and
-    the norms' and SSD's small products)."""
+    filled (temp bytes null; the tensor-parallel collectives' bytes, the
+    train cell's those of ``tp_collective_bytes``, and only the train
+    cell's in the roofline's collective term), and the counted FLOPs
+    within a factor 2 of the reference's closed form (``analytic_flops``,
+    which leaves out remat's second forward and the norms' and SSD's
+    small products)."""
     rec = DR.run_cell(arch, shape, "single", cc=cc)
     assert rec["status"] == "ok", rec.get("traceback")
     assert not torch.cuda.is_initialized()
     assert rec["chips"] == 256 and rec["memory"]["temp_gib"] is None
-    assert rec["counted"]["coll_bytes_tensor_parallel"] == "not counted"
+    tp = rec["counted"]["coll_bytes_tensor_parallel"]
+    assert set(tp) == {"reduce-scatter", "all-gather", "all-reduce"}
+    coll = sum(rec["counted"]["coll_bytes_data_axes"].values())
+    if shape == "train_4k":
+        cfg = get_config(arch).replace(dtype="bfloat16",
+                                       param_dtype="bfloat16")
+        mesh = DR.meta_mesh(DR.make_production_mesh(device="cpu"))
+        sp = SHAPES["train_4k"]
+        assert tp == DR.tp_collective_bytes(cfg, mesh, DR.TRAIN_ACCUM,
+                                            sp["global_batch"],
+                                            sp["seq_len"])
+        coll += sum(tp.values())
+    assert rec["roofline"]["collective_s"] == pytest.approx(
+        coll / RL.NVLINK_BW)
     assert rec["memory"]["argument_bytes"] > 0
     assert rec["memory"]["fits_80gb"] is True
     assert rec["roofline"]["dominant"] in ("compute", "memory",
@@ -652,10 +728,14 @@ def test_full_width_dryrun_on_meta(no_kernels, arch, shape, cc):
 
 # ---------------- chip_smoke.py's phase 14, rehearsed on the CPU ---------------
 def test_chip_smoke_sharded_phase_rehearsal(monkeypatch):
-    """``chip_smoke.run_sharded`` end to end on the CPU at tiny size: the
-    configs tiny, 32-token sequences, one dry-run cell (full-width
-    llama3-8b decode_32k on meta, in a spawned worker as on the card),
-    so that the phase's checks run as they do there."""
+    """``chip_smoke.run_sharded`` and ``run_tp`` (phases 14 and 15) end
+    to end on the CPU at tiny size: the configs tiny, 32-token sequences,
+    one dry-run cell (full-width llama3-8b decode_32k on meta, in a
+    spawned worker as on the card), so that the phases' checks run as
+    they do there. The microbatches' aux terms agree to 1e-3: an
+    argmax that flips between the two sums' orders moves ``fe`` by one
+    token's share (the loss holds the aux term to LOSS_RTOL through its
+    0.01 weight)."""
     import repro_torch.configs as C
     monkeypatch.syspath_prepend(ROOT)
     import chip_smoke as cs
@@ -664,7 +744,7 @@ def test_chip_smoke_sharded_phase_rehearsal(monkeypatch):
     monkeypatch.setattr(cs, "TRAIN_SEQ", 32)
     monkeypatch.setattr(cs, "DRYRUN_CELLS", (("decode_32k", False),))
     training = {"llama3-8b/2": dict(step_ms=1.0, mfu_fp32=0.0)}
-    out = cs.run_sharded(CPU, "cpu", training)
+    out, plain = cs.run_sharded(CPU, "cpu", training)
     z = out["zero1"]
     assert z["coll_bytes_counted"] == z["coll_bytes_closed_form"]
     assert z["zero1_split"]["leaves"] > 0
@@ -672,3 +752,30 @@ def test_chip_smoke_sharded_phase_rehearsal(monkeypatch):
     assert out["elastic"]["shards"] > 0
     assert out["roofline"]["count_step_flops"] > 0
     assert out["dryrun"]["decode_32k"]["dominant"] == "memory"
+    # phase 15 on the same tiny configs: llama3-8b/2 on (2, 4) against
+    # phase 14's unsharded run, granite-moe-1b cut to 2 layers and whole
+    # (4 tiny layers) on (4, 1) and (2, 2), each beside its perturbed
+    # controls, at 2 layers also one sharded step from each unsharded
+    # state; on the host CPU at tiny size every run meets the strict
+    # standard too, and no step flips a route
+    tp = cs.run_tp(CPU, "cpu", plain)
+    g = "granite-moe-1b-tiny"
+    assert set(tp) == {"llama3-8b/2", f"{g}/2 unsharded", f"{g}/2 [4, 1]",
+                       f"{g}/2 [2, 2]", f"{g}/4 unsharded", f"{g}/4 [4, 1]",
+                       f"{g}/4 [2, 2]", "seconds"}
+    for k, r in tp.items():
+        if k != "seconds" and "mesh" in r:
+            assert r["coll_bytes_counted"] == r["coll_bytes_closed_form"]
+            assert r["position0_bytes"] == r["layout_bytes"]
+            assert r["strict"] and r["loss_rel_gap"] <= cs.LOSS_RTOL
+            assert ("control_loss_rel_gap" in r) == k.startswith(g)
+            if k.startswith(g):
+                assert r["flips"] == [0] * cs.SHARD_STEPS
+                assert len(r["control_flips"]) == len(cs.MOE_SEEDS)
+            assert ("one_step" in r) == k.startswith(f"{g}/2 ")
+            for st in r.get("one_step", ()):
+                assert st["flips"] == 0 and st["strict"]
+    assert [st["step"] for st in tp[f"{g}/2 [2, 2]"]["one_step"]] == \
+        list(range(1, cs.SHARD_STEPS + 1))
+    assert len(tp[f"{g}/2 unsharded"]["controls"]) == len(cs.MOE_SEEDS)
+    assert tp[f"{g}/2 [2, 2]"]["aux_rel_gap"] <= 1e-3
