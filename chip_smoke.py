@@ -169,18 +169,38 @@ Phases (each prints its own line; any failure raises and exits non-zero):
     closed forms, mesh position 0's param / ``m`` / ``v`` bytes equal to
     their layouts', each microbatch's aux printed beside the unsharded
     one's;
-16. a ``kernels`` JSON line (launches on the main paths, error, times,
-    bound, the D 256 rows, the paged kernel's per-shard call and each
-    family's path shape beside them), the mamba2 and training figures,
-    per-engine TTFT / decode-step figures, the server's, the families',
-    the recurrent and vision ones, the mesh phases' and phases 14-15's;
-17. last line: ``{"ok": true, "device": {...}}``.
+16. the engine under pool pressure (after phase 12, while llama3-8b's
+    weights are loaded; fp32, TF32 off; ``run_pressure``): the
+    reference's churn workload (6 requests, decode lengths 18, 18, 3, 5,
+    4, 6) at pool 512 and at pool 20 (80 MiB of fp32 KV) with
+    ``preempt_after_iters`` 4 on the default route, ``kernel`` and
+    ``paged_kernel`` + ``paged_decode``: preemptions, recovered blocks,
+    no burned pass, the pool settled, outputs equal to the unpressured
+    run's, decode logits and final KV within 2e-4 of it (byte equality
+    printed; a preempted request re-prefills beside another partner, and
+    the packed shape moves every route's sums on the card, as a control
+    without pressure or packing shows on the default route), the kernel
+    routes within 2e-3 of the default route's; zero-copy against copy on
+    ``tests/test_shared_chunks.py``'s workload with a store (default and
+    ``kernel``) and the incremental decode batch against rebuilds, each
+    within 1e-5 (the same shapes on both sides); the chunk, decode,
+    paged and rope launches counted from 0 around these runs, each
+    kernel held and timed on the recorded inputs of its most frequent
+    call shape;
+17. a ``kernels`` JSON line (launches on the main paths, error, times,
+    bound, the D 256 rows, the paged kernel's per-shard call, each
+    family's path shape and the pressure phase's beside them), the mamba2
+    and training figures, per-engine TTFT / decode-step figures, the
+    server's, the families', the recurrent and vision ones, the mesh
+    phases', the pressure phase's and phases 14-15's;
+18. last line: ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before the mamba2 phase, the training
 runs, the engine serving the trained checkpoint, engines A and B,
-each family's engine A, each counted run of phase 11 and engine B on the
-mesh, and read just after (rope and the attention kernels of engine A in
-A, paged decode in B and in B on the mesh); the comparison launches
+each family's engine A, each counted run of phase 11, engine B on the
+mesh and the pressure phase's runs, and read just after (rope and the
+attention kernels of engine A in A, paged decode in B and in B on the
+mesh, all four in phase 16); the comparison launches
 of phase 3 and the replays after the engines do not count. Without CUDA, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
 result.
@@ -1880,6 +1900,16 @@ def run_server(cfg, params, tmp, offline_tokens):
     return out
 
 
+def _per_rid(trace):
+    """A decode trace (one {rid: logits} per step) -> {rid: [logits of
+    each of its steps]}."""
+    out = {}
+    for step in trace:
+        for rid, lg in step.items():
+            out.setdefault(rid, []).append(lg)
+    return out
+
+
 def compare_logits(tag, trace, tokens, ref_trace, ref_tokens):
     """Per-request decode logits of ``tag`` vs the dense engine, step by
     step: compared while the request's tokens agree; where greedy tokens
@@ -1888,14 +1918,7 @@ def compare_logits(tag, trace, tokens, ref_trace, ref_tokens):
     request whose first (prefill) token differs is not compared."""
     import numpy as np
 
-    def per_rid(tr):
-        out = {}
-        for step in tr:
-            for rid, lg in step.items():
-                out.setdefault(rid, []).append(lg)
-        return out
-
-    mine, ref = per_rid(trace), per_rid(ref_trace)
+    mine, ref = _per_rid(trace), _per_rid(ref_trace)
     if set(mine) != set(ref):
         raise RuntimeError(f"{tag}: decoded requests differ from dense")
     worst, compared, diverged = 0.0, 0, []
@@ -2158,6 +2181,395 @@ def run_mesh(cfg, params, dev, tmp, ref, pi, tr_b, tok_b):
     res["kernel"] = measure_paged_shards(pi, n)
     res["seconds"] = time.perf_counter() - t0
     log(f"serving mesh phase: {res['seconds']:.1f}s")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the engine under pool pressure (after phase 12)
+# ---------------------------------------------------------------------------
+PRESSURE_ROUTES = (
+    ("default", {}),                     # dense prefill windows, auto decode
+    ("kernel", {"attn_impl": "kernel"}),
+    ("paged_kernel", {"attn_impl": "paged_kernel", "paged_decode": True}),
+)
+# runs of the same shapes on both sides (zero-copy vs copy, incremental vs
+# rebuild): the same arithmetic on the same inputs
+PRESSURE_TOL = 1e-5
+# pressured vs unpressured: a preempted request re-prefills packed with
+# another partner, and on the card every route's prefill sums follow the
+# packed shape (ROADMAP C3): on an H100 the default route reads 1.31e-5,
+# and so does the unpacked control without pressure
+PACKING_TOL = 2e-4
+# (tag, pool blocks, preempt_after_iters, max_prefill_batch); the default
+# route adds a control without pressure or packing
+PRESSURE_RUNS = (("pool 512", 512, 0, 2), ("pool 20", 20, 4, 2))
+PACKING_CONTROL = ("pool 512 unpacked", 512, 0, 1)
+
+
+def _churn_requests(cfg, lengths, seed):
+    """The reference's churn workloads: 6 requests of 3 chunks from a
+    10-chunk knowledge base, arriving at once, with the given decode
+    lengths (``tests/test_engine_incremental.py``)."""
+    from repro_torch.serving.rag import KnowledgeBase
+    from repro_torch.serving.workload import WorkloadConfig, generate
+
+    kb = KnowledgeBase(num_chunks=10, vocab_size=cfg.vocab_size, seed=0)
+    reqs = generate(kb, WorkloadConfig(num_requests=len(lengths), qpm=1e9,
+                                       seed=seed, k_chunks=3,
+                                       max_new_tokens=4))
+    for r, n in zip(reqs, lengths):
+        r.max_new_tokens = n
+    return reqs
+
+
+def _overlap_requests(cfg, n):
+    """``tests/test_shared_chunks.py``'s workload: n requests over one
+    system prompt and the same 3 chunks, distinct questions."""
+    import numpy as np
+
+    from repro_torch.serving.rag import KnowledgeBase
+    from repro_torch.serving.request import Request
+
+    kb = KnowledgeBase(num_chunks=8, vocab_size=cfg.vocab_size, seed=0)
+    rng = np.random.default_rng(17)
+    sys_t = rng.integers(0, kb.vocab_size, 8).astype(np.int32)
+    chunks = [kb.chunks[0], kb.chunks[1], kb.chunks[2]]
+    return [Request(rid=i, system_tokens=sys_t,
+                    chunk_tokens=[c.copy() for c in chunks],
+                    question_tokens=rng.integers(
+                        0, kb.vocab_size, 10).astype(np.int32),
+                    max_new_tokens=4, arrival_time=0.0) for i in range(n)]
+
+
+def pressure_run(tag, eng, reqs, settle=True):
+    """One run of ``eng`` over ``reqs``: all complete with their tokens,
+    and (``settle``) the pool drains back to all blocks free. Returns the
+    figures, the decode trace, the tokens and the final KV."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    stats = eng.run(reqs)
+    wall = time.perf_counter() - t0
+    c, pool = eng.counters, eng.pool
+    ttft = np.array([r.ttft for r in reqs if r.ttft is not None])
+    out = dict(
+        completed=stats.completed, failed=stats.failed, wall_s=wall,
+        ttft_mean_ms=float(ttft.mean() * 1e3),
+        ttft_p99_ms=float(np.percentile(ttft, 99) * 1e3),
+        decode_steps=stats.decode_steps,
+        decode_step_ms=stats.decode_compute_s * 1e3
+        / max(1, stats.decode_steps),
+        prefill_pass_ms=stats.prefill_compute_s * 1e3
+        / max(1, stats.prefill_batches),
+        preemptions=c.preemptions,
+        preempt_block_recovered=c.preempt_block_recovered,
+        burn_requeues=c.burn_requeues,
+        head_stall_iters_max=c.head_stall_iters_max,
+        decode_rebuilds=c.decode_rebuilds, decode_joins=c.decode_joins,
+        decode_leaves=c.decode_leaves,
+        decode_gather_bytes=c.decode_gather_bytes,
+        shared_seg_hits=c.shared_seg_hits,
+        shared_blocks_peak=c.shared_blocks_peak, cow_clones=c.cow_clones,
+        pool=dict(reserved=pool.reserved_blocks, live=pool.live_blocks,
+                  free=pool.free_blocks, blocks=pool.num_blocks))
+    log(f"pressure {tag}: " + json.dumps(out))
+    if stats.completed != len(reqs) or stats.failed or any(
+            len(r.output_tokens) != r.max_new_tokens for r in reqs):
+        raise RuntimeError(f"pressure {tag}: {stats.completed}/{len(reqs)} "
+                           f"completed, {stats.failed} failed")
+    if settle and not (pool.reserved_blocks == 0 and pool.live_blocks == 0
+                       and pool.free_blocks == pool.num_blocks):
+        raise RuntimeError(f"pressure {tag}: the pool did not settle: "
+                           f"{out['pool']}")
+    return out, eng.decode_trace, \
+        {r.rid: list(r.output_tokens) for r in reqs}, eng.final_kv
+
+
+def attempt_gap(tag, trace, tokens, ref_trace, ref_tokens, tol):
+    """Each request's decode logits in its last attempt (a preempted
+    request's discarded attempts come first in its trace) against the
+    reference run's, step by step while their tokens agree. Tokens must
+    be equal, except after a step whose reference top-2 gap is within
+    ``tol`` (a near tie), where the request is compared no further.
+    Returns (max abs diff, bit-equal, requests cut at a near tie); the
+    caller holds the difference to its tolerance."""
+    import numpy as np
+
+    mine, ref = _per_rid(trace), _per_rid(ref_trace)
+    if set(mine) != set(ref):
+        raise RuntimeError(f"{tag}: decoded requests differ")
+    worst, same, cut = 0.0, True, []
+    for rid in sorted(ref):
+        a_steps = mine[rid][-len(ref[rid]):]
+        for i, (a, b) in enumerate(zip(a_steps, ref[rid])):
+            if not np.isfinite(a).all():
+                raise RuntimeError(f"{tag}: rid {rid} step {i}: non-finite")
+            if int(a.argmax()) != int(b.argmax()):
+                top2 = np.sort(b)[-2:]
+                if top2[1] - top2[0] > tol:
+                    raise RuntimeError(
+                        f"{tag}: rid {rid} step {i}: greedy token differs "
+                        f"with top-2 gap {top2[1] - top2[0]}")
+                cut.append(rid)
+                break
+            same &= bool(np.array_equal(a, b))
+            worst = max(worst, float(np.abs(a - b).max()))
+    for rid, b in ref_tokens.items():
+        if tokens[rid] != b and rid not in cut:
+            raise RuntimeError(f"{tag}: rid {rid} tokens {tokens[rid]} vs "
+                               f"{b}")
+    return worst, same, cut
+
+
+def kv_gap(tag, kv, ref_kv):
+    """Final pool KV per request (positions equal); returns (max abs
+    diff of K and V, bit-equal)."""
+    import numpy as np
+
+    if set(kv) != set(ref_kv):
+        raise RuntimeError(f"{tag}: final KV of other requests")
+    worst, same = 0.0, True
+    for rid in ref_kv:
+        (k, v, p), (k0, v0, p0) = kv[rid], ref_kv[rid]
+        if not np.array_equal(p, p0):
+            raise RuntimeError(f"{tag}: rid {rid} KV positions differ")
+        for x, y in ((k, k0), (v, v0)):
+            same &= bool(np.array_equal(x, y))
+            worst = max(worst, float(np.abs(x - y).max()))
+    return worst, same
+
+
+def run_pressure(cfg, params, tmp):
+    """Phase 16, full-width llama3-8b, fp32, TF32 off: the reference's
+    pressure gates on the card. (1) Preemption: the churn workload
+    (decode lengths 18, 18, 3, 5, 4, 6, seed 17; prefill batch 2, decode
+    batch 4) at pool 512 and at pool 20 with ``preempt_after_iters`` 4,
+    on the default route, ``kernel`` and ``paged_kernel`` +
+    ``paged_decode``: the pressured run preempts, recovers blocks, burns
+    no pass, settles the pool and equals the unpressured run within
+    PACKING_TOL (the kernel routes also within LOGIT_TOL of the default
+    route's); on the default route a control, the unpressured workload
+    with each request prefilled alone, shows what packing alone moves.
+    (2) Zero-copy vs copy:
+    ``tests/test_shared_chunks.py``'s workload with a store (two warm-up
+    runs, then the measured one) on the default and ``kernel`` routes:
+    outputs equal, logits within PRESSURE_TOL, blocks shared. (3)
+    Incremental vs rebuild: the other churn workload (decode lengths 3,
+    5, 7, 9, 4, 6, seed 11; prefill batch 1) on the default route: one
+    rebuild against more, logits within PRESSURE_TOL. Launches of the
+    four serving kernels are counted from 0 around these runs, and each
+    kernel is then held against its plain version on the recorded inputs
+    of its most frequent call shape."""
+    import torch
+
+    from repro_torch.core.chunkstore import ChunkStore
+    from repro_torch.core.tiers import TieredStore
+    from repro_torch.kernels.chunk_attention import ops as cops
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.rope import ops as rops
+    from repro_torch.serving.api import EngineSpec, build_engine
+    from repro_torch.serving.engine import EngineStats
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {"preempt": {}, "zero_copy": {}}
+    cops.chunk_attention.launches = 0
+    dops.decode_attention.launches = 0
+    dops.paged_decode_attention.launches = 0
+    rops.rope.launches = 0
+    try:
+        with ChunkRecorder(cops) as cc, DecodeRecorder(dops) as dc, \
+                RopeRecorder(rops) as rc:
+            pressed = {}
+            for route, kw in PRESSURE_ROUTES:
+                runs = {}
+                for tag, pool, after, pack in PRESSURE_RUNS + (
+                        (PACKING_CONTROL,) if route == "default" else ()):
+                    eng = build_engine(EngineSpec(
+                        strategy="all", use_focus=False, pool_blocks=pool,
+                        decode_bucket_b=4, seq_bucket=512,
+                        sched=SchedulerConfig(
+                            max_batch_tokens=100_000, max_decode_batch=4,
+                            max_prefill_batch=pack,
+                            preempt_after_iters=after),
+                        trace_decode=True, device="cuda", **kw),
+                        cfg=cfg, params=params, store=None)
+                    runs[tag] = pressure_run(
+                        f"{route} {tag}", eng,
+                        _churn_requests(cfg, (18, 18, 3, 5, 4, 6), 17))
+                    del eng
+                (fu, tru, toku, kvu), (fp, trp, tokp, kvp) = \
+                    runs["pool 512"], runs["pool 20"]
+                if not (fp["preemptions"] > 0
+                        and fp["preempt_block_recovered"] > 0
+                        and fp["burn_requeues"] == 0
+                        and fu["preemptions"] == 0):
+                    raise RuntimeError(f"pressure {route}: preemptions "
+                                       f"{fp['preemptions']}, recovered "
+                                       f"{fp['preempt_block_recovered']}, "
+                                       f"burn requeues {fp['burn_requeues']}")
+                tol = PACKING_TOL
+                lg, lsame, cut = attempt_gap(f"pressure {route}", trp, tokp,
+                                             tru, toku, tol)
+                kg, ksame = kv_gap(f"pressure {route}", kvp, kvu)
+                row = dict(unpressured=fu, pressured=fp, logit_gap=lg,
+                           logit_bit_equal=lsame, kv_gap=kg,
+                           kv_bit_equal=ksame, near_tie_cut=cut, tol=tol)
+                if route == "default":
+                    # the control: the same requests without pressure, each
+                    # prefilled alone, against the packed unpressured run
+                    fc, trc, tokc, kvc = runs[PACKING_CONTROL[0]]
+                    cg, csame, ccut = attempt_gap(
+                        "pressure default unpacked", trc, tokc, tru, toku,
+                        tol)
+                    ckg, cksame = kv_gap("pressure default unpacked", kvc,
+                                         kvu)
+                    row["packing_control"] = dict(
+                        logit_gap=cg, logit_bit_equal=csame, kv_gap=ckg,
+                        kv_bit_equal=cksame, near_tie_cut=ccut)
+                    log(f"pressure default: unpacked vs packed, no pressure "
+                        f"(the control): decode logits max abs diff "
+                        f"{cg:.3e} (bit-equal {csame}), final KV {ckg:.3e} "
+                        f"(bit-equal {cksame})")
+                    del kvc
+                del kvu, kvp
+                if route != "default":
+                    row["vs_default"] = compare_logits(
+                        f"pressure {route} pool 20 vs default",
+                        trp, tokp, *pressed["default"])
+                pressed[route] = (trp, tokp)
+                res["preempt"][route] = row
+                log(f"pressure {route}: pool 20 vs 512: outputs equal "
+                    f"(near-tie cuts {cut}), decode logits max abs diff "
+                    f"{lg:.3e} (bit-equal {lsame}), final KV {kg:.3e} "
+                    f"(bit-equal {ksame}); tol {tol}; "
+                    f"{fp['preemptions']} preemptions")
+                if max(lg, kg) > tol:
+                    raise RuntimeError(f"pressure {route}: pool 20 vs 512 "
+                                       f"logits {lg}, final KV {kg} (tol "
+                                       f"{tol})")
+
+            for route, kw in PRESSURE_ROUTES[:2]:
+                runs = {}
+                for share in (False, True):
+                    store = ChunkStore(TieredStore(
+                        1 << 28, 1 << 28,
+                        os.path.join(tmp, f"pressure-{route}-{share}"),
+                        start_worker=False), n_chunks=50, m_variants=4)
+                    eng = build_engine(EngineSpec(
+                        use_focus=False, store_fixed_variants=False,
+                        force_recompute_fraction=0.3, pool_blocks=256,
+                        sched=SchedulerConfig(max_batch_tokens=100_000,
+                                              max_decode_batch=8,
+                                              max_prefill_batch=4),
+                        share_chunk_kv=share, trace_decode=True,
+                        device="cuda", **kw),
+                        cfg=cfg, params=params, store=store)
+                    eng.run(_overlap_requests(cfg, 4))
+                    eng.run(_overlap_requests(cfg, 4))
+                    eng.clock = 0.0
+                    eng.stats = EngineStats()
+                    eng.counters.reset()
+                    eng.decode_trace, eng.final_kv = [], {}
+                    runs[share] = pressure_run(
+                        f"{route} zero-copy {share}", eng,
+                        _overlap_requests(cfg, 4), settle=False)
+                    store.tiers.close()
+                    del eng, store
+                (fc, trc, tokc, _kc), (fz, trz, tokz, _kz) = runs[False], \
+                    runs[True]
+                if tokc != tokz:
+                    raise RuntimeError(f"zero-copy {route}: outputs differ "
+                                       "from the copy path's")
+                gap, same = _trace_gap(trz, trc)
+                if gap > PRESSURE_TOL:
+                    raise RuntimeError(f"zero-copy {route}: decode logits "
+                                       f"max abs diff {gap} (tol "
+                                       f"{PRESSURE_TOL})")
+                if not (fz["shared_seg_hits"] > 0
+                        and fz["shared_blocks_peak"] > 0
+                        and fz["cow_clones"] > 0
+                        and fc["shared_seg_hits"] == 0):
+                    raise RuntimeError(f"zero-copy {route}: nothing shared: "
+                                       f"{fz}")
+                res["zero_copy"][route] = dict(copy=fc, zero_copy=fz,
+                                               logit_gap=gap, bit_equal=same)
+                log(f"zero-copy {route} vs copy: outputs equal, decode "
+                    f"logits max abs diff {gap:.3e} (bit-equal {same}; tol "
+                    f"{PRESSURE_TOL}), shared_seg_hits "
+                    f"{fz['shared_seg_hits']}, shared_blocks_peak "
+                    f"{fz['shared_blocks_peak']}, cow_clones "
+                    f"{fz['cow_clones']}")
+
+            runs = {}
+            for inc in (True, False):
+                eng = build_engine(EngineSpec(
+                    strategy="all", use_focus=False, pool_blocks=512,
+                    decode_bucket_b=4, seq_bucket=320,
+                    sched=SchedulerConfig(max_batch_tokens=100_000,
+                                          max_decode_batch=4,
+                                          max_prefill_batch=1),
+                    incremental_decode=inc, trace_decode=True,
+                    device="cuda"), cfg=cfg, params=params, store=None)
+                runs[inc] = pressure_run(
+                    f"incremental {inc}", eng,
+                    _churn_requests(cfg, (3, 5, 7, 9, 4, 6), 11))
+                del eng
+            (fi, tri, toki, kvi), (fr, trr, tokr, kvr) = runs[True], \
+                runs[False]
+            gap, same = _trace_gap(tri, trr)
+            kg, ksame = kv_gap("incremental", kvi, kvr)
+            if not (toki == tokr and max(gap, kg) <= PRESSURE_TOL
+                    and fi["decode_rebuilds"] == 1
+                    and fr["decode_rebuilds"] > 1):
+                raise RuntimeError(
+                    f"incremental vs rebuild: tokens equal {toki == tokr}, "
+                    f"logits {gap}, rebuilds {fi['decode_rebuilds']} vs "
+                    f"{fr['decode_rebuilds']}")
+            res["incremental"] = dict(incremental=fi, rebuild=fr,
+                                      logit_gap=gap, bit_equal=same,
+                                      kv_gap=kg, kv_bit_equal=ksame)
+            log(f"incremental vs rebuild: rebuilds {fi['decode_rebuilds']} "
+                f"vs {fr['decode_rebuilds']}, decode logits max abs diff "
+                f"{gap:.3e} (bit-equal {same}), final KV {kg:.3e} "
+                f"(bit-equal {ksame}); tol {PRESSURE_TOL}")
+        launches = {"chunk_attention": cops.chunk_attention.launches,
+                    "decode_attention": dops.decode_attention.launches,
+                    "paged_decode_attention":
+                        dops.paged_decode_attention.launches,
+                    "rope": rops.rope.launches}
+        log(f"pressure phase launches: {json.dumps(launches)}")
+        for name, n in launches.items():
+            if n <= 0:
+                raise RuntimeError(f"pressure phase: {name} not launched")
+        res["launches"] = launches
+        # each kernel on the recorded inputs of its most frequent call
+        # shape under pressure (not counted as path launches)
+        ck = max(cc.shapes, key=lambda k: (cc.shapes[k], k))
+        dk, pk = dc.most_frequent("dense"), dc.most_frequent("paged")
+        rk = rc.most_frequent()
+        x, pos, theta = rc.calls[rk]
+        res["kernels"] = {
+            "chunk_attention": dict(
+                shape=f"(B, A, S) {list(ck)}", calls=cc.shapes[ck],
+                **measure_chunk(f"pressure{list(ck)}", cc.calls[ck])),
+            "decode_attention": dict(
+                shape=f"(B, S) {list(dk[1:])}", calls=dc.shapes[dk],
+                **measure_decode(f"pressure{list(dk[1:])}", dc.calls[dk])),
+            "paged_decode_attention": dict(
+                shape=f"(B, NBmax, bs) {list(pk[1:])}", calls=dc.shapes[pk],
+                **measure_paged(f"pressure{list(pk[1:])}", dc.calls[pk])),
+            "rope": dict(
+                shape=f"{list(rk[0])}", calls=rc.shapes[rk],
+                **measure_rope("pressure", x, pos, theta)),
+        }
+        del cc, dc, rc
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"engine under pressure phase: {res['seconds']:.1f}s")
     return res
 
 
@@ -3710,6 +4122,10 @@ def main() -> int:
                         paged_calls.calls[paged_calls.most_frequent("paged")],
                         tr_b, tok_b)
 
+        # phase 16, while llama3-8b's weights are loaded: the engine under
+        # pool pressure (preemption, zero-copy sharing, incremental batch)
+        pressure = run_pressure(cfg, params, tmp)
+
         # phase 10: the families. First the paper's model once more, on
         # a prompt past auto's 2^21 score elements, then its weights go
         long_gap = run_long_prompt(cfg, params, dev)
@@ -3761,8 +4177,8 @@ def main() -> int:
     err_a = compare_logits("A(kernel)", tr_a, tok_a, tr_c, tok_c)
     err_b = compare_logits("B(paged_kernel)", tr_b, tok_b, tr_c, tok_c)
 
-    # phase 16: the kernels line, the mamba2, training, engine, family,
-    # recurrent / vision, mesh and sharded-training figures
+    # phase 17: the kernels line, the mamba2, training, engine, family,
+    # recurrent / vision, mesh, pressure and sharded-training figures
     sources = {
         "chunk_attention": (
             "src/repro_torch/kernels/chunk_attention/csrc/chunk_attention.cu",
@@ -3888,6 +4304,19 @@ def main() -> int:
                     "bound_ms", "bound_by") if k in r[dt]})
         if fam:
             row["families"] = fam
+    # the pressure phase: each kernel's launches there, and the kernel
+    # held and timed on the recorded inputs of its most frequent shape
+    for row in kernels:
+        r = pressure["kernels"].get(row["name"])
+        if r is None:
+            continue
+        row["pressure"] = dict(
+            launches=pressure["launches"][row["name"]], shape=r["shape"],
+            calls_at_shape=r["calls"],
+            **{f"{k}{sfx}": r[dt][k]
+               for dt, sfx in (("float32", ""), ("bfloat16", "_bf16"))
+               for k in ("err", "ms", "device_ms", "plain_ms", "library_ms",
+                         "bound_ms", "bound_by") if k in r[dt]})
     # rope's row is at the path's shape; the 1024-token span beside it
     kernels[-1]["shape"] = "[32, 48, 8, 128]; span1024 [32, 1024, 8, 128]"
     kernels[-1]["host_ms"] = rope_rows["path"]["float32"]["host_ms"]
@@ -3969,6 +4398,31 @@ def main() -> int:
     # launch is in mesh["kernel"]
     log(f"serving mesh and context parallel [{card}]: " + json.dumps(mesh)
         + "; " + json.dumps(cp_ef))
+    log(f"engine under pressure [{card}]: " + json.dumps({
+        "preempt": {route: {
+            "pressured": {m: r["pressured"][m] for m in (
+                "wall_s", "ttft_mean_ms", "ttft_p99_ms", "decode_step_ms",
+                "head_stall_iters_max", "preemptions",
+                "preempt_block_recovered", "burn_requeues")},
+            "unpressured": {m: r["unpressured"][m] for m in (
+                "wall_s", "ttft_mean_ms", "ttft_p99_ms", "decode_step_ms",
+                "head_stall_iters_max")},
+            **{m: r[m] for m in ("logit_gap", "logit_bit_equal", "kv_gap",
+                                 "kv_bit_equal", "vs_default") if m in r}}
+            for route, r in pressure["preempt"].items()},
+        "zero_copy": {route: {
+            "logit_gap": r["logit_gap"], "bit_equal": r["bit_equal"],
+            **{m: r["zero_copy"][m] for m in (
+                "shared_seg_hits", "shared_blocks_peak", "cow_clones",
+                "wall_s", "ttft_mean_ms", "ttft_p99_ms", "decode_step_ms")}}
+            for route, r in pressure["zero_copy"].items()},
+        "incremental": {m: pressure["incremental"][m] for m in (
+            "logit_gap", "bit_equal", "kv_gap", "kv_bit_equal")},
+        "rebuilds": [pressure["incremental"]["incremental"][
+            "decode_rebuilds"], pressure["incremental"]["rebuild"][
+            "decode_rebuilds"]],
+        "launches": pressure["launches"],
+        "seconds": pressure["seconds"]}))
     log(f"sharded training and the dry-run [{card}]: "
         + json.dumps(sharded))
     log(f"tensor-parallel training [{card}]: " + json.dumps({
