@@ -22,7 +22,7 @@ The reference runs a body once per device of a mesh axis under
   None keeps the whole sum (an all-reduce). ``parts`` may be a generator:
   the sum is kept as it goes, so at most one part is held besides it.
 
-Three differentiable collectives over the "model" axis carry the
+Four differentiable collectives over the "model" axis carry the
 tensor-parallel (Megatron) layers of the train step, each an
 ``autograd.Function`` whose backward is the collective's transpose:
 
@@ -33,6 +33,10 @@ tensor-parallel (Megatron) layers of the train step, each an
 * ``gather_over_model(blocks, dim)`` is ``all_gather``; its backward
   gives each block its slice of the grad and moves nothing, since every
   shard computes the whole grad of the gathered tensor.
+* ``sum_over_model(parts)`` is the ``psum`` of partial results that
+  every shard then uses on its own (a statistic over channels split
+  across the shards); its backward is the ``psum`` of the shards' grads
+  of the sum, so it counts an all-reduce in each direction.
 
 Over one shard each is the identity and counts nothing. Under remat the
 recomputed forward runs its collectives again, and they count again.
@@ -228,6 +232,19 @@ class _GatherOverModel(torch.autograd.Function):
                                     ctx.devices))
 
 
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *parts):
+        ctx.devices = [p.device for p in parts]
+        total = psum(parts)
+        return tuple(total.to(d).view_as(total) for d in ctx.devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g = psum(grads)
+        return tuple(g.to(d) for d in ctx.devices)
+
+
 def copy_to_model(x: torch.Tensor, n: int) -> list:
     """``x`` handed to each of ``n`` model shards; backward: the psum of
     their grads (a counted all-reduce)."""
@@ -246,3 +263,11 @@ def gather_over_model(blocks: Sequence[torch.Tensor], dim: int) \
     all-gather); backward: each block its slice of the grad."""
     return blocks[0] if len(blocks) == 1 else \
         _GatherOverModel.apply(dim, *blocks)
+
+
+def sum_over_model(parts: Sequence[torch.Tensor]) -> list:
+    """The psum of the model shards' partial results, handed back to
+    every shard (a counted all-reduce); backward: the psum of the
+    shards' grads (a counted all-reduce), handed to each part."""
+    return list(parts) if len(parts) == 1 else \
+        list(_SumOverModel.apply(*parts))

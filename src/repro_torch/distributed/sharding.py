@@ -26,9 +26,13 @@ holds. The sharded train step (``training/steps.py`` with ``grad_specs``),
 
 ``tp_plan`` reads the rules for the tensor-parallel train step: per
 param leaf split over "model", whether its layer works on the blocks
-Megatron-style (``"split"``) or all-gathers them first and runs
-replicated (``"gather"``). A data shard's layers then see such a leaf as
-``Blocks``, its model shards' blocks in shard order.
+Megatron-style (``"split"``: attention heads, the SwiGLU's hidden width,
+experts, the vocabulary, and the recurrent blocks' ``rnn`` channels and
+``ssm_heads``, as the reference's rules and activation constraints
+partition them) or all-gathers them first and runs replicated
+(``"gather"``: q / kv weights cut on the head dim, and leaves not
+named). A data shard's layers then see such a leaf as ``Blocks``, its
+model shards' blocks in shard order.
 """
 from __future__ import annotations
 
@@ -348,10 +352,16 @@ class ShardedTensor:
 # ---------------------------------------------------------------------------
 # the leaves a layer splits Megatron-style, by name, and the dimension of
 # the per-layer tensor the split cuts: attention by q / kv heads, the
-# SwiGLU by its hidden width (column then row), the MoE by experts, and
-# the vocabulary of both embeddings
+# SwiGLU by its hidden width (column then row), the MoE by experts, the
+# vocabulary of both embeddings, the RG-LRU block by its rnn channels
+# (``wx`` / ``wy`` columns, ``wo_r`` rows) and the SSD block by its heads
+# and their channels (``in_proj`` stays whole, as in the reference); the
+# depthwise ``conv`` cuts its channels in both recurrent kinds
 MEGATRON_DIMS = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "wi": 2, "wo_ff": 0,
-                 "wi_e": 0, "wo_e": 0, "embed": 0, "unembed": 1}
+                 "wi_e": 0, "wo_e": 0, "embed": 0, "unembed": 1,
+                 "wx": 1, "wy": 1, "conv": 1, "lam": 0, "alpha": 0,
+                 "beta": 0, "wo_r": 0, "A_log": 0, "D": 0, "dt_bias": 0,
+                 "out_norm": 0, "out_proj": 0}
 
 
 @dataclass(frozen=True)
@@ -385,10 +395,10 @@ def tp_plan(mesh, cfg, axes_tree):
     else a ``TPLeaf``. A leaf goes ``"split"`` where the rules cut it on
     its Megatron dimension (``MEGATRON_DIMS``: q heads when ``heads``
     resolves to "model", kv heads when ``kv_heads`` does, the SwiGLU's
-    ``mlp``, ``experts``, ``vocab``), and ``"gather"`` otherwise: q / kv
-    weights cut on the head dim (heads that do not divide), the
-    recurrent blocks' ``rnn`` and ``ssm_heads`` and any leaf not named.
-    The kv weights are not split unless the q weights are."""
+    ``mlp``, ``experts``, ``vocab``, the recurrent blocks' ``rnn`` and
+    ``ssm_heads``), and ``"gather"`` otherwise: q / kv weights cut on the
+    head dim (heads that do not divide) and any leaf not named. The kv
+    weights are not split unless the q weights are."""
     msz = mesh.shape.get("model", 1)
     with axis_rules(make_rules(mesh, cfg)):
         specs = spec_tree(axes_tree)

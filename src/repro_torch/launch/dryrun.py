@@ -313,11 +313,16 @@ def tp_collective_bytes(cfg, mesh, accum: int, batch: int, seq: int,
     output summed (T d dt) and, in the backward, the grads of its input
     copies summed (T d dt; with its kv heads not split, also those of k
     and v, T_kv Hkv D dt each); a split SwiGLU the same (T d dt forward,
-    T d dt backward); split experts their fp32 combine (T d 4) forward,
-    the grads of their tokens (T d dt) and gates (T k 4) backward; the
-    vocab-split embedding's rows (T d dt) and loss (three [T] fp32
-    all-reduces forward, the normed input's grad T d dt backward). Under
-    remat a group layer's forward collectives count twice. Over the data
+    T d dt backward); a split RG-LRU block the same (T d dt forward, its
+    input's copies T d dt backward); a split SSD block its output (T d
+    dt) and its gated norm's statistic (T 4) forward, and the grads of
+    the in-projection's copies (T in_w dt, in_w = 2 d_inner + 2 N + H)
+    and of the statistic (T 4) backward; split experts their fp32
+    combine (T d 4) forward, the grads of their tokens (T d dt) and
+    gates (T k 4) backward; the vocab-split embedding's rows (T d dt)
+    and loss (three [T] fp32 all-reduces forward, the normed input's
+    grad T d dt backward). Under remat a group layer's forward
+    collectives count twice. Over the data
     axes, for a config with experts: per microbatch the aux term's
     ``fe`` and ``me`` ([2, layers, E] fp32) all-reduced, and per MoE
     layer, where the shards cut a GShard group, the expert ids of the
@@ -361,8 +366,13 @@ def tp_collective_bytes(cfg, mesh, accum: int, batch: int, seq: int,
                             if kind == "xattn" else T)
                     ar += bw * 2 * t_kv * cfg.num_kv_heads * \
                         cfg.head_dim_ * dt
-            if "wi" in split:
-                ar += rf * T * d * dt + bw * T * d * dt
+            for n in ("wi", "wx"):      # the SwiGLU, the RG-LRU block
+                if n in split:
+                    ar += rf * T * d * dt + bw * T * d * dt
+            if "out_proj" in split:
+                in_w = 2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.ssm_heads
+                ar += rf * (T * d * dt + T * 4) + bw * (T * in_w * dt +
+                                                        T * 4)
             if "wi_e" in split:
                 ar += rf * T * d * 4 + bw * (T * d * dt +
                                               T * cfg.experts_per_token * 4)

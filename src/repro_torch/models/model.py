@@ -42,10 +42,12 @@ leaves) and the returned cache shares storage with the one passed in.
 Tensor-parallel training (``training/steps.py`` on a mesh with a model
 axis): a leaf that ``sharding.tp_plan`` splits over the model axis comes
 in as ``sharding.Blocks``. A block all-gathers its ``"gather"`` leaves
-first and runs replicated; attention with split q heads, the SwiGLU and
-the MoE experts run once per model shard on its blocks, between
-``copy_to_model`` and ``reduce_from_model`` (``distributed/
-collectives.py``); the embedding looks up each shard's vocab range and
+first and runs replicated; attention with split q heads, the SwiGLU, the
+MoE experts and the recurrent blocks (``rglru`` by its rnn channels,
+``ssd`` by its heads, its gated norm's statistic summed over the shards)
+run once per model shard on its blocks, between ``copy_to_model`` and
+``reduce_from_model`` (``distributed/collectives.py``), in stateless
+passes only; the embedding looks up each shard's vocab range and
 sums, and ``forward`` leaves the vocab-split logits to the loss
 (``logits=None``). ``run_stack_lockstep`` runs the data shards of one
 microbatch of a config with experts layer by layer, so that the MoE
@@ -600,12 +602,39 @@ def _moe_apply(ctx: Ctx, kind: str, p, h, xg, gate_vals, gate_idx, slot,
     return h + y
 
 
+def _stateless(ctx: Ctx, state, kind: str):
+    if state is not None:
+        raise ValueError(f"{kind} with its channels split over the model "
+                         f"axis runs stateless passes only ({ctx.mode} "
+                         "was given a cache)")
+
+
+def _rglru_tp(ctx: Ctx, p, x):
+    """The RG-LRU block with its rnn channels split over the model axis
+    (Megatron): model shard m runs the gate, the input branch, the
+    depthwise conv and the channelwise RG-LRU on its columns of ``wy`` /
+    ``wx`` from its copy of ``x`` and projects them out with its rows of
+    ``wo_r``; the shards' outputs are summed."""
+    xs = CO.copy_to_model(x, len(p["wx"].parts))
+    outs = []
+    for m, xm in enumerate(xs):
+        pm = {k: v.parts[m] for k, v in p.items() if isinstance(v, Blocks)}
+        gate = F.gelu(_proj(xm, pm["wy"]), approximate="tanh")
+        b, _ = L.causal_conv1d(_proj(xm, pm["wx"]), pm["conv"])
+        y, _ = L.rglru_scan(b, pm["lam"], pm["alpha"], pm["beta"])
+        outs.append(_proj(gate * y, pm["wo_r"]))
+    return CO.reduce_from_model(outs)
+
+
 def _rglru_block(ctx: Ctx, p, x, state):
     """Griffin recurrent block: a GeLU gate times the RG-LRU over the
     causal conv of the input branch. As in the reference, the conv state
     is read only in decode (a partial pass restarts the conv window from
     zeros), the recurrent state ``h`` in decode and partial. A cache,
     when given, is written in place."""
+    if isinstance(p["wx"], Blocks):
+        _stateless(ctx, state, "rglru")
+        return _rglru_tp(ctx, p, x), state
     gate = F.gelu(_proj(x, p["wy"]), approximate="tanh")
     b = _proj(x, p["wx"])
     conv_state = state["conv"] if (state is not None and
@@ -626,10 +655,57 @@ def _rglru_block(ctx: Ctx, p, x, state):
     return out, state
 
 
+def _ssd_tp(ctx: Ctx, p, x):
+    """The SSD block with its heads (and their channels) split over the
+    model axis (Megatron). The whole ``in_proj`` runs once, replicated, as
+    in the reference; each model shard takes from its copy of the
+    projection its channels of ``z`` and ``xs``, its heads of ``dt`` and
+    all of ``B`` and ``C``, and runs the conv, the SSD scan and the gated
+    norm on them. The norm's statistic spans all of ``d_inner``: the
+    shards' sums of squares are summed over the model axis
+    (``sum_over_model``, an all-reduce of [B, T] fp32 each way), then each
+    shard projects out with its rows of ``out_proj`` and the outputs are
+    summed."""
+    cfg = ctx.cfg
+    di, ns, pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    ps = CO.copy_to_model(_proj(x, p["in_proj"]), len(p["out_proj"].parts))
+    B_, T = x.shape[:2]
+    ys, zs, c0, h0 = [], [], 0, 0
+    for m, pr in enumerate(ps):
+        pm = {k: v.parts[m] for k, v in p.items() if isinstance(v, Blocks)}
+        w, k = pm["conv"].shape[1], pm["A_log"].shape[0]
+        if w != k * pd:
+            raise ValueError(f"model shard {m} holds {w} channels of "
+                             f"{k} heads of {pd}")
+        z, xs, Bm, Cm, dt = (pr[..., a:a + b] for a, b in (
+            (c0, w), (di + c0, w), (2 * di, ns), (2 * di + ns, ns),
+            (2 * di + 2 * ns + h0, k)))
+        xs = F.silu(L.causal_conv1d(xs, pm["conv"])[0])
+        dt = F.softplus(dt + pm["dt_bias"])
+        y, _ = L.ssd_chunked(xs.reshape(B_, T, k, pd), dt, pm["A_log"], Bm,
+                             Cm, pm["D"], cfg.ssd_chunk,
+                             train=ctx.mode == "train")
+        ys.append(y.reshape(B_, T, w))
+        zs.append(z)
+        c0, h0 = c0 + w, h0 + k
+    sums = CO.sum_over_model([y.float().square().sum(-1, keepdim=True)
+                              for y in ys])
+    outs = []
+    for y, z, ss, w_n, w_o in zip(ys, zs, sums, p["out_norm"].parts,
+                                  p["out_proj"].parts):
+        yn = y.float() * torch.rsqrt(ss / di + cfg.norm_eps)
+        yn = (yn * (1.0 + w_n.float())).to(y.dtype)
+        outs.append(_proj(yn * F.silu(z), w_o))
+    return CO.reduce_from_model(outs)
+
+
 def _ssd_block(ctx: Ctx, p, x, state):
     """Mamba2 block. The conv state is read only in decode; prefill stores
     the last W-1 pre-conv inputs. A cache, when given, is written in
     place."""
+    if isinstance(p["out_proj"], Blocks):
+        _stateless(ctx, state, "ssd")
+        return _ssd_tp(ctx, p, x), state
     cfg = ctx.cfg
     di, ns, nh, pd = (cfg.d_inner, cfg.ssm_state, cfg.ssm_heads,
                       cfg.ssm_head_dim)
