@@ -197,20 +197,40 @@ Phases (each prints its own line; any failure raises and exits non-zero):
     paged and rope launches counted from 0 around these runs, each
     kernel held and timed on the recorded inputs of its most frequent
     call shape;
-17. a ``kernels`` JSON line (launches on the main paths, error, times,
+17. the executor's decision surface (after phase 16, while llama3-8b's
+    weights are loaded; fp32, TF32 off; ``run_strategies``): one chunk
+    store warmed on ``dense`` by the smoke workload's 12 prompts, then
+    only read; 4 of the prompts with their chunks reversed, packed in one
+    pass a run, ``use_focus=False``, a seeded generator: every registered
+    strategy (``cachecraft``, ``random``, ``h2o``, ``none``, ``all``,
+    ``prefix``, ``blend``) at recompute fraction 0.3, ``cachecraft`` at
+    its own CFO, ``blend`` at 1 and 0, ``cachecraft`` forced to 1, 0 and
+    0.7, ``none`` without the RPE fix and ``cachecraft`` without the
+    causality fix, on ``kernel`` and on ``dense``: plans equal (``blend``:
+    tokens that differ only at near ties, counted), logits within 2e-3;
+    on each route blend@1 == all and blend@0 == none byte for byte,
+    forced full recompute within 3e-4 of ``all``, the deviation from
+    ``all`` at 0.7 below that at 0, without the RPE fix above with it; on
+    ``kernel`` streamed loads (the RoPE kernel once per layer) == eager
+    byte for byte and one focus run; the chunk and RoPE launches counted
+    from 0 around the runs, and the chunk kernel held and timed on
+    ``blend``'s probe call (every row active, A = S);
+18. a ``kernels`` JSON line (launches on the main paths, error, times,
     bound, the D 256 rows, the paged kernel's per-shard call, each
-    family's path shape and the pressure phase's beside them), the mamba2
-    and training figures, per-engine TTFT / decode-step figures, the
-    server's, the families', the recurrent and vision ones, the mesh
-    phases', the pressure phase's and phases 14-15's;
-18. last line: ``{"ok": true, "device": {...}}``.
+    family's path shape, the pressure phase's and the strategies phase's
+    beside them), the mamba2 and training figures, per-engine TTFT /
+    decode-step figures, the server's, the families', the recurrent and
+    vision ones, the mesh phases', the pressure phase's, the strategies
+    phase's and phases 14-15's;
+19. last line: ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before the mamba2 phase, the training
 runs, the engine serving the trained checkpoint, engines A and B,
 each family's engine A, each counted run of phase 11, engine B on the
-mesh and the pressure phase's runs, and read just after (rope and the
-attention kernels of engine A in A, paged decode in B and in B on the
-mesh, all four in phase 16); the comparison launches
+mesh, the pressure phase's runs and the strategies phase's, and read
+just after (rope and the attention kernels of engine A in A, paged
+decode in B and in B on the mesh, all four in phase 16, chunk and rope
+in phase 17); the comparison launches
 of phase 3 and the replays after the engines do not count. Without CUDA, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
 result.
@@ -576,6 +596,7 @@ class ChunkRecorder:
     def __init__(self, cops):
         self.cops, self.orig, self.calls = cops, cops._launch, {}
         self.shapes = collections.Counter()
+        self.order = []                  # every call's (B, A, S), in order
         self.window_masked = 0
 
     def __enter__(self):
@@ -583,6 +604,7 @@ class ChunkRecorder:
                 window):
             key = (q.shape[0], q.shape[1], k.shape[1])
             self.shapes[key] += 1
+            self.order.append(key)
             if window:
                 self.window_masked += _window_masked(q_pos, k_pos, window,
                                                      q_seg, k_seg)
@@ -2584,6 +2606,380 @@ def run_pressure(cfg, params, tmp):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the executor's decision surface (after phase 16)
+# ---------------------------------------------------------------------------
+STRATEGY_FRAC = 0.3          # the forced recompute fraction of every strategy
+STRATEGY_SEED = 0            # each executor's plan-level generator
+STRATEGY_PROMPTS = 4         # reordered smoke prompts, one packed pass a run
+# forced full recompute against the storeless oracle (the reference's
+# tests/test_executor.py bound)
+FORCED_TOL = 3e-4
+# blend@1 == all and blend@0 == none where the chunk kernel's main-pass
+# shapes (and with them its key split) differ between the two runs (C3)
+SPLIT_TOL = 2e-4
+# two runs' token choices may differ only at a near tie: each token that one
+# run alone picks scores within NEAR_TIE of the boundary's score, relative
+# to the largest score of the call, plus the call's rounding floor
+NEAR_TIE = 2e-4
+# blend's deviation at or below this is the rounding of the RoPE round
+# trip, not a difference of context: it ranks nothing (ROADMAP C11; at
+# most 1.01e-12 on the tiny models in both packages)
+ROUNDING_DEV = 1e-9
+
+
+def _strategy_prompts(cfg):
+    """The smoke workload's 12 prompts (warm-up, in arrival order) and
+    the first STRATEGY_PROMPTS of them with their chunks reversed (every
+    chunk stored, every context new)."""
+    from repro_torch.serving.rag import KnowledgeBase
+    from repro_torch.serving.workload import WorkloadConfig, generate
+
+    kb = KnowledgeBase(num_chunks=24, vocab_size=cfg.vocab_size, seed=0)
+    reqs = generate(kb, WorkloadConfig(num_requests=12, qpm=1e9, k_chunks=5,
+                                       max_new_tokens=8))
+    warm = [(r.system_tokens, list(r.chunk_tokens), r.question_tokens)
+            for r in reqs]
+    evals = [(s, c[::-1], q) for s, c, q in warm[:STRATEGY_PROMPTS]]
+    return warm, evals
+
+
+def record_selections(ex):
+    """Swap ``ex``'s strategy for a subclass instance that logs every
+    ``select_tokens`` call (scores, fraction, chosen tokens) in order:
+    the plan's and the deviation probe's. Returns the log. While
+    ``ex.strategy_obj.replay`` holds another run's log, each call takes
+    that run's choice in place of its own (its own is logged all the
+    same), so that two runs which choose differently at a near tie can be
+    held to each other in value."""
+    import numpy as np
+
+    calls, base = [], type(ex.strategy_obj)
+
+    class Recorded(base):
+        replay = None
+
+        def select_tokens(self, scores, frac, rng=None):
+            idx = np.asarray(super().select_tokens(scores, frac, rng))
+            calls.append((scores, float(frac), idx))
+            if self.replay is None:
+                return idx
+            if not self.replay:
+                raise RuntimeError("the replayed log ran out at call "
+                                   f"{len(calls) - 1}")
+            return np.asarray(self.replay.pop(0)[2], idx.dtype)
+
+    Recorded.__name__ = base.__name__
+    ex.strategy_obj = Recorded()
+    return calls
+
+
+def selection_ties(tag, mine, ref, key, floor=0.0):
+    """Two runs' logs (``record_selections``) call by call: each pair of
+    choices is equal or a near tie. ``key(scores)`` is the score vector
+    the strategy ranks by (None: it does not rank, so choices must be
+    equal); ``floor`` is the rounding floor of those scores. A near tie:
+    the same number of tokens, the two score vectors within the band
+    NEAR_TIE * max|score| + floor of each other, and every token that one
+    run alone picks within that band of the boundary's score (the
+    ``ref`` run's). Returns the number of calls that differ and the
+    number of tokens in which they differ; raises on any other
+    difference."""
+    import numpy as np
+
+    if len(mine) != len(ref):
+        raise RuntimeError(f"{tag}: {len(mine)} vs {len(ref)} selections")
+    calls = tokens = 0
+    for i, ((sa, _fa, ia), (sb, _fb, ib)) in enumerate(zip(mine, ref)):
+        if np.array_equal(ia, ib):
+            continue
+        ka, kb = key(sa), key(sb)
+        diff = sorted(set(np.asarray(ia).tolist())
+                      ^ set(np.asarray(ib).tolist()))
+        if kb is None or ka is None or len(ia) != len(ib):
+            raise RuntimeError(f"{tag}: selection {i} differs in {diff}")
+        ka, kb = np.asarray(ka, np.float64), np.asarray(kb, np.float64)
+        band = NEAR_TIE * np.abs(kb).max() + floor
+        bound = np.sort(kb)[::-1][len(ib) - 1]
+        apart = float(np.abs(ka - kb).max())
+        gap = float(np.abs(kb[diff] - bound).max())
+        if apart > band or gap > band:
+            raise RuntimeError(f"{tag}: selection {i} differs in {diff}, "
+                               f"{gap} from the boundary, scores {apart} "
+                               f"apart (band {band})")
+        calls += 1
+        tokens += len(diff)
+    return calls, tokens
+
+
+def run_strategies(cfg, params, tmp, device="cuda"):
+    """Phase 17, full-width llama3-8b, fp32, TF32 off: the executor's
+    whole decision surface on the card. One chunk store is warmed on
+    ``dense`` by the smoke workload's 12 prompts; every later run only
+    reads it (``store_new_chunks=False``, ``store_fixed_variants=False``),
+    so both routes plan from the same stored scores, on
+    STRATEGY_PROMPTS of the prompts with their chunks reversed, packed in
+    one pass, ``use_focus=False`` and a generator seeded STRATEGY_SEED.
+    Each registered strategy at STRATEGY_FRAC, ``cachecraft`` at its own
+    CFO, ``blend`` at 1 and 0, ``cachecraft`` forced to 1, 0 and 0.7,
+    ``none`` without the RPE fix and ``cachecraft`` at STRATEGY_FRAC
+    without the causality fix, on ``kernel`` and on ``dense``: plans
+    equal (``blend``: differing tokens only at near ties, counted, and
+    then dense is run again on the kernel's choices), logits within
+    LOGIT_TOL.
+    On each route: blend@1 == all and blend@0 == none byte for byte (at
+    SPLIT_TOL where the chunk kernel's main-pass shapes differ), forced
+    full recompute within FORCED_TOL of ``all``, the deviation from
+    ``all`` at 0.7 below that at 0, and without the RPE fix above that
+    with it. On ``kernel``: streamed loads (``layerwise_load``, the RoPE
+    kernel once per layer) == eager byte for byte, and one focus run. The
+    chunk and RoPE launches are counted from 0 around the runs, and
+    ``blend``'s probe call (A = S) is held and timed on its recorded
+    inputs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.chunkstore import ChunkStore
+    from repro_torch.core.prefill import CacheCraftExecutor
+    from repro_torch.core.strategies import STRATEGIES
+    from repro_torch.core.tiers import TieredStore
+    from repro_torch.kernels.chunk_attention import ops as cops
+    from repro_torch.kernels.rope import ops as rops
+    from repro_torch.serving.metrics import relative_deviation
+
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    warm, evals = _strategy_prompts(cfg)
+    store = ChunkStore(TieredStore(1 << 33, 1 << 33,
+                                   os.path.join(tmp, "strategies")),
+                       n_chunks=64, m_variants=3)
+    cops.chunk_attention.launches = 0
+    rops.rope.launches = 0
+    res = {"runs": {}}
+
+    def executor(impl, **kw):
+        return CacheCraftExecutor(
+            cfg, params, store, attn_impl=impl,
+            use_focus=kw.pop("use_focus", False),
+            rng=np.random.default_rng(STRATEGY_SEED), device=device, **kw)
+
+    def run(impl, replay=None, **kw):
+        ex = executor(impl, store_new_chunks=False,
+                      store_fixed_variants=False, **kw)
+        sel = record_selections(ex)
+        ex.strategy_obj.replay = None if replay is None else list(replay)
+        with ChunkRecorder(cops) as cc:
+            t0 = time.perf_counter()
+            out = ex.process_batch(evals)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        return dict(results=out, selections=sel, order=list(cc.order),
+                    calls=cc.calls, seconds=sec)
+
+    def plan(r):
+        return [[(bool(d.is_hit), float(d.cfo),
+                  np.asarray(d.recompute_idx).tolist())
+                 for d in p.plan.decisions]
+                + [p.plan.num_active_tokens, p.plan.total_len,
+                   p.active_rows_layers] for p in r["results"]]
+
+    def gap(a, b, what="logits_last"):
+        return max(float(np.abs(getattr(x, what) - getattr(y, what)).max())
+                   for x, y in zip(a["results"], b["results"]))
+
+    def same(a, b):
+        return all(np.array_equal(getattr(x, w), getattr(y, w))
+                   for x, y in zip(a["results"], b["results"])
+                   for w in ("logits_last", "k_layers", "v_layers"))
+
+    cases = [(name, dict(strategy=name, force_recompute_fraction=STRATEGY_FRAC))
+             for name in STRATEGIES]
+    cases += [
+        ("cachecraft cfo", dict(strategy="cachecraft")),
+        ("blend 1.0", dict(strategy="blend", force_recompute_fraction=1.0)),
+        ("blend 0.0", dict(strategy="blend", force_recompute_fraction=0.0)),
+        ("forced 1.0", dict(force_recompute_fraction=1.0)),
+        ("frac 0.0", dict(force_recompute_fraction=0.0)),
+        ("frac 0.7", dict(force_recompute_fraction=0.7)),
+        ("no_rpe", dict(strategy="none", fix_rpe=False)),
+        # recomputed chunk rows laid out at their original positions: the
+        # chunk kernel's mask on positions that are not monotone
+        ("no_causal", dict(force_recompute_fraction=STRATEGY_FRAC,
+                           fix_causality=False)),
+    ]
+    try:
+        with ChunkRecorder(cops) as phase_calls:
+            t0 = time.perf_counter()
+            warm_ex = executor("dense")
+            for prompt in warm:
+                warm_ex.process_batch([prompt])
+            res["warm"] = dict(seconds=time.perf_counter() - t0,
+                               variants=store.num_variants())
+            log(f"strategies: store warmed on dense by {len(warm)} prompts: "
+                f"{store.num_variants()} variants, "
+                f"{res['warm']['seconds']:.1f}s")
+            runs = {}
+            for name, kw in cases:
+                for impl in ("kernel", "dense"):
+                    runs[name, impl] = run(impl, **kw)
+            runs["streamed", "kernel"] = run(
+                "kernel", force_recompute_fraction=STRATEGY_FRAC,
+                layerwise_load=True)
+            runs["focus", "kernel"] = run(
+                "kernel", force_recompute_fraction=STRATEGY_FRAC,
+                use_focus=True, focus_w=2)
+        launches = {"chunk_attention": cops.chunk_attention.launches,
+                    "rope": rops.rope.launches}
+        res["launches"] = launches
+        res["chunk_calls"] = {str(list(k)): n for k, n in sorted(
+            phase_calls.shapes.items(), key=lambda kv: -kv[1])}
+        log(f"strategies phase launches: {json.dumps(launches)}; chunk "
+            f"calls by (B, A, S): {json.dumps(res['chunk_calls'])}")
+        for kname, n in launches.items():
+            if n <= 0:
+                raise RuntimeError(f"strategies phase: {kname} not launched")
+
+        # kernel against dense, case by case: the same plans (blend: near
+        # ties aside, and then dense again on the kernel's choices), logits
+        # within LOGIT_TOL
+        oracle = {impl: runs["all", impl] for impl in ("kernel", "dense")}
+        for name, kw in cases:
+            k, d = runs[name, "kernel"], runs[name, "dense"]
+            row = dict(seconds_kernel=k["seconds"], seconds_dense=d["seconds"])
+            ties = (0, 0)
+            if name.startswith("blend"):
+                row["max_deviation"] = max(
+                    (float(np.abs(c[0].deviation).max())
+                     for c in k["selections"]
+                     if c[0].deviation is not None and len(c[0].deviation)),
+                    default=0.0)
+            if plan(k) != plan(d):
+                if not name.startswith("blend"):
+                    raise RuntimeError(f"strategies {name}: kernel and dense "
+                                       "plan differently")
+                ties = selection_ties(f"strategies {name}", k["selections"],
+                                      d["selections"],
+                                      lambda sc: sc.deviation, ROUNDING_DEV)
+                d = run("dense", replay=k["selections"], **kw)
+                if plan(k) != plan(d):
+                    raise RuntimeError(f"strategies {name}: dense on the "
+                                       "kernel's choices plans differently")
+            row["near_tie_calls"], row["near_tie_tokens"] = ties
+            lg = gap(k, d)
+            row["kernel_vs_dense"] = lg
+            row["kernel_vs_dense_kv"] = max(gap(k, d, "k_layers"),
+                                            gap(k, d, "v_layers"))
+            if not (lg <= LOGIT_TOL and all(
+                    np.isfinite(r.logits_last).all() for r in k["results"])):
+                raise RuntimeError(f"strategies {name}: kernel vs dense "
+                                   f"logits {lg} (tol {LOGIT_TOL})")
+            for impl, r in (("kernel", k), ("dense", d)):
+                row[f"deviation_{impl}"] = float(np.mean([
+                    relative_deviation(x.logits_last, y.logits_last)
+                    for x, y in zip(r["results"], oracle[impl]["results"])]))
+            row["computed_tokens"] = sum(r.plan.num_active_tokens
+                                         for r in k["results"])
+            row["total_tokens"] = sum(r.plan.total_len for r in k["results"])
+            res["runs"][name] = row
+
+        # the reference's identities, on each route
+        res["identities"] = {}
+        for impl in ("kernel", "dense"):
+            idn = {}
+            for got, want in (("blend 1.0", "all"), ("blend 0.0", "none")):
+                a, b = runs[got, impl], runs[want, impl]
+                # blend's probe windows come first, one per prompt
+                main = a["order"][len(evals):]
+                shapes_same = collections.Counter(main) == \
+                    collections.Counter(b["order"])
+                eq = same(a, b)
+                g = max(gap(a, b), gap(a, b, "k_layers"),
+                        gap(a, b, "v_layers"))
+                idn[f"{got} == {want}"] = dict(
+                    bit_equal=eq, max_abs=g, shapes_same=shapes_same)
+                if not eq and (shapes_same or g > SPLIT_TOL):
+                    raise RuntimeError(
+                        f"strategies {impl}: {got} vs {want}: max abs {g}, "
+                        f"chunk shapes {sorted(set(main))} vs "
+                        f"{sorted(set(b['order']))}")
+            fg = gap(runs["forced 1.0", impl], runs["all", impl])
+            idn["forced 1.0 vs all"] = fg
+            if fg > FORCED_TOL:
+                raise RuntimeError(f"strategies {impl}: forced full "
+                                   f"recompute {fg} from all (tol "
+                                   f"{FORCED_TOL})")
+            dv = {f: res["runs"][n][f"deviation_{impl}"] for f, n in (
+                (0.0, "frac 0.0"), (0.3, "cachecraft"), (0.7, "frac 0.7"))}
+            idn["deviation by fraction"] = dv
+            if not dv[0.7] < dv[0.0]:
+                raise RuntimeError(f"strategies {impl}: deviation at 0.7 "
+                                   f"{dv[0.7]} not below 0's {dv[0.0]}")
+            # Table 3 on the reuse path: without each fix beside with both
+            ab = {n: res["runs"][n][f"deviation_{impl}"]
+                  for n in ("none", "no_rpe", "cachecraft", "no_causal")}
+            idn["ablations"] = ab
+            if not ab["no_rpe"] > ab["none"]:
+                raise RuntimeError(f"strategies {impl}: without the RPE fix "
+                                   f"{ab['no_rpe']} not above {ab['none']}")
+            res["identities"][impl] = idn
+            log(f"strategies {impl}: " + json.dumps(idn))
+
+        s, e = runs["streamed", "kernel"], runs["cachecraft", "kernel"]
+        hits = sum(d.is_hit for r in s["results"] for d in r.plan.decisions)
+        streamed = [r.streamed for r in s["results"]]
+        layers = sum(r.load_blocked_layers + r.load_hidden_layers
+                     for r in s["results"])
+        if not (all(streamed) and layers == cfg.num_layers * hits
+                and same(s, e)):
+            raise RuntimeError(f"strategies: streamed vs eager on kernel: "
+                               f"streamed {streamed}, {layers} layer loads "
+                               f"for {hits} hits, bit-equal {same(s, e)}")
+        res["streamed"] = dict(bit_equal=True, layer_loads=layers, hits=hits,
+                               seconds=s["seconds"],
+                               eager_seconds=e["seconds"])
+        f = runs["focus", "kernel"]
+        res["focus"] = dict(
+            cutoff=[r.focus_cutoff for r in f["results"]],
+            focused=[None if r.focused is None else sorted(r.focused)
+                     for r in f["results"]],
+            active_rows_layers=[r.active_rows_layers for r in f["results"]],
+            without_focus=[r.active_rows_layers for r in e["results"]])
+        log("strategies: streamed == eager on kernel byte for byte "
+            f"({layers} layer loads, {hits} hits); focus run: "
+            + json.dumps(res["focus"]))
+        log("strategies (random weights: a check of the mechanism, not a "
+            "quality result): relative deviation of the last logits from "
+            "all, kernel / dense: " + ", ".join(
+                f"{n} {r['deviation_kernel']:.4e} / {r['deviation_dense']:.4e}"
+                for n, r in res["runs"].items())
+            + "; near-tie calls / tokens of blend runs: " + ", ".join(
+                f"{n} {r['near_tie_calls']}/{r['near_tie_tokens']}"
+                for n, r in res["runs"].items() if n.startswith("blend")))
+
+        # blend's probe on kernel: the chunk kernel with every row active
+        # (A = S), one call per prompt before the main pass, held and timed
+        # on its recorded inputs (not counted)
+        probe = runs["blend", "kernel"]
+        keys = [k for k in probe["order"][:len(evals)] if k[1] == k[2]]
+        if len(keys) != len(evals):
+            raise RuntimeError(f"strategies: blend's probe calls "
+                               f"{probe['order'][:len(evals)]}")
+        pk = max(set(keys), key=lambda k: (keys.count(k), k))
+        res["probe"] = dict(shape=f"(B, A, S) {list(pk)}",
+                            calls=keys.count(pk),
+                            **measure_chunk(f"probe{list(pk)}",
+                                            probe["calls"][pk]))
+        del probe, phase_calls, runs
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        store.tiers.close()
+    res["seconds"] = time.perf_counter() - t_phase
+    log(f"strategies phase: {res['seconds']:.1f}s")
+    return res
+
+
 def run_cp_ef(dev):
     """Phase 13: ``flash_cp`` on a CP mesh of 4 (axis "model", all on the
     card) at gemma3-4b's full width, layer by layer (q [1, 2048, 8, 256]
@@ -4233,6 +4629,10 @@ def main() -> int:
         # pool pressure (preemption, zero-copy sharing, incremental batch)
         pressure = run_pressure(cfg, params, tmp)
 
+        # phase 17, while llama3-8b's weights are loaded: every recompute
+        # strategy, the ablations, focus and streamed loads on both routes
+        strategies = run_strategies(cfg, params, tmp)
+
         # phase 10: the families. First the paper's model once more, on
         # a prompt past auto's 2^21 score elements, then its weights go
         long_gap = run_long_prompt(cfg, params, dev)
@@ -4284,8 +4684,9 @@ def main() -> int:
     err_a = compare_logits("A(kernel)", tr_a, tok_a, tr_c, tok_c)
     err_b = compare_logits("B(paged_kernel)", tr_b, tok_b, tr_c, tok_c)
 
-    # phase 17: the kernels line, the mamba2, training, engine, family,
-    # recurrent / vision, mesh, pressure and sharded-training figures
+    # phase 18: the kernels line, the mamba2, training, engine, family,
+    # recurrent / vision, mesh, pressure, strategies and sharded-training
+    # figures
     sources = {
         "chunk_attention": (
             "src/repro_torch/kernels/chunk_attention/csrc/chunk_attention.cu",
@@ -4424,6 +4825,21 @@ def main() -> int:
                for dt, sfx in (("float32", ""), ("bfloat16", "_bf16"))
                for k in ("err", "ms", "device_ms", "plain_ms", "library_ms",
                          "bound_ms", "bound_by") if k in r[dt]})
+    # the strategies phase: the chunk and RoPE launches there, and the
+    # chunk kernel held and timed on blend's probe call (A = S)
+    for row in kernels:
+        n = strategies["launches"].get(row["name"])
+        if n is None:
+            continue
+        row["strategies"] = dict(launches=n)
+        if row["name"] == "chunk_attention":
+            r = strategies["probe"]
+            row["strategies"]["probe"] = dict(
+                shape=r["shape"], calls_at_shape=r["calls"],
+                **{f"{k}{sfx}": r[dt][k]
+                   for dt, sfx in (("float32", ""), ("bfloat16", "_bf16"))
+                   for k in ("err", "ms", "plain_ms", "library_ms",
+                             "bound_ms", "bound_by") if k in r[dt]})
     # rope's row is at the path's shape; the 1024-token span beside it
     kernels[-1]["shape"] = "[32, 48, 8, 128]; span1024 [32, 1024, 8, 128]"
     kernels[-1]["host_ms"] = rope_rows["path"]["float32"]["host_ms"]
@@ -4530,6 +4946,12 @@ def main() -> int:
             "decode_rebuilds"]],
         "launches": pressure["launches"],
         "seconds": pressure["seconds"]}))
+    log(f"strategies [{card}]: " + json.dumps({
+        "runs": strategies["runs"], "identities": strategies["identities"],
+        "streamed": strategies["streamed"], "focus": strategies["focus"],
+        "warm": strategies["warm"], "launches": strategies["launches"],
+        "chunk_calls": strategies["chunk_calls"],
+        "seconds": strategies["seconds"]}))
     log(f"sharded training and the dry-run [{card}]: "
         + json.dumps(sharded))
     log(f"tensor-parallel training [{card}]: " + json.dumps({
