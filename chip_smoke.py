@@ -215,14 +215,39 @@ Phases (each prints its own line; any failure raises and exits non-zero):
     byte for byte and one focus run; the chunk and RoPE launches counted
     from 0 around the runs, and the chunk kernel held and timed on
     ``blend``'s probe call (every row active, A = S);
-18. a ``kernels`` JSON line (launches on the main paths, error, times,
+18. the serving steps over a (data, model) mesh (after phase 15; fp32,
+    TF32 off; ``run_tp_serving``): ``make_prefill_step``,
+    ``make_cachecraft_prefill_step`` and ``make_decode_step`` with
+    ``shardings=`` (the dry-run's serving layout: params by the rules,
+    the rows over "data", the cache by ``cache_shardings``) on 4 rows: a
+    512-token prefill into a 576-slot cache, the Cache-Craft step of 160
+    active positions (30%) against it, 8 decode steps after it;
+    llama3-8b at full width and depth on (1, 4) and (2, 2) (its kv heads
+    split with the q heads), recurrentgemma-9b at full width cut to its
+    first group on (1, 4) (one kv head: the prefill cache split by D
+    columns, the decode cache by sequence, attention reading them put
+    together), mamba2-370m cut to 2 layers and whole on (1, 4)
+    (``ssd_intra`` on each shard's heads); unsharded and sharded on
+    ``kernel`` and on ``dense``: sharded within 2e-4 of unsharded on the
+    same route (whole mamba2, whose 48 random layers amplify rounding,
+    within 4x the drift of three unsharded controls from embeddings
+    perturbed by 2^-20), ``kernel`` within 2e-3 of ``dense`` (logits and
+    caches, allclose), the chunk,
+    decode and SSD launches counted from 0 around each sharded run and
+    equal to one per layer, model shard and data shard; each kernel held
+    and timed on the recorded inputs of its most frequent per-shard call
+    (llama3-8b's on (1, 4), mamba2's for SSD) beside the unsharded call
+    of that shape and SDPA on the shard's slice;
+19. a ``kernels`` JSON line (launches on the main paths, error, times,
     bound, the D 256 rows, the paged kernel's per-shard call, each
     family's path shape, the pressure phase's and the strategies phase's
-    beside them), the mamba2 and training figures, per-engine TTFT /
-    decode-step figures, the server's, the families', the recurrent and
-    vision ones, the mesh phases', the pressure phase's, the strategies
-    phase's and phases 14-15's;
-19. last line: ``{"ok": true, "device": {...}}``.
+    beside them; and a row each for the chunk, decode and SSD kernels
+    launched per model shard in phase 18), the mamba2 and training
+    figures, per-engine TTFT / decode-step figures, the server's, the
+    families', the recurrent and vision ones, the mesh phases', the
+    pressure phase's, the strategies phase's, phases 14-15's and phase
+    18's;
+20. last line: ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before the mamba2 phase, the training
 runs, the engine serving the trained checkpoint, engines A and B,
@@ -230,7 +255,8 @@ each family's engine A, each counted run of phase 11, engine B on the
 mesh, the pressure phase's runs and the strategies phase's, and read
 just after (rope and the attention kernels of engine A in A, paged
 decode in B and in B on the mesh, all four in phase 16, chunk and rope
-in phase 17); the comparison launches
+in phase 17, chunk, decode and SSD around each sharded run of phase 18);
+the comparison launches
 of phase 3 and the replays after the engines do not count. Without CUDA, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
 result.
@@ -4433,6 +4459,402 @@ def run_tp(dev, card, plain):
     return out
 
 
+# phase 18: the serving steps over a (data, model) mesh
+# ---------------------------------------------------------------------------
+# (arch, layers or None for all, meshes). llama3-8b at full width and
+# depth: 32/8 heads, d_ff and the vocab split over "model" on (1, 4) and
+# (2, 2), its kv heads too (8 divides 4 and 2), each shard's q heads on
+# its own kv heads and cache block; recurrentgemma-9b at full width cut
+# to its first group (rglru, rglru, local): one kv head, so the prefill
+# cache splits its D columns and the decode cache its sequence over
+# "model", attention reading them put together; mamba2-370m: 32 SSD
+# heads of 64 split, ``ssd_intra`` on each shard's heads, cut to MOE_CUT
+# layers and whole. Its 48 random layers amplify rounding (phases 4 and
+# 15): any reordering of its fp32 sums moves the logits and states of the
+# whole model far past the parity standard, which its 2 layers meet. So
+# the whole model (``SERVE_DRIFT``) is held as phase 15 holds its train
+# step: its sharded gap within MOE_DRIFT x the most of MOE_SEEDS
+# unsharded controls' from embeddings scaled by 1 + MOE_CONTROL N(0, 1)
+TP_SERVE = (("llama3-8b", None, ((1, 4), (2, 2))),
+            ("recurrentgemma-9b", 3, ((1, 4),)),
+            ("mamba2-370m", MOE_CUT, ((1, 4),)),
+            ("mamba2-370m", None, ((1, 4),)))
+SERVE_DRIFT = {"mamba2-370m"}
+SERVE_ROWS, SERVE_TOKENS, SERVE_DECODE = 4, 512, 8
+# the Cache-Craft step's active tokens: 30% of the prompt's positions
+SERVE_ACTIVE = 160
+# the cache: the prompt and the decode steps, a multiple of 64 and of 4
+SERVE_CACHE = 576
+# sharded vs unsharded on one route: the parity standard's 2e-4 for
+# logits and caches, as allclose (rtol = atol), the CPU tests' form
+SHARD_TOL = 2e-4
+
+
+class SsdRecorder:
+    """Wraps the SSD wrapper during a run: counts the calls by the shape
+    of ``xdt`` and keeps a copy of the first call's inputs for each. The
+    wrapper counts its launches on the module's ``ssd_intra``, so the
+    count moves to the stand-in and back."""
+
+    def __init__(self, sops):
+        self.sops, self.orig = sops, sops.ssd_intra
+        self.shapes = collections.Counter()
+        self.calls = {}
+
+    def __enter__(self):
+        orig = self.orig
+
+        def rec(xdt, log_a, B_mat, C_mat):
+            key = tuple(xdt.shape)
+            self.shapes[key] += 1
+            if key not in self.calls:
+                self.calls[key] = tuple(t.clone() for t in
+                                        (xdt, log_a, B_mat, C_mat))
+            return orig(xdt, log_a, B_mat, C_mat)
+        rec.launches = orig.launches
+        self.sops.ssd_intra = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.orig.launches = self.sops.ssd_intra.launches
+        self.sops.ssd_intra = self.orig
+
+    def most_frequent(self):
+        return max(self.shapes, key=lambda k: (self.shapes[k], k)) \
+            if self.shapes else None
+
+
+def _serve_inputs(cfg, dev, seed=3):
+    """The prompt [4, 512], the Cache-Craft step's 160 active positions
+    of each row (sorted) and their tokens, and 8 decode steps' tokens,
+    from a numpy seed."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    B, T, A = SERVE_ROWS, SERVE_TOKENS, SERVE_ACTIVE
+
+    def t(x):
+        return torch.from_numpy(x.astype(np.int32)).to(dev)
+    pos = np.sort(np.stack([rng.choice(T, A, replace=False)
+                            for _ in range(B)]), 1)
+    return ({"tokens": t(rng.integers(0, cfg.vocab_size, (B, T)))},
+            {"tokens": t(rng.integers(0, cfg.vocab_size, (B, A))),
+             "positions": t(pos)},
+            [{"tokens": t(rng.integers(0, cfg.vocab_size, (B,))),
+              "positions": torch.full((B,), T + i, dtype=torch.int32,
+                                      device=dev)}
+             for i in range(SERVE_DECODE)])
+
+
+def _serve_steps(cfg, params, inp, impl, dev, mesh=None, sparams=None):
+    """The three serving steps on ``impl``: the prefill of the prompt
+    into a cache of SERVE_CACHE slots, the Cache-Craft step on a copy of
+    that cache and the decode steps on another; unsharded, or on ``mesh``
+    with ``sparams`` (the params laid out) and each cache laid out by the
+    step's layout. Returns {step: (logits, the whole cache)}."""
+    import torch
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.models import model as M
+    from repro_torch.training import steps as TS
+
+    pre, cc, dec = inp
+
+    def run(mode, maker, cache, batches):
+        if mesh is None:
+            step, p, c = maker(cfg, impl), params, cache
+        else:
+            shs = DR.serving_shardings(cfg, mode, SERVE_ROWS, SERVE_CACHE,
+                                       mesh)
+            step, p = maker(cfg, impl, shardings=shs), sparams
+            c = SH.shard_tree(cache, shs[1]["cache"])
+            del cache
+        lgs = []
+        for b in batches:
+            lg, c = step(p, dict(b, cache=c))
+            lgs.append(lg)
+        torch.cuda.synchronize()
+        return torch.cat(lgs, 1), (c if mesh is None
+                                   else SH.unshard_tree(c))
+    out = {"prefill": run("prefill", TS.make_prefill_step, M.init_cache(
+        cfg, SERVE_ROWS, SERVE_CACHE, device=dev), [pre])}
+    base = out["prefill"][1]
+    out["cc"] = run("partial", TS.make_cachecraft_prefill_step,
+                    _clone_cache(base), [cc])
+    out["decode"] = run("decode", TS.make_decode_step, _clone_cache(base),
+                        dec)
+    return out
+
+
+def _serve_gap(got, want, tol):
+    """The worst ratio of the steps' logits and cache leaves to the
+    allclose bound ``tol`` (1 + 1 |want|), and the largest abs difference;
+    positions must be equal."""
+    import torch
+    ratio = diff = 0.0
+    for what, (lg, cache) in want.items():
+        pairs = [(got[what][0], lg)]
+        for part in ("groups", "tail"):
+            for g, w in zip(got[what][1][part], cache[part]):
+                for n, x in w.items():
+                    if x.is_floating_point():
+                        pairs.append((g[n], x))
+                    elif not torch.equal(g[n], x):
+                        raise RuntimeError(f"{what} {part} {n}: the cache "
+                                           "positions differ")
+        for a, b in pairs:
+            d = (a.float() - b.float()).abs()
+            diff = max(diff, float(d.max()))
+            ratio = max(ratio, float((d / (tol + tol * b.float().abs()))
+                                     .max()))
+    return ratio, diff
+
+
+def measure_ssd_call(label, args, unsharded):
+    """ssd_intra on ``args`` (the recorded inputs of a per-shard call) in
+    fp32: held against its plain version to the reference's allclose
+    bound, two launches byte for byte, kernel / plain times, the bound
+    (``_ssd_bound``) and the kernel's time on ``unsharded`` (the
+    unsharded call of the same step and layer)."""
+    import torch
+
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.kernels.ssd.ref import ssd_intra_ref
+
+    # a batched call's rows folded into its chunks, as the wrapper folds
+    args, unsharded = ([t.flatten(0, 1) if t.dim() == n + 1 else t
+                        for t, n in zip(a, (4, 3, 3, 3))]
+                       for a in (args, unsharded))
+    y, st = sops.ssd_intra(*args)
+    y2, st2 = sops.ssd_intra(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(y, y2) and torch.equal(st, st2)):
+        raise RuntimeError(f"ssd_intra {label}: two launches differ")
+    yr, sr = ssd_intra_ref(*args)
+    tol = TOL["float32"]
+    e = max(float((a - b).abs().max()) for a, b in ((y, yr), (st, sr)))
+    ratio = max(float(((a - b).abs() / (tol + tol * b.abs())).max())
+                for a, b in ((y, yr), (st, sr)))
+    if not ratio <= 1.0:
+        raise RuntimeError(f"ssd_intra {label}: {ratio:.3f}x the allclose "
+                           f"bound (rtol = atol = {tol})")
+    nC, L, H, P = args[0].shape
+    N = args[2].shape[-1]
+    t_k = cuda_ms(lambda: sops.ssd_intra(*args))
+    t_u = cuda_ms(lambda: sops.ssd_intra(*unsharded))
+    t_p = cuda_ms(lambda: ssd_intra_ref(*args), iters=5)
+    nbytes = (nC * L * H * P + nC * L * H + 2 * nC * L * N) * 4 + \
+        4 * (nC * L * H * P + nC * H * P * N)
+    b_ms, b_by, b_cores, _ = _ssd_bound(nC, L, H, P, N, nbytes, "float32")
+    log(f"kernel ssd_intra {label} nC={nC} L={L} H={H} P={P} N={N}: "
+        f"max_abs_err={e:.3e} ({ratio:.4f}x the allclose bound) two "
+        f"launches identical ms={t_k:.4f} unsharded_ms={t_u:.4f} "
+        f"(H {unsharded[0].shape[-2]}) plain_ms={t_p:.4f} library_ms=none "
+        f"bound_ms={b_ms:.4f} ({b_by}; CUDA cores {b_cores:.4f}) "
+        f"share={b_ms / t_k:.1%}")
+    return {"float32": dict(err=e, worst_ratio=ratio, ms=t_k, unsharded_ms=t_u,
+                            plain_ms=t_p, library_ms=None, bound_ms=b_ms,
+                            bound_by=b_by, bound_ms_cuda_cores=b_cores)}
+
+
+def run_tp_serving(dev, card):
+    """Phase 18: the prefill, Cache-Craft and decode steps (``shardings=``)
+    over (data, model) meshes (``TP_SERVE``), fp32 with TF32 off, 4 rows:
+    a 512-token prefill, the Cache-Craft step of 160 active positions
+    against its cache, 8 decode steps after it. Unsharded and sharded on
+    ``kernel`` and on ``dense``: sharded within SHARD_TOL of unsharded on
+    the same route (whole mamba2 within MOE_DRIFT x its controls' drift,
+    ``SERVE_DRIFT``), ``kernel`` within LOGIT_TOL of ``dense``; the chunk,
+    decode and SSD launches counted from 0 around each sharded kernel
+    run, exactly once per model shard, data shard and layer; each kernel
+    held and timed on the recorded inputs of llama3-8b's (mamba2's for
+    SSD) most frequent per-shard call on (1, 4), beside the unsharded
+    call of the same shape and SDPA on the shard's slice."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels.chunk_attention import ops as cops
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out, launches, rec = {}, collections.Counter(), {}
+    try:
+        with torch.no_grad():
+            for arch, layers, meshes in TP_SERVE:
+                t_case = time.perf_counter()
+                cfg = get_config(arch)
+                cfg = cfg.replace(num_layers=layers or cfg.num_layers)
+                name = f"{cfg.name}/{cfg.num_layers}"
+                params = _params(cfg, dev)
+                inp = _serve_inputs(cfg, dev)
+                n_attn = sum(k in ("attn", "local") for k in cfg.layer_kinds)
+                n_ssd = cfg.layer_kinds.count("ssd")
+                with ChunkRecorder(cops) as ucc, DecodeRecorder(dops) as udc, \
+                        SsdRecorder(sops) as usc:
+                    plain = {impl: _serve_steps(cfg, params, inp, impl, dev)
+                             for impl in ("kernel", "dense")}
+                kd = _serve_gap(plain["kernel"], plain["dense"], LOGIT_TOL)
+                log(f"{name} unsharded: kernel vs dense max abs diff "
+                    f"{kd[1]:.3e} ({kd[0]:.3f}x the bound, rtol = atol = "
+                    f"{LOGIT_TOL})")
+                if not kd[0] <= 1.0:
+                    raise RuntimeError(f"{name} unsharded: kernel vs dense "
+                                       f"{kd[0]:.3f}x the bound")
+                r = {"kernel_vs_dense": kd}
+                # the drift of unsharded runs from perturbed embeddings
+                bound = 1.0
+                if arch in SERVE_DRIFT and layers is None:
+                    ctl = []
+                    for seed in MOE_SEEDS:
+                        gen = torch.Generator(device=dev)
+                        gen.manual_seed(seed)
+                        emb = params["embed"]
+                        noisy = dict(params, embed=emb * (1 + MOE_CONTROL *
+                                     torch.randn(emb.shape, generator=gen,
+                                                 device=dev)))
+                        ctl.append(_serve_gap(_serve_steps(
+                            cfg, noisy, inp, "dense", dev), plain["dense"],
+                            SHARD_TOL))
+                        del noisy
+                    bound = max(1.0, MOE_DRIFT * max(c[0] for c in ctl))
+                    r["controls"] = ctl
+                    log(f"{name} unsharded from perturbed embeddings "
+                        f"(controls): " + ", ".join(
+                            f"{c[1]:.3e} ({c[0]:.1f}x)" for c in ctl)
+                        + f"; the sharded runs are held within {bound:.1f}x"
+                        " the allclose bound")
+                for shape in meshes:
+                    mesh = make_debug_mesh(shape, device=dev)
+                    psh = DR.serving_shardings(cfg, "prefill", SERVE_ROWS,
+                                               SERVE_CACHE, mesh)[0]
+                    sparams = SH.shard_tree(params, psh)
+                    dp, nm = shape
+                    res, dense = {}, None
+                    for impl in ("dense", "kernel"):
+                        cops.chunk_attention.launches = 0
+                        dops.decode_attention.launches = 0
+                        sops.ssd_intra.launches = 0
+                        with ChunkRecorder(cops) as cc, \
+                                DecodeRecorder(dops) as dc, \
+                                SsdRecorder(sops) as sc:
+                            t0 = time.perf_counter()
+                            got = _serve_steps(cfg, params, inp, impl, dev,
+                                               mesh, sparams)
+                            secs = time.perf_counter() - t0
+                        n = {"chunk_attention": cops.chunk_attention.launches,
+                             "decode_attention":
+                                 dops.decode_attention.launches,
+                             "ssd_intra": sops.ssd_intra.launches}
+                        # attention reaches its kernels on ``kernel``, the
+                        # SSD block outside training on every route
+                        on = impl == "kernel"
+                        want = {"chunk_attention": 2 * n_attn * nm * dp * on,
+                                "decode_attention":
+                                    SERVE_DECODE * n_attn * nm * dp * on,
+                                "ssd_intra": 2 * n_ssd * nm * dp}
+                        _expect_launches(f"{name} {list(shape)} {impl}", n,
+                                         want)
+                        launches.update(n)
+                        gap = _serve_gap(got, plain[impl], SHARD_TOL)
+                        res[impl] = dict(ratio=gap[0], max_abs=gap[1],
+                                         seconds=secs, launches=n)
+                        log(f"{name} {list(shape)} {impl}: sharded vs "
+                            f"unsharded logits and caches max abs diff "
+                            f"{gap[1]:.3e}, {gap[0]:.3f}x the allclose "
+                            f"bound (rtol = atol = {SHARD_TOL}); steps "
+                            f"{secs:.2f}s")
+                        if not gap[0] <= bound:
+                            raise RuntimeError(
+                                f"{name} {list(shape)} {impl}: sharded vs "
+                                f"unsharded {gap[0]:.3f}x the bound (held "
+                                f"within {bound:.3f}x)")
+                        if impl == "dense":
+                            dense = got
+                            continue
+                        kd = _serve_gap(got, dense, LOGIT_TOL)
+                        del got, dense
+                        log(f"{name} {list(shape)}: kernel vs dense max abs "
+                            f"diff {kd[1]:.3e} ({kd[0]:.3f}x the bound, "
+                            f"rtol = atol = {LOGIT_TOL})")
+                        if not kd[0] <= 1.0:
+                            raise RuntimeError(f"{name} {list(shape)}: kernel "
+                                               f"vs dense {kd[0]:.3f}x the "
+                                               "bound")
+                        res["kernel_vs_dense"] = kd
+                        if (arch, shape) == (TP_SERVE[0][0],
+                                             TP_SERVE[0][2][0]) or n_ssd:
+                            rec[arch] = (cc, dc, sc, ucc, udc, usc, shape)
+                    r[str(list(shape))] = res
+                    del sparams
+                    _free()
+                del params, plain
+                _free()
+                r["seconds"] = time.perf_counter() - t_case
+                out[name] = r
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    # each kernel on the recorded inputs of its most frequent per-shard
+    # call, beside the unsharded call of the same shape
+    cc, dc, _, ucc, udc, _, shape = rec[TP_SERVE[0][0]]
+    ck = max(cc.shapes, key=lambda k: (cc.shapes[k], k))
+    dk = dc.most_frequent("dense")
+    ci, di = cc.calls[ck], dc.calls[dk]
+    uci, udi = ucc.calls[ck], udc.calls[dk]
+    rows = {}
+    for kname, fn, rec_in, un_in, key in (
+            ("chunk_attention", measure_chunk, ci, uci, ck),
+            ("decode_attention", measure_decode, di, udi, dk[1:])):
+        r = fn(f"per model shard {list(shape)} path{list(key)}", rec_in)
+        if kname == "chunk_attention":
+            args = (un_in["q"], un_in["k"], un_in["v"], un_in["q_pos"],
+                    un_in["k_pos"], un_in["k_chunk"])
+            kw = dict(q_seg=un_in["q_seg"], k_seg=un_in["k_seg"],
+                      num_chunks=un_in["C"], window=un_in["window"])
+            r["float32"]["unsharded_ms"] = cuda_ms(
+                lambda: cops.chunk_attention(*args, **kw))
+            H, Hu = rec_in["q"].shape[2], un_in["q"].shape[2]
+        else:
+            args = (un_in["q"], un_in["k"], un_in["v"], un_in["q_pos"],
+                    un_in["k_pos"])
+            r["float32"]["unsharded_ms"] = cuda_ms(
+                lambda: dops.decode_attention(*args,
+                                              window=un_in["window"]))
+            H, Hu = rec_in["q"].shape[1], un_in["q"].shape[1]
+        log(f"kernel {kname} per model shard: {r['float32']['ms']:.4f} ms "
+            f"(H {H}) against the unsharded call's "
+            f"{r['float32']['unsharded_ms']:.4f} ms (H {Hu})")
+        r["shape"] = (f"{TP_SERVE[0][0]} on {list(shape)}, {kname} call "
+                      f"{list(key)}, H {H} of {Hu}")
+        r["calls"] = (cc if kname == "chunk_attention" else dc).shapes[
+            ck if kname == "chunk_attention" else dk]
+        rows[kname] = r
+    _, _, sc, _, _, usc, shape = rec[TP_SERVE[-1][0]]
+    sk = sc.most_frequent()
+    uk = next(k for k in usc.calls if k[:-2] == sk[:-2])
+    rows["ssd_intra"] = measure_ssd_call(
+        f"per model shard {list(shape)} xdt{list(sk)}", sc.calls[sk],
+        usc.calls[uk])
+    rows["ssd_intra"]["shape"] = (f"{TP_SERVE[-1][0]} on {list(shape)}, "
+                                  f"xdt {list(sk)} of {list(uk)}")
+    rows["ssd_intra"]["calls"] = sc.shapes[sk]
+    out["kernels"] = rows
+    out["launches"] = dict(launches)
+    for k, v in launches.items():
+        if v <= 0:
+            raise RuntimeError(f"phase 18: {k} never launched per shard")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 18 (the serving steps over a (data, model) mesh) [{card}]: "
+        f"launches {json.dumps(out['launches'])}, {out['seconds']:.1f}s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4648,6 +5070,9 @@ def main() -> int:
     # phase 15: tensor-parallel training and the MoE aux term, against
     # phase 14's unsharded llama3-8b/2 steps
     tp = run_tp(dev, card, plain)
+    # phase 18: the prefill, Cache-Craft and decode steps over (data,
+    # model) meshes, the chunk, decode and SSD kernels once per model shard
+    tp_serving = run_tp_serving(dev, card)
     # chunk_attention at the path's most frequent shape, on the inputs of
     # engine A's first call of that shape
     path_shape = hist[0][0]
@@ -4684,9 +5109,9 @@ def main() -> int:
     err_a = compare_logits("A(kernel)", tr_a, tok_a, tr_c, tok_c)
     err_b = compare_logits("B(paged_kernel)", tr_b, tok_b, tr_c, tok_c)
 
-    # phase 18: the kernels line, the mamba2, training, engine, family,
-    # recurrent / vision, mesh, pressure, strategies and sharded-training
-    # figures
+    # phase 19: the kernels line, the mamba2, training, engine, family,
+    # recurrent / vision, mesh, pressure, strategies, sharded-training and
+    # sharded-serving figures
     sources = {
         "chunk_attention": (
             "src/repro_torch/kernels/chunk_attention/csrc/chunk_attention.cu",
@@ -4966,6 +5391,31 @@ def main() -> int:
                 "control_flips", "controls", "seconds")
             if m in v}
         for k, v in tp.items()}))
+    # the chunk, decode and SSD kernels once per model shard of the
+    # serving steps (phase 18): their launches there, and each held and
+    # timed on the recorded inputs of its most frequent per-shard call,
+    # beside the unsharded call of that shape
+    for name, (src, rep) in sources.items():
+        r = tp_serving["kernels"].get(name)
+        if r is None:
+            continue
+        f32 = r["float32"]
+        row = dict(
+            name=f"{name} per model shard", route="cuda", source=src,
+            replaces=rep, launches=tp_serving["launches"][name],
+            max_abs_err=f32["err"], ms=f32["ms"], plain_ms=f32["plain_ms"],
+            bound_ms=f32["bound_ms"], bound_by=f32["bound_by"],
+            library_ms=f32["library_ms"], unsharded_ms=f32["unsharded_ms"],
+            shape=r["shape"], calls_at_shape=r["calls"])
+        if "bfloat16" in r:
+            b16 = r["bfloat16"]
+            row.update(max_abs_err_bf16=b16["err"], ms_bf16=b16["ms"],
+                       plain_ms_bf16=b16["plain_ms"],
+                       bound_ms_bf16=b16["bound_ms"],
+                       library_ms_bf16=b16["library_ms"])
+        kernels.append(row)
+    log(f"sharded serving [{card}]: " + json.dumps({
+        k: v for k, v in tp_serving.items() if k != "kernels"}))
     log(f"end-to-end vs dense: A max abs logit diff {err_a:.3e}, "
         f"B {err_b:.3e}; total {time.perf_counter() - t_all:.1f}s")
     log(card)    # nvidia-smi's name, power.limit line, verbatim

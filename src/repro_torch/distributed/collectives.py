@@ -44,20 +44,25 @@ recomputed forward runs its collectives again, and they count again.
 ``BYTES`` counts, per collective kind (``all-gather``, ``all-reduce``,
 ``reduce-scatter``), the bytes each call's output holds on one device,
 the convention of the reference's HLO count (``repro/launch/roofline.py``
-``analyze_hlo``: a collective's output shape). ``reset_bytes()`` sets the
-counts to 0, as a kernel's ``launches`` is reset. One process runs the
-collectives of every group of devices; ``counting(False)`` leaves out
-the calls made for the groups that do not hold mesh position 0, so that
-the counts stay one device's.
+``analyze_hlo``: a collective's output shape). ``GATHERS`` counts the
+serving steps' gathers the same way, each under a kind of its own:
+``read`` puts a region of a cache leaf laid out on a mesh
+(``sharding.Tiles``) together for attention ("kv over model", "kv over
+data"), ``gather_logits`` the vocab-split logits ("logits over model").
+``reset_bytes()`` sets both to 0, as a kernel's ``launches`` is reset.
+One process runs the collectives of every group of devices;
+``counting(False)`` leaves out the calls made for the groups that do
+not hold mesh position 0, so that the counts stay one device's.
 """
 from __future__ import annotations
 
 import contextlib
 from typing import Callable, Iterable, List, Sequence
 
+import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import P
+from repro_torch.distributed.sharding import P, Tiles, _inter, _rel
 
 
 def _split(x, spec, axis: str, devices) -> list:
@@ -91,14 +96,20 @@ def shard_map(body: Callable, *, mesh, in_specs: Sequence[P], axis: str):
 
 
 BYTES = {"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0}
+# the serving steps' gathers, each under a kind of its own (all-gathers
+# in the HLO's terms, kept out of ``BYTES``): cache blocks put together
+# for attention across the model shards or the data shards (``read``),
+# and the vocab-split last-position logits (``gather_logits``)
+GATHERS = {"kv over model": 0, "kv over data": 0, "logits over model": 0}
 # a module global, not thread-local: autograd runs a CUDA backward on a
 # worker thread of its own
 _COUNTING = [True]
 
 
 def reset_bytes():
-    for k in BYTES:
-        BYTES[k] = 0
+    for d in (BYTES, GATHERS):
+        for k in d:
+            d[k] = 0
 
 
 @contextlib.contextmanager
@@ -111,9 +122,18 @@ def counting(on: bool):
         _COUNTING[0] = prev
 
 
+def is_counting() -> bool:
+    return _COUNTING[0]
+
+
 def _count(kind: str, nbytes: int):
     if _COUNTING[0]:
         BYTES[kind] += nbytes
+
+
+def _count_gather(kind: str, nbytes: int):
+    if _COUNTING[0]:
+        GATHERS[kind] = GATHERS.get(kind, 0) + nbytes
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -271,3 +291,64 @@ def sum_over_model(parts: Sequence[torch.Tensor]) -> list:
     shards' grads (a counted all-reduce), handed to each part."""
     return list(parts) if len(parts) == 1 else \
         list(_SumOverModel.apply(*parts))
+
+
+# ---------------------------------------------------------------------------
+# The serving steps' gathers
+# ---------------------------------------------------------------------------
+def read(leaf, region, what: str = "kv", prefer: int = 0) -> torch.Tensor:
+    """The logical tensor of ``region`` ((start, stop) per dimension) of a
+    cache leaf: a tensor's slice, or from a ``sharding.Tiles`` the tile
+    that holds all of it (a view; the tile itself where the region is the
+    tile's, model index ``prefer`` first among replicas), else the region
+    put together from the tiles that hold its parts, on the first one's
+    device. A region put together across model indices counts as an
+    all-gather over "model" under ``"<what> over model"``, across data
+    indices as one over the data axes under ``"<what> over data"``;
+    across both, as one over "model" within a data index (the bytes of
+    the first data index's part) and then one over the data axes."""
+    if not isinstance(leaf, Tiles):
+        return leaf[tuple(slice(a, b) for a, b in region)]
+    region = tuple(region)
+    held = [tl for tl in leaf.tiles
+            if all(r[0] <= w[0] and w[1] <= r[1]
+                   for r, w in zip(tl[0], region))]
+    if held:
+        reg, t, _m, _d = min(held, key=lambda tl: tl[2] != prefer)
+        if reg == region:
+            return t
+        return t[_rel(region, reg)]
+    parts = {}
+    for tl in sorted(leaf.tiles, key=lambda tl: tl[2] != prefer):
+        cut = tuple(_inter(r, w) for r, w in zip(tl[0], region))
+        if all(c is not None for c in cut):
+            parts.setdefault(cut, tl)
+    first = next(iter(parts.values()))[1]
+    out = torch.empty(tuple(b - a for a, b in region), dtype=first.dtype,
+                      device=first.device)
+    for cut, (reg, t, _m, _d) in parts.items():
+        out[_rel(cut, region)] = t[_rel(cut, reg)].to(out.device)
+    models = {tl[2] for tl in parts.values()}
+    datas = {tl[3] for tl in parts.values()}
+    el = out.element_size()
+    if len(models) > 1:
+        d0 = next(iter(parts.values()))[3]
+        n = sum(int(np.prod([b - a for a, b in cut]))
+                for cut, tl in parts.items() if tl[3] == d0) \
+            if len(datas) > 1 else out.numel()
+        _count_gather(f"{what} over model", n * el)
+    if len(datas) > 1:
+        _count_gather(f"{what} over data", out.numel() * el)
+    return out
+
+
+def gather_logits(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The model shards' vocab blocks of the logits concatenated along the
+    last dimension (an all-gather over "model", counted under ``"logits
+    over model"``)."""
+    if len(parts) == 1:
+        return parts[0]
+    dev = parts[0].device
+    out = torch.cat([p.to(dev) for p in parts], dim=-1)
+    _count_gather("logits over model", _nbytes(out))
+    return out

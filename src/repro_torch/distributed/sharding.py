@@ -19,10 +19,13 @@ The rules' other consumers place whole tensors: ``NamedSharding(mesh,
 spec)`` is the reference's record of a layout, ``shard(x, sharding)``
 cuts a logical tensor into a ``ShardedTensor`` (one tensor per mesh
 position, as a sharded ``jax.Array`` holds one buffer per device),
-``unshard`` puts it back together, and ``shard_bytes`` is what one device
-holds. The sharded train step (``training/steps.py`` with ``grad_specs``),
-``checkpoint.restore(shardings=...)`` and the dry-run
-(``launch/dryrun.py``) use them.
+``unshard`` puts it back together (``shard_tree`` / ``unshard_tree`` for
+trees), and ``shard_bytes`` is what one device holds. The sharded train
+step (``training/steps.py`` with ``grad_specs``), the sharded serving
+steps (``shardings=``), ``checkpoint.restore(shardings=...)`` and the
+dry-run (``launch/dryrun.py``) use them. ``Tiles`` is a cache leaf's
+blocks as a serving step's layers see them; ``tiles_put`` and
+``tiles_scatter`` write into them.
 
 ``tp_plan`` reads the rules for the tensor-parallel train step: per
 param leaf split over "model", whether its layer works on the blocks
@@ -477,3 +480,144 @@ def unshard(st: ShardedTensor) -> torch.Tensor:
             out[sl] = st.shards[idx].to(first.device)
             done.add(key)
     return out
+
+
+def _map_tree(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, P):
+        return type(tree)(_map_tree(fn, t, *r)
+                          for t, *r in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def shard_tree(tree, shardings):
+    """A tree (dicts, lists) of tensors laid out leaf by leaf by the
+    matching tree of ``NamedSharding`` (``jax.device_put(tree,
+    shardings)``): a tree of ``ShardedTensor``."""
+    return _map_tree(lambda x, s: shard(x, s), tree, shardings)
+
+
+def unshard_tree(tree):
+    """``shard_tree``'s inverse: each ``ShardedTensor`` put back together
+    (``unshard``)."""
+    return _map_tree(unshard, tree)
+
+
+# ---------------------------------------------------------------------------
+# A cache leaf of one data shard's rows, as the serving step's layers see it
+# ---------------------------------------------------------------------------
+class Tiles:
+    """The blocks of one cache leaf that hold a data shard's rows (all
+    rows, where the batch is not split), as a serving step's layers read
+    and write them. ``shape`` is the rows' logical leaf; each tile is
+    (``region``, the tensor of that region, its model index, its data
+    index), ``region`` a (start, stop) per dimension in the rows'
+    coordinates. Positions that hold one tensor give one tile; replicas
+    on other devices are tiles of their own, and every write reaches each.
+    ``distributed.collectives.read`` puts a region back together."""
+
+    def __init__(self, shape, tiles):
+        self.shape = tuple(shape)
+        self.tiles = list(tiles)
+
+    def __getitem__(self, g: int) -> "Tiles":
+        """Layer ``g`` of a group-stacked leaf (its lead axis is never
+        split)."""
+        return Tiles(self.shape[1:], [(r[1:], t[g], m, d)
+                                      for r, t, m, d in self.tiles])
+
+    @classmethod
+    def of(cls, st: ShardedTensor, batch_dim: int, data_index=None):
+        """The tiles of ``st`` at the mesh positions of data index
+        ``data_index`` (a tuple over the data axes; None: every position,
+        all rows), their batch dimension ``batch_dim`` cut to the rows of
+        that data shard."""
+        mesh = st.sharding.mesh
+        names = mesh.axis_names
+        dax = [i for i, a in enumerate(names) if a in ("pod", "data")]
+        mi = names.index("model") if "model" in names else None
+        shape = list(st.shape)
+        r0 = 0
+        tiles, seen = [], set()
+        for idx in np.ndindex(mesh.devices.shape):
+            didx = tuple(idx[i] for i in dax)
+            if data_index is not None and didx != tuple(data_index):
+                continue
+            sl = shard_slices(st.shape, st.sharding, idx)
+            if data_index is not None:
+                b = sl[batch_dim]
+                r0 = b.start
+                shape[batch_dim] = b.stop - b.start
+            t = st.shards[idx]
+            if id(t) in seen:
+                continue
+            seen.add(id(t))
+            region = tuple((s.start, s.stop) for s in sl)
+            tiles.append((region, t, 0 if mi is None else idx[mi],
+                          int(np.ravel_multi_index(
+                              didx, [mesh.devices.shape[i] for i in dax]))
+                          if dax else 0))
+        if data_index is not None:
+            tiles = [(tuple((a - r0, b - r0) if i == batch_dim else (a, b)
+                            for i, (a, b) in enumerate(reg)), t, m, d)
+                     for reg, t, m, d in tiles]
+        return cls(shape, tiles)
+
+
+def full_region(shape, fixed=None) -> tuple:
+    """The (start, stop) of every dimension of ``shape``, those of the
+    dimensions ``fixed`` names ({dim: (start, stop)}) as given."""
+    fixed = fixed or {}
+    return tuple(fixed.get(i, (0, n)) for i, n in enumerate(shape))
+
+
+def _inter(a, b):
+    lo, hi = max(a[0], b[0]), min(a[1], b[1])
+    return (lo, hi) if lo < hi else None
+
+
+def _rel(region, origin):
+    return tuple(slice(a - o[0], b - o[0]) for (a, b), o in
+                 zip(region, origin))
+
+
+def tiles_put(leaf, region, value):
+    """Write ``value`` (the logical tensor of ``region``) into ``leaf``: a
+    tensor's slice, or every tile of a ``Tiles`` its part."""
+    if not isinstance(leaf, Tiles):
+        leaf[tuple(slice(a, b) for a, b in region)].copy_(value)
+        return
+    for reg, t, _m, _d in leaf.tiles:
+        cut = [_inter(r, w) for r, w in zip(reg, region)]
+        if any(c is None for c in cut):
+            continue
+        t[_rel(cut, reg)].copy_(value[_rel(cut, region)].to(t.device))
+
+
+def tiles_scatter(leaf, bi, slot, value, tail=()):
+    """``leaf[bi, slot, *tail] = value``: rows ``bi`` and slots ``slot``
+    (1-d index tensors) of the first two dimensions, ``value`` [n, ...]
+    covering the region ``tail`` of the others (the whole of them where
+    ``tail`` is shorter). Into a ``Tiles``, each tile takes the entries
+    whose row and slot it holds, on the part of ``tail`` it holds."""
+    if not isinstance(leaf, Tiles):
+        leaf[(bi, slot) + tuple(slice(a, b) for a, b in tail)] = value
+        return
+    rest = leaf.shape[2:]
+    tail = tuple(tail) + tuple((0, n) for n in rest[len(tail):])
+    for reg, t, _m, _d in leaf.tiles:
+        cut = [_inter(r, w) for r, w in zip(reg[2:], tail)]
+        if any(c is None for c in cut):
+            continue
+        (b0, b1), (s0, s1) = reg[:2]
+        lead = (0, leaf.shape[0]), (0, leaf.shape[1])
+        if (b0, b1) == lead[0] and (s0, s1) == lead[1]:
+            rb, rs, v = bi, slot, value
+        else:
+            sel = (bi >= b0) & (bi < b1) & (slot >= s0) & (slot < s1)
+            rb, rs, v = bi[sel] - b0, slot[sel] - s0, value[sel]
+        src = (slice(None),) + _rel(cut, tail)
+        t[(rb.to(t.device), rs.to(t.device)) + _rel(cut, reg[2:])] = \
+            v[src].to(t.device)

@@ -33,8 +33,11 @@ initialises CUDA). For each cell it records:
   term's and dispatch's over the data axes), in closed form too
   (``tp_collective_bytes``). Together they are the bytes
   ``distributed/collectives.py`` counts when the step runs. A serving
-  cell reports the train plan's forward over its tokens, which the
-  roofline leaves out: the port serves with no such plan;
+  cell reports its step's on the serving layout
+  (``serving_collective_bytes``: the split blocks' sums, the ``"gather"``
+  leaves, the cache put together for attention where its blocks split
+  what a shard reads, the vocab-split logits), which the roofline counts
+  as it counts a train cell's;
 * **roofline** terms with the H100 constants (``launch/roofline.py``).
 
 The steps take the routes that reach no CUDA kernel, as the reference's
@@ -389,13 +392,14 @@ def tp_collective_bytes(cfg, mesh, accum: int, batch: int, seq: int,
 def _outputs(kind, args, out, shardings, mesh, b_ax):
     """(output bytes, of them updated in place) per device: the train
     state and five fp32 metrics; or the last-position logits (batch over
-    the data axes, vocab over "model") and the cache."""
+    the data axes, gathered over "model" as the serving steps return
+    them) and the cache."""
     if kind == "train":
         state_sh = shardings[0]
         state = device_bytes(args[0], state_sh)
         return state + 5 * 4, state
     logits, cache = out
-    lsh = NamedSharding(mesh, P(b_ax, None, "model"))
+    lsh = NamedSharding(mesh, P(b_ax))
     cache_b = device_bytes(cache, shardings[1]["cache"])
     return SH.shard_bytes(logits.shape, logits.dtype, lsh) + cache_b, cache_b
 
@@ -464,8 +468,8 @@ def run_cell_for(cfg, kind: str, B: int, S: int, mesh, *, cc: bool = False,
         an_flops = RL.analytic_flops(cfg, kind, B, S, active_frac=frac)
         an_hbm = RL.analytic_hbm_bytes(cfg, kind, B, S, chips)
         terms = RL.roofline_terms(
-            flops / chips, an_hbm, sum(coll.values()) +
-            (sum(tp.values()) if kind == "train" else 0), model_fl, chips)
+            flops / chips, an_hbm, sum(coll.values()) + sum(tp.values()),
+            model_fl, chips)
         rec["analytic"] = {"flops_total": an_flops,
                            "flops_device": an_flops / chips,
                            "hbm_bytes_device": an_hbm,
@@ -508,18 +512,146 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
 
 def cell_tp_bytes(cfg, kind: str, B: int, S: int, mesh,
                   accum: int = TRAIN_ACCUM, cc: bool = False) -> Dict:
-    """A cell's ``tp_collective_bytes``: the train step's; or, for a
-    serving cell, the train plan's forward over its B rows of S (prefill),
-    the active tokens (cc) or 1 (decode), the rows over the data axes
-    that split the batch. The port serves with no such plan, so the
-    roofline leaves a serving cell's out."""
+    """A cell's tensor-parallel collective bytes per device: the train
+    step's ``tp_collective_bytes``; or the serving step's
+    ``serving_collective_bytes`` over its B rows of S (prefill, into a
+    ring cache), the active tokens against a full-length cache of S (cc)
+    or one token against a ring cache of S (decode)."""
     if kind == "train":
         return tp_collective_bytes(cfg, mesh, accum, B, S)
-    toks = 1 if kind == "decode" else (_cc_tokens(S) if cc else S)
-    b_ax = _batch_axis(mesh, B) or ()
-    dp = int(np.prod([mesh.shape[a] for a in
-                      ((b_ax,) if isinstance(b_ax, str) else b_ax)]))
-    return tp_collective_bytes(cfg, mesh, 1, B, toks, train=False, dp=dp)
+    if kind == "decode":
+        return serving_collective_bytes(cfg, mesh, "decode", B, 1, S)
+    if cc:
+        return serving_collective_bytes(cfg, mesh, "partial", B,
+                                        _cc_tokens(S), S, ring=False)
+    return serving_collective_bytes(cfg, mesh, "prefill", B, S, S)
+
+
+def serving_shardings(cfg, mode: str, B: int, S: int, mesh):
+    """The layout of a serving step's ``(params, batch)`` on ``mesh``,
+    as the dry-run's cell lays it out (``build_cell_for``): params by the
+    rules, the batch over the data axes where ``_batch_axis`` puts its B
+    rows, the cache by ``cache_shardings``, that of a "prefill" cell for
+    ``mode`` prefill and partial (the Cache-Craft step's is the same),
+    that of a "decode" cell for decode (at B 1 the sequence also over
+    "data"). The steps take it as ``shardings=`` (``training/steps.py``);
+    ``sharding.shard_tree`` lays trees out by it and
+    ``sharding.unshard_tree`` puts them back together. Only the specs
+    matter, so the cell is built at S for any cache length."""
+    kind = "decode" if mode == "decode" else "prefill"
+    _, _, shardings, _ = build_cell_for(cfg, kind, B, S, mesh)
+    return shardings
+
+
+def serving_collective_bytes(cfg, mesh, mode: str, B: int, T: int, S: int,
+                             ring: bool = True) -> Dict[str, int]:
+    """Per-device bytes of a serving step's collectives, in closed form:
+    ``mode`` prefill / partial / decode over B rows of T tokens against a
+    cache of S slots (``local`` layers' ``min(S, window)`` with ``ring``),
+    laid out by ``serving_shardings``. With R the data shards the rows go
+    over (1 where the batch stays whole), B_d = B / R, t = B_d T a data
+    shard's tokens and ``dt`` the compute dtype's bytes, over "model" (the
+    HLO kinds, ``collectives.BYTES``): the vocab-split embedding's rows
+    (t d dt) where tokens are embedded; each ``"gather"`` leaf of a layer
+    all-gathered (its per-layer tensor); the output of each split
+    attention, cross-attention, SwiGLU and RG-LRU block summed (t d dt),
+    of a split SSD block with its gated norm's statistic (t d dt + t 4),
+    of split experts their fp32 combine (t d 4); and where the experts'
+    GShard groups span the data shards, per MoE layer the expert ids all
+    gathered (int32 [R t, k]). The serving gathers (``collectives.
+    GATHERS``): attention reading a cache whose blocks split what it
+    reads, k and v (and ``pos`` where its slots split) put together,
+    under "kv over model" for the model axis (the heads' D columns, or
+    the slots of the flash-decode sequence range) and "kv over data" for
+    the data axes (B 1 decode's sequence): [B_d, S_c, Hkv', D] each, Hkv'
+    the kv heads a shard reads (Hkv / model where they split); across
+    both axes, the model gather within one data index (S_c / R' slots)
+    and then the data gather. A ``local`` ring shorter than the prompt is
+    not read (attention over the fresh K and V). Cross-attention reads
+    ``mk`` / ``mv`` [B_d, M, Hkv', D] outside a pass given media. The
+    vocab-split last-position logits gathered: B_d V dt (``"logits over
+    model"``). These are the bytes ``collectives.py`` counts when the
+    steps run with ``shardings=``."""
+    nm = mesh.shape.get("model", 1)
+    kind = "decode" if mode == "decode" else "prefill"
+    b_ax = _batch_axis(mesh, B)
+    R = dp_size(mesh) if b_ax else 1
+    Bd = B // R
+    t = Bd * T
+    dt, pb, d = _elsize(cfg.dtype), _elsize(cfg.param_dtype), cfg.d_model
+    plan = SH.tp_plan(mesh, cfg, M.param_axes(cfg))
+    shapes = M.init_params(cfg, torch.Generator(), device=META)
+    kinds = cfg.layer_kinds
+    layers = [(kinds[g * len(cfg.pattern) + i], plan["groups"][i],
+               {n: x.shape[1:] for n, x in shapes["groups"][i].items()})
+              for g in range(cfg.n_groups) for i in range(len(cfg.pattern))]
+    layers += [(kinds[cfg.n_groups * len(cfg.pattern) + i], plan["tail"][i],
+                {n: x.shape for n, x in shapes["tail"][i].items()})
+               for i in range(cfg.n_tail)]
+    seq_axis = "data" if (mode == "decode" and b_ax is None and
+                          S % dp_size(mesh) == 0 and
+                          not cfg.is_attention_free) else None
+    # the cache layout's axes for k / v / pos (``cache_shardings``)
+    hkv, D = cfg.num_kv_heads, cfg.head_dim_
+    if hkv % nm == 0:
+        h_ax, d_ax, s_ax = "model", None, seq_axis
+    elif kind == "decode" and seq_axis is None:
+        h_ax, d_ax, s_ax = None, None, "model"
+    elif D % nm == 0:
+        h_ax, d_ax, s_ax = None, "model", seq_axis
+    else:
+        h_ax = d_ax = None
+        s_ax = seq_axis
+    hread = hkv // nm if h_ax == "model" else hkv
+    Rs = dp_size(mesh) if seq_axis else 1
+    ag = ar = 0
+    gat = {"kv over model": 0, "kv over data": 0, "logits over model": 0}
+
+    def kv_read(n_slots, with_pos, over_model, over_data):
+        region = Bd * n_slots * hread * D * dt
+        pos = Bd * n_slots * 4 if with_pos else 0
+        if over_model:
+            gat["kv over model"] += 2 * region // (Rs if over_data else 1)
+        if over_data:
+            gat["kv over data"] += 2 * region
+        if with_pos and s_ax == "model":
+            gat["kv over model"] += pos
+        if with_pos and s_ax == "data":
+            gat["kv over data"] += pos
+
+    if nm > 1:
+        if mode == "decode" or cfg.input_mode != "embeds":
+            ar += t * d * dt
+        if plan["unembed"] is not None:
+            gat["logits over model"] += Bd * cfg.padded_vocab * dt
+    for kind_l, routes, shp in layers:
+        if nm > 1:
+            split = {n for n, r in routes.items()
+                     if r is not None and r.route == "split"}
+            ag += sum(int(np.prod(shp[n])) * pb for n, r in routes.items()
+                      if r is not None and r.route == "gather")
+            for n in ("wq", "wi", "wx"):
+                if n in split:
+                    ar += t * d * dt
+            if "out_proj" in split:
+                ar += t * d * dt + t * 4
+            if "wi_e" in split:
+                ar += t * d * 4
+        if kind_l in ("attn", "local"):
+            s_c = M._kv_len(cfg, kind_l, S, ring)
+            if mode != "decode" and kind_l == "local" and s_c < T:
+                continue
+            kv_read(s_c, True, d_ax == "model" or s_ax == "model",
+                    s_ax == "data")
+        elif kind_l == "xattn" and (mode == "decode"
+                                    or not cfg.num_media_tokens):
+            kv_read(cfg.num_media_tokens, False, d_ax == "model", False)
+    if cfg.num_experts and R > 1:
+        g, gs = L.moe_groups(t, total=t * R)
+        if gs != g:
+            ag += sum(k != "ssd" for k in kinds) * R * t * \
+                cfg.experts_per_token * 4
+    return {"all-gather": ag, "all-reduce": ar, "reduce-scatter": 0, **gat}
 
 
 def cells(include_cc: bool = True):

@@ -39,19 +39,24 @@ reference donates caches to its jitted steps; here the cache tensors are
 updated IN PLACE (``index_put_`` / ``copy_`` into views of the stacked
 leaves) and the returned cache shares storage with the one passed in.
 
-Tensor-parallel training (``training/steps.py`` on a mesh with a model
-axis): a leaf that ``sharding.tp_plan`` splits over the model axis comes
-in as ``sharding.Blocks``. A block all-gathers its ``"gather"`` leaves
-first and runs replicated; attention with split q heads, the SwiGLU, the
-MoE experts and the recurrent blocks (``rglru`` by its rnn channels,
-``ssd`` by its heads, its gated norm's statistic summed over the shards)
-run once per model shard on its blocks, between ``copy_to_model`` and
-``reduce_from_model`` (``distributed/collectives.py``), in stateless
-passes only; the embedding looks up each shard's vocab range and
-sums, and ``forward`` leaves the vocab-split logits to the loss
-(``logits=None``). ``run_stack_lockstep`` runs the data shards of one
-microbatch of a config with experts layer by layer, so that the MoE
-dispatch of a group that spans shards sees all of them.
+Tensor parallelism (``training/steps.py`` on a mesh with a model axis):
+a leaf that ``sharding.tp_plan`` splits over the model axis comes in as
+``sharding.Blocks``. A block all-gathers its ``"gather"`` leaves first
+and runs replicated; attention with split q heads, the SwiGLU, the MoE
+experts and the recurrent blocks (``rglru`` by its rnn channels, ``ssd``
+by its heads, its gated norm's statistic summed over the shards) run
+once per model shard on its blocks, between ``copy_to_model`` and
+``reduce_from_model`` (``distributed/collectives.py``); the embedding
+looks up each shard's vocab range and sums. In training ``forward``
+leaves the vocab-split logits to the loss (``logits=None``), and
+``run_stack_lockstep`` runs the data shards of one microbatch of a
+config with experts layer by layer, so that the MoE dispatch of a group
+that spans shards sees all of them. The serving steps on a mesh run
+``forward_shards`` (the data shards layer by layer, the same dispatch),
+their cache leaves as ``sharding.Tiles`` (the blocks of the serving
+layout): a split block reads and writes its part of the state
+(``_attention_cached``, ``_cross_attention_cached``, ``_rglru_tp``,
+``_ssd_tp``), and the last position's vocab-split logits are gathered.
 """
 from __future__ import annotations
 
@@ -65,7 +70,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from repro_torch.distributed import collectives as CO
-from repro_torch.distributed.sharding import Blocks
+from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.sharding import Blocks, Tiles
 from repro_torch.models import backend as AB
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -396,10 +402,17 @@ def _out_proj(out, wo):
         B, T, -1).to(out.dtype)
 
 
+def _laid_out(state) -> bool:
+    return state is not None and any(isinstance(v, Tiles)
+                                     for v in state.values())
+
+
 def _self_attention(ctx: Ctx, kind: str, p, x, state):
     cfg = ctx.cfg
-    if isinstance(p["wq"], Blocks):
+    if isinstance(p["wq"], Blocks) and ctx.mode == "train":
         return _attention_tp(ctx, kind, p, x), state, None, None
+    if isinstance(p["wq"], Blocks) or _laid_out(state):
+        return _attention_cached(ctx, kind, p, x, state), state, None, None
     q = _proj(x, p["wq"])
     k = _proj(x, p["wk"])
     v = _proj(x, p["wv"])
@@ -522,14 +535,183 @@ def _attention_tp(ctx: Ctx, kind: str, p, x):
     return CO.reduce_from_model(outs)
 
 
+def _ranges(sizes) -> list:
+    """(start, stop) of consecutive blocks of ``sizes``."""
+    out, a = [], 0
+    for n in sizes:
+        out.append((a, a + n))
+        a += n
+    return out
+
+
+def _kv_of(t, heads, group: int):
+    """The kv heads of ``t`` [B,S,Hkv,D] that the q heads ``heads``
+    (start, stop) attend to, as a tensor of its own: their contiguous
+    range where each serves the same number of consecutive q heads (the
+    GQA grouping kept), else one kv head per q head."""
+    h0, h1 = heads
+    a, b = h0 // group, (h1 - 1) // group + 1
+    n = (h1 - h0) // (b - a)
+    if n * (b - a) == h1 - h0 and all(
+            j // group - a == (j - h0) // n for j in range(h0, h1)):
+        return t[:, :, a:b].contiguous()
+    return t.index_select(2, torch.arange(h0, h1, device=t.device) // group)
+
+
+def _attention_cached(ctx: Ctx, kind: str, p, x, state):
+    """Serving-mode attention with the q heads split over the model axis
+    (``p["wq"]`` a ``Blocks``), or a cache laid out on a mesh
+    (``sharding.Tiles`` leaves), or both: model shard m projects its q
+    heads from its copy of ``x`` and attends them on its own operands with
+    ``backend.attend`` (one kernel launch per shard on ``kernel``); the
+    shards' outputs are summed. Where the kv heads split too, shard m
+    projects its kv heads and writes them into its block of the cache,
+    where it also reads them. Where they do not, K and V are projected
+    whole (the plan's ``"gather"`` kv weights, as in training), each
+    cache block takes its part of the write (its D columns, or the slots
+    of its sequence range), and attention reads the cache put together
+    (``collectives.read``, a counted gather: attention never contracts a
+    split head dim). A ``local`` ring shorter than the prompt keeps the
+    last ``window`` tokens at slot ``pos % window`` and attention runs over
+    the fresh K and V, as in ``_self_attention``."""
+    cfg = ctx.cfg
+    if ctx.mode == "decode" and "kp" in state:
+        raise ValueError("paged decode with the heads split over the model "
+                         "axis: the engine's serving mesh does that "
+                         "(backend 'sharded' / 'paged_kernel')")
+    split = isinstance(p["wq"], Blocks)
+    wq = p["wq"].parts if split else [p["wq"]]
+    wo = p["wo"].parts if split else [p["wo"]]
+    n = len(wq)
+    xs = CO.copy_to_model(x, n)
+    heads = _ranges(w.shape[1] for w in wq)
+    group = cfg.num_heads // cfg.num_kv_heads
+    pos = ctx.positions
+
+    def rope(t):
+        return L.apply_rope(t, pos, cfg.rope_theta)
+    if isinstance(p["wk"], Blocks):
+        kvr = _ranges(w.shape[1] for w in p["wk"].parts)
+        fresh = [(rope(_proj(xs[m], p["wk"].parts[m])),
+                  _proj(xs[m], p["wv"].parts[m]), kvr[m]) for m in range(n)]
+    else:
+        fresh = [(rope(_proj(x, p["wk"])), _proj(x, p["wv"]),
+                  (0, cfg.num_kv_heads))]
+    S_c = state["k"].shape[1]
+    ring_short = ctx.mode in ("prefill", "partial") and kind == "local" \
+        and S_c < x.shape[1]
+    if ring_short:
+        B, w = x.shape[0], S_c
+        bi = torch.arange(B, device=x.device)[:, None].expand(B, w)
+        slot = (pos[:, -w:] % w).long()
+        bi, slot = bi.reshape(-1), slot.reshape(-1)
+        rows = (slice(None), slice(x.shape[1] - w, None))
+        wpos = pos[:, -w:].reshape(-1)
+    else:
+        if ctx.mode == "decode":
+            bi, ti, slot = _write_index(ctx, ctx.decode_slot[:, None])
+            if kind == "local":
+                slot = slot % S_c
+        elif ctx.mode in ("prefill", "partial"):
+            bi, ti, slot = _write_index(
+                ctx, ctx.slots if ctx.slots is not None else pos)
+        else:
+            raise ValueError(ctx.mode)
+        rows = (bi, ti)
+        wpos = pos[bi, ti]
+    for k, v, hr in fresh:
+        tail = (hr, (0, k.shape[-1]))
+        kw, vw = k[rows], v[rows]
+        SH.tiles_scatter(state["k"], bi, slot, kw.reshape(-1, *kw.shape[-2:]),
+                         tail)
+        SH.tiles_scatter(state["v"], bi, slot, vw.reshape(-1, *vw.shape[-2:]),
+                         tail)
+    SH.tiles_scatter(state["pos"], bi, slot, wpos.to(torch.int32))
+
+    def cache(name, hr, m):
+        shape = state[name].shape
+        region = SH.full_region(shape, {2: hr} if name != "pos" else None)
+        return CO.read(state[name], region, "kv", prefer=m)
+    whole = None
+    if len(fresh) == 1 and not ring_short:
+        whole = (cache("k", fresh[0][2], 0), cache("v", fresh[0][2], 0),
+                 cache("pos", None, 0))
+    outs = []
+    for m in range(n):
+        if ring_short:
+            k, v, hr = fresh[m] if len(fresh) > 1 else fresh[0]
+            if len(fresh) == 1:
+                k, v = _kv_of(k, heads[m], group), _kv_of(v, heads[m], group)
+            kv_pos = pos
+        elif whole is None:
+            with CO.counting(CO.is_counting() and m == 0):
+                k, v, kv_pos = (cache("k", fresh[m][2], m),
+                                cache("v", fresh[m][2], m),
+                                cache("pos", None, m))
+        else:
+            k, v = (_kv_of(t, heads[m], group) for t in whole[:2])
+            kv_pos = whole[2]
+        q = rope(_proj(xs[m], wq[m]))
+        out = AB.attend(ctx, kind, q, k, v, kv_pos)[0]
+        outs.append(_out_proj(out, wo[m]))
+    return CO.reduce_from_model(outs)
+
+
+def _cross_attention_cached(ctx: Ctx, p, x, state):
+    """Cross-attention with the q heads split over the model axis, or a
+    cache laid out on a mesh (``_attention_cached``'s split): a pass given
+    ``media`` projects the media's K and V (each shard its kv heads where
+    they split, else whole) and writes them into the cache's blocks; any
+    other pass reads them (put together where the blocks split what a
+    shard reads, a counted gather). Without ``tanh(gate_attn)``."""
+    cfg = ctx.cfg
+    split = isinstance(p["wq"], Blocks)
+    wq = p["wq"].parts if split else [p["wq"]]
+    wo = p["wo"].parts if split else [p["wo"]]
+    n = len(wq)
+    xs = CO.copy_to_model(x, n)
+    heads = _ranges(w.shape[1] for w in wq)
+    group = cfg.num_heads // cfg.num_kv_heads
+    kv_split = isinstance(p["wk"], Blocks)
+    kvr = _ranges(w.shape[1] for w in p["wk"].parts) if kv_split \
+        else [(0, cfg.num_kv_heads)]
+    wks = p["wk"].parts if kv_split else [p["wk"]]
+    wvs = p["wv"].parts if kv_split else [p["wv"]]
+    if ctx.mode in ("prefill", "partial") and ctx.media is not None:
+        kvs = [(_proj(ctx.media, a), _proj(ctx.media, b))
+               for a, b in zip(wks, wvs)]
+        if state is not None:
+            for (mk, mv), hr in zip(kvs, kvr):
+                for name, t in (("mk", mk), ("mv", mv)):
+                    SH.tiles_put(state[name], SH.full_region(
+                        state[name].shape, {2: hr}), t)
+    else:
+        kvs = []
+        for j, hr in enumerate(kvr):
+            with CO.counting(CO.is_counting() and j == 0):
+                kvs.append(tuple(CO.read(state[name], SH.full_region(
+                    state[name].shape, {2: hr}), "kv", prefer=j)
+                    for name in ("mk", "mv")))
+    outs = []
+    for m in range(n):
+        mk, mv = kvs[m] if kv_split else (
+            _kv_of(t, heads[m], group) for t in kvs[0])
+        out = _cross_attend(_proj(xs[m], wq[m]), mk, mv)
+        outs.append(_out_proj(out, wo[m]))
+    return CO.reduce_from_model(outs)
+
+
 def _cross_attention(ctx: Ctx, p, x, state):
     """Gated cross-attention to the media (``_cross_attend``): a pass
     given ``media`` projects its K and V (and stores them in the cache,
     when there is one), any other pass reads them from the cache.
     Returns ``tanh(gate_attn)`` x the attention output."""
-    if isinstance(p["wq"], Blocks):
+    if isinstance(p["wq"], Blocks) and state is None:
         return torch.tanh(p["gate_attn"]) * _attention_tp(
             ctx, "xattn", p, x), state
+    if isinstance(p["wq"], Blocks) or _laid_out(state):
+        return torch.tanh(p["gate_attn"]) * _cross_attention_cached(
+            ctx, p, x, state), state
     q = _proj(x, p["wq"])
     if ctx.mode in ("train", "prefill", "partial") and \
             ctx.media is not None:
@@ -602,28 +784,50 @@ def _moe_apply(ctx: Ctx, kind: str, p, h, xg, gate_vals, gate_idx, slot,
     return h + y
 
 
-def _stateless(ctx: Ctx, state, kind: str):
-    if state is not None:
-        raise ValueError(f"{kind} with its channels split over the model "
-                         f"axis runs stateless passes only ({ctx.mode} "
-                         "was given a cache)")
-
-
-def _rglru_tp(ctx: Ctx, p, x):
+def _rglru_tp(ctx: Ctx, p, x, state=None):
     """The RG-LRU block with its rnn channels split over the model axis
     (Megatron): model shard m runs the gate, the input branch, the
     depthwise conv and the channelwise RG-LRU on its columns of ``wy`` /
     ``wx`` from its copy of ``x`` and projects them out with its rows of
-    ``wo_r``; the shards' outputs are summed."""
+    ``wo_r``; the shards' outputs are summed. Given a cache, shard m
+    reads and writes its channels of ``h`` and ``conv`` (a tensor's
+    slice, or its block of a ``sharding.Tiles``), as ``_rglru_block``
+    reads and writes the whole."""
     xs = CO.copy_to_model(x, len(p["wx"].parts))
-    outs = []
+    decode = ctx.mode == "decode"
+    outs, c0 = [], 0
     for m, xm in enumerate(xs):
         pm = {k: v.parts[m] for k, v in p.items() if isinstance(v, Blocks)}
+        ch = (c0, c0 + pm["lam"].shape[0])
+        c0 = ch[1]
         gate = F.gelu(_proj(xm, pm["wy"]), approximate="tanh")
-        b, _ = L.causal_conv1d(_proj(xm, pm["wx"]), pm["conv"])
-        y, _ = L.rglru_scan(b, pm["lam"], pm["alpha"], pm["beta"])
+        conv_state = _state(state, "conv", {2: ch}, m) if decode else None
+        b, new_conv = L.causal_conv1d(_proj(xm, pm["wx"]), pm["conv"],
+                                      conv_state)
+        if decode:
+            y, h = L.rglru_step(b[:, 0], pm["lam"], pm["alpha"], pm["beta"],
+                                _state(state, "h", {1: ch}, m))
+            y = y[:, None]
+        else:
+            h0 = _state(state, "h", {1: ch}, m) if ctx.mode == "partial" \
+                else None
+            y, h = L.rglru_scan(b, pm["lam"], pm["alpha"], pm["beta"], h0)
         outs.append(_proj(gate * y, pm["wo_r"]))
+        if state is not None:
+            SH.tiles_put(state["h"], SH.full_region(state["h"].shape,
+                                                    {1: ch}), h)
+            SH.tiles_put(state["conv"], SH.full_region(
+                state["conv"].shape, {2: ch}), new_conv)
     return CO.reduce_from_model(outs)
+
+
+def _state(state, name: str, fixed: dict, m: int):
+    """Model shard m's part (``fixed``: {dim: (start, stop)}) of a cache
+    leaf, or None without a cache."""
+    if state is None:
+        return None
+    return CO.read(state[name], SH.full_region(state[name].shape, fixed),
+                   "state", prefer=m)
 
 
 def _rglru_block(ctx: Ctx, p, x, state):
@@ -633,8 +837,7 @@ def _rglru_block(ctx: Ctx, p, x, state):
     zeros), the recurrent state ``h`` in decode and partial. A cache,
     when given, is written in place."""
     if isinstance(p["wx"], Blocks):
-        _stateless(ctx, state, "rglru")
-        return _rglru_tp(ctx, p, x), state
+        return _rglru_tp(ctx, p, x, state), state
     gate = F.gelu(_proj(x, p["wy"]), approximate="tanh")
     b = _proj(x, p["wx"])
     conv_state = state["conv"] if (state is not None and
@@ -655,7 +858,7 @@ def _rglru_block(ctx: Ctx, p, x, state):
     return out, state
 
 
-def _ssd_tp(ctx: Ctx, p, x):
+def _ssd_tp(ctx: Ctx, p, x, state=None):
     """The SSD block with its heads (and their channels) split over the
     model axis (Megatron). The whole ``in_proj`` runs once, replicated, as
     in the reference; each model shard takes from its copy of the
@@ -665,11 +868,16 @@ def _ssd_tp(ctx: Ctx, p, x):
     shards' sums of squares are summed over the model axis
     (``sum_over_model``, an all-reduce of [B, T] fp32 each way), then each
     shard projects out with its rows of ``out_proj`` and the outputs are
-    summed."""
+    summed. Given a cache, shard m reads and writes its heads of ``s``
+    and its channels of ``conv``, as ``_ssd_block`` the whole: the conv
+    state in decode, ``ssd_step`` in decode and ``ssd_chunked`` from
+    ``s`` in partial (the ``ssd_intra`` kernel on CUDA tensors outside
+    training)."""
     cfg = ctx.cfg
     di, ns, pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
     ps = CO.copy_to_model(_proj(x, p["in_proj"]), len(p["out_proj"].parts))
     B_, T = x.shape[:2]
+    decode = ctx.mode == "decode"
     ys, zs, c0, h0 = [], [], 0, 0
     for m, pr in enumerate(ps):
         pm = {k: v.parts[m] for k, v in p.items() if isinstance(v, Blocks)}
@@ -680,11 +888,27 @@ def _ssd_tp(ctx: Ctx, p, x):
         z, xs, Bm, Cm, dt = (pr[..., a:a + b] for a, b in (
             (c0, w), (di + c0, w), (2 * di, ns), (2 * di + ns, ns),
             (2 * di + 2 * ns + h0, k)))
-        xs = F.silu(L.causal_conv1d(xs, pm["conv"])[0])
+        ch, hh = (c0, c0 + w), (h0, h0 + k)
+        conv_state = _state(state, "conv", {2: ch}, m) if decode else None
+        xs, new_conv = L.causal_conv1d(xs, pm["conv"], conv_state)
+        xs = F.silu(xs)
         dt = F.softplus(dt + pm["dt_bias"])
-        y, _ = L.ssd_chunked(xs.reshape(B_, T, k, pd), dt, pm["A_log"], Bm,
-                             Cm, pm["D"], cfg.ssd_chunk,
-                             train=ctx.mode == "train")
+        if decode:
+            y, s = L.ssd_step(xs.reshape(B_, T, k, pd)[:, 0], dt[:, 0],
+                              pm["A_log"], Bm[:, 0], Cm[:, 0], pm["D"],
+                              _state(state, "s", {1: hh}, m))
+            y = y[:, None]
+        else:
+            s0 = _state(state, "s", {1: hh}, m) if ctx.mode == "partial" \
+                else None
+            y, s = L.ssd_chunked(xs.reshape(B_, T, k, pd), dt, pm["A_log"],
+                                 Bm, Cm, pm["D"], cfg.ssd_chunk, s0,
+                                 train=ctx.mode == "train")
+        if state is not None:
+            SH.tiles_put(state["s"], SH.full_region(state["s"].shape,
+                                                    {1: hh}), s)
+            SH.tiles_put(state["conv"], SH.full_region(
+                state["conv"].shape, {2: ch}), new_conv)
         ys.append(y.reshape(B_, T, w))
         zs.append(z)
         c0, h0 = c0 + w, h0 + k
@@ -704,8 +928,7 @@ def _ssd_block(ctx: Ctx, p, x, state):
     the last W-1 pre-conv inputs. A cache, when given, is written in
     place."""
     if isinstance(p["out_proj"], Blocks):
-        _stateless(ctx, state, "ssd")
-        return _ssd_tp(ctx, p, x), state
+        return _ssd_tp(ctx, p, x, state), state
     cfg = ctx.cfg
     di, ns, nh, pd = (cfg.d_inner, cfg.ssm_state, cfg.ssm_heads,
                       cfg.ssm_head_dim)
@@ -837,11 +1060,19 @@ def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor):
 
 
 def lm_head(cfg: ModelConfig, params: Params, h: torch.Tensor):
-    """The vocabulary's logits; the vocab-split ``unembed`` of the
-    tensor-parallel step has its loss of its own
+    """The vocabulary's logits. With ``unembed`` split by vocab over the
+    model axis, each shard's block of the logits, gathered over the shards
+    (``collectives.gather_logits``, counted); the tensor-parallel train
+    step never calls this, its vocab-parallel loss has the blocks
     (``training/steps.py``)."""
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    w = params["unembed"].to(torch_dtype(cfg.dtype))
+    dtype = torch_dtype(cfg.dtype)
+    w = params["unembed"]
+    if isinstance(w, Blocks):
+        hs = h.reshape(-1, h.shape[-1])
+        return CO.gather_logits([(hs @ b.to(dtype)).reshape(
+            *h.shape[:-1], -1) for b in w.parts])
+    w = w.to(dtype)
     return (h.reshape(-1, h.shape[-1]) @ w).reshape(*h.shape[:-1], -1)
 
 
@@ -960,8 +1191,9 @@ def forward(cfg: ModelConfig, params: Params, *,
         h = h[:, None]
     B, T = h.shape[:2]
     if positions is None:
+        # a tensor of its own: the kernel wrappers take contiguous rows
         positions = torch.arange(T, dtype=torch.int32,
-                                 device=h.device).expand(B, T)
+                                 device=h.device).expand(B, T).contiguous()
     ctx = Ctx(cfg=cfg, mode=mode, positions=positions,
               media=None if media is None else media.to(dtype),
               chunk_ids=chunk_ids, collect_stats=collect_stats,
@@ -974,8 +1206,10 @@ def forward(cfg: ModelConfig, params: Params, *,
         moe_probs=moe_probs)
     if logits_slice == "last":
         h = h[:, -1:]
-    logits = None if isinstance(params["unembed"], Blocks) else \
-        lm_head(cfg, params, h)
+    # the vocab-split logits of every position stay with the train step's
+    # loss; the last position's are gathered, as the serving steps return
+    logits = None if isinstance(params["unembed"], Blocks) and \
+        logits_slice != "last" else lm_head(cfg, params, h)
     return ModelOutput(logits=logits, cache=new_cache, stats=stats,
                        key_stats=kstats, aux_loss=aux_total, hidden=h)
 
@@ -984,6 +1218,31 @@ def _embed_inputs(cfg: ModelConfig, params: Params, tokens, embeds):
     if embeds is None:
         return embed_tokens(cfg, params, tokens)
     return embeds.to(torch_dtype(cfg.dtype))
+
+
+def _shard_layers(cfg: ModelConfig, params: List[Params],
+                  caches: Optional[List[dict]] = None) -> list:
+    """The stack's layers in order, each (kind, every data shard's
+    leaves, every shard's cache of the layer or None, whether it sits in
+    a layer group): the stacked group leaves unbound once per leaf."""
+    unbound = [[{k: v.unbind() if isinstance(v, Blocks) else v.unbind(0)
+                 for k, v in pg.items()} for pg in p["groups"]]
+               for p in params]
+    none = [None] * len(params)
+    layers = []
+    for g in range(cfg.n_groups):
+        for pi, kind in enumerate(cfg.pattern):
+            layers.append((kind, [{k: v[g] for k, v in u[pi].items()}
+                                  for u in unbound],
+                           none if caches is None else
+                           [{k: v[g] for k, v in c["groups"][pi].items()}
+                            for c in caches], True))
+    for i in range(cfg.n_tail):
+        kind = cfg.layer_kinds[cfg.n_groups * len(cfg.pattern) + i]
+        layers.append((kind, [p["tail"][i] for p in params],
+                       none if caches is None else
+                       [c["tail"][i] for c in caches], False))
+    return layers
 
 
 def run_stack_lockstep(cfg: ModelConfig, params: List[Params],
@@ -1013,17 +1272,8 @@ def run_stack_lockstep(cfg: ModelConfig, params: List[Params],
             T, dtype=torch.int32, device=h.device).expand(B, T),
             media=None if media is None else media.to(h.dtype),
             moe_tokens=moe_tokens))
-    layers = []                 # (kind, per-shard leaves, in a group)
-    unbound = [[{k: v.unbind() if isinstance(v, Blocks) else v.unbind(0)
-                 for k, v in pg.items()} for pg in p["groups"]]
-               for p in params]
-    for g in range(cfg.n_groups):
-        for pi, kind in enumerate(cfg.pattern):
-            layers.append((kind, [{k: v[g] for k, v in u[pi].items()}
-                                  for u in unbound], True))
-    for i in range(cfg.n_tail):
-        kind = cfg.layer_kinds[cfg.n_groups * len(cfg.pattern) + i]
-        layers.append((kind, [p["tail"][i] for p in params], False))
+    layers = [(kind, ps, grouped)
+              for kind, ps, _, grouped in _shard_layers(cfg, params)]
 
     def pre(ctx, kind, p, h):
         p = _whole(p)
@@ -1053,6 +1303,70 @@ def run_stack_lockstep(cfg: ModelConfig, params: List[Params],
                 hs[d] = run(_moe_apply, ctxs[d], kind, ps[d], h, xg, gv, gi,
                             slot, kept)
     return hs, probs
+
+
+def forward_shards(cfg: ModelConfig, params: List[Params],
+                   inputs: List[dict], caches: List[dict], *, mode: str,
+                   attn_impl: str = "auto", moe_tokens: Optional[int] = None,
+                   sync: Optional[Callable] = None,
+                   scope: Callable = None) -> List[torch.Tensor]:
+    """The serving forward (``mode`` prefill, partial or decode) of a
+    mesh's data shards, each on its rows, returning each shard's
+    last-position logits. ``params`` per shard, with ``sharding.Blocks``
+    for the leaves split over the model axis; ``inputs`` per shard:
+    ``tokens`` or ``embeds`` [B,T], ``positions`` [B,T] (optional in
+    prefill), ``media``, and in decode ``decode_slot`` [B]; ``caches`` per
+    shard, shaped like ``init_cache``'s, with ``sharding.Tiles`` leaves.
+    The shards run layer by layer in shard order; at a MoE layer every
+    shard routes its tokens first, ``sync`` (the expert ids of every
+    shard -> each shard's ``(slot, kept)``) dispatches them over the
+    GShard groups of all ``moe_tokens`` tokens, then every shard runs its
+    experts, so that a group that spans shards fills its capacity across
+    them, as in the unsharded forward. ``scope(d)`` is entered around
+    shard d's work."""
+    scope = scope or (lambda d: contextlib.nullcontext())
+    dtype = torch_dtype(cfg.dtype)
+    n = len(params)
+    hs, ctxs = [], []
+    for d, (p, x) in enumerate(zip(params, inputs)):
+        with scope(d):
+            h = _embed_inputs(cfg, p, x.get("tokens"), x.get("embeds"))
+        B, T = h.shape[:2]
+        pos = x.get("positions")
+        if pos is None:
+            pos = torch.arange(T, dtype=torch.int32,
+                               device=h.device).expand(B, T).contiguous()
+        media = x.get("media")
+        hs.append(h)
+        ctxs.append(Ctx(cfg=cfg, mode=mode, positions=pos,
+                        media=None if media is None else media.to(dtype),
+                        attn_impl=attn_impl,
+                        decode_slot=x.get("decode_slot"),
+                        moe_tokens=moe_tokens))
+    for kind, ps, sts, _ in _shard_layers(cfg, params, caches):
+        if kind == "ssd" or not cfg.num_experts or sync is None:
+            for d in range(n):
+                with scope(d):
+                    hs[d] = apply_block(ctxs[d], kind, ps[d], hs[d],
+                                        sts[d])[0]
+            continue
+        routed = []
+        for d in range(n):
+            with scope(d):
+                p = _whole(ps[d])
+                h = _mixer(ctxs[d], kind, p, hs[d], sts[d])[0]
+                routed.append((p, h) + _moe_route(ctxs[d], p, h))
+        plans = sync([r[5] for r in routed])
+        for d, ((p, h, xg, _pr, gv, gi), (slot, kept)) in enumerate(
+                zip(routed, plans)):
+            with scope(d):
+                hs[d] = _moe_apply(ctxs[d], kind, p, h, xg, gv, gi, slot,
+                                   kept)
+    logits = []
+    for d in range(n):
+        with scope(d):
+            logits.append(lm_head(cfg, params[d], hs[d][:, -1:]))
+    return logits
 
 
 # Convenience entry points ---------------------------------------------------

@@ -36,7 +36,9 @@ The serving roots are plain closures ``(params, batch) -> (logits,
 cache)`` over ``models.model``: ``batch`` holds ``tokens`` (or
 ``embeds``, for a config with ``input_mode="embeds"``), ``media`` for a
 config with cross-attention layers, ``positions`` (optional for the full
-prefill) and ``cache``, which is updated in place.
+prefill) and ``cache``, which is updated in place. With ``shardings``
+(``launch.dryrun.serving_shardings``, the reference's ``in_shardings``)
+they run over the mesh in one process (``_sharded_serving_step``).
 """
 from __future__ import annotations
 
@@ -575,8 +577,14 @@ def _update_blocks(opt_cfg, pst, spec, dd, trios, grads, idxs, scalars):
 # ---------------------------------------------------------------------------
 # Serving-side roots
 # ---------------------------------------------------------------------------
-def make_prefill_step(cfg: ModelConfig, attn_impl: str = "auto"):
-    """Full prefill: the paper's Full-Recomp baseline."""
+def make_prefill_step(cfg: ModelConfig, attn_impl: str = "auto",
+                      shardings=None):
+    """Full prefill: the paper's Full-Recomp baseline. ``shardings``: the
+    layout of ``(params, batch)`` on a mesh (``jax.jit``'s
+    ``in_shardings``; ``launch.dryrun.serving_shardings``), see
+    ``_sharded_serving_step``."""
+    if shardings is not None:
+        return _sharded_serving_step(cfg, "prefill", attn_impl, shardings)
 
     def prefill_step(params, batch):
         out = M.forward(cfg, params, tokens=batch.get("tokens"),
@@ -588,9 +596,13 @@ def make_prefill_step(cfg: ModelConfig, attn_impl: str = "auto"):
     return prefill_step
 
 
-def make_cachecraft_prefill_step(cfg: ModelConfig, attn_impl: str = "auto"):
+def make_cachecraft_prefill_step(cfg: ModelConfig, attn_impl: str = "auto",
+                                 shardings=None):
     """Cache-Craft partial prefill as one step: active tokens (new chunks
-    + recompute + question) against a pre-populated cache."""
+    + recompute + question) against a pre-populated cache.
+    ``shardings`` as in ``make_prefill_step``."""
+    if shardings is not None:
+        return _sharded_serving_step(cfg, "partial", attn_impl, shardings)
 
     def step(params, batch):
         out = M.forward(cfg, params, tokens=batch.get("tokens"),
@@ -602,9 +614,111 @@ def make_cachecraft_prefill_step(cfg: ModelConfig, attn_impl: str = "auto"):
     return step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, attn_impl: str = "auto",
+                     shardings=None):
+    """One decode step (``M.decode_step``, decode slot = position).
+    ``shardings`` as in ``make_prefill_step``."""
+    if shardings is not None:
+        return _sharded_serving_step(cfg, "decode", attn_impl, shardings)
+
     def decode(params, batch):
         out = M.decode_step(cfg, params, batch["tokens"],
-                            batch["positions"], batch["cache"])
+                            batch["positions"], batch["cache"],
+                            attn_impl=attn_impl)
         return out.logits, out.cache
     return decode
+
+
+def _sharded_serving_step(cfg, mode, attn_impl, shardings):
+    """A serving step on the mesh of ``shardings`` = (the params' layout,
+    the batch's), the reference's ``jax.jit(step, in_shardings=...)``: it
+    takes ``params`` and ``batch["cache"]`` laid out by them (trees of
+    ``sharding.ShardedTensor``, ``sharding.shard_tree``), and the other
+    batch entries as whole tensors, and returns (the logits [B,1,V] put
+    together over the data shards, the cache, updated in place). The rows
+    go over the data axes where the batch's layout puts them (the data
+    shards run in order, each on its rows, layer by layer:
+    ``M.forward_shards``); where it leaves them whole (B 1 decode), one
+    pass runs on all rows and reads the cache's blocks of every data
+    index. Each data shard's layers see the leaves ``sharding.tp_plan``
+    splits over "model" as ``sharding.Blocks`` and its cache leaves as
+    ``sharding.Tiles``. The collectives of data shards other than the
+    first run under ``collectives.counting(False)``, so that ``BYTES`` and
+    ``GATHERS`` count one device's (``dryrun.serving_collective_bytes``).
+    It computes the unsharded step's function: only the order of fp32
+    sums, and on ``kernel`` each launch's key split, differ."""
+    psh, bsh = shardings
+    specs = list(tree_leaves(psh))
+    mesh = specs[0].mesh
+    dax = data_axes(mesh)
+    names = mesh.axis_names
+    if any(n > 1 for a, n in mesh.shape.items()
+           if a not in dax and a != "model"):
+        raise ValueError(f"sharded serving step on mesh {mesh.shape}: the "
+                         "rules split only the data axes and 'model'")
+    nm = mesh.shape.get("model", 1)
+    row_spec = bsh["embeds" if "embeds" in bsh else "tokens"].spec
+    b_axes = SH._dim_axes(row_spec, 1)[0] if len(row_spec) else ()
+    if b_axes and set(b_axes) != set(dax):
+        raise ValueError(f"the batch split over {b_axes}, a part of the "
+                         f"data axes {dax}")
+    dshape = [mesh.shape[a] for a in dax]
+    groups = list(np.ndindex(*dshape)) if b_axes else [None]
+    routes = list(tree_leaves(SH.tp_plan(mesh, cfg, M.param_axes(cfg))))
+    csh = bsh["cache"]
+
+    def at(didx, m):
+        idx = [0] * len(names)
+        for a, i in zip(dax, didx or (0,) * len(dax)):
+            idx[names.index(a)] = i
+        if "model" in names:
+            idx[names.index("model")] = m
+        return tuple(idx)
+
+    def scope(d):
+        return CO.counting(d == 0)
+
+    def step(params, batch):
+        p_leaves = list(tree_leaves(params))
+        c_leaves = list(tree_leaves(batch["cache"]))
+        for st, sp in zip(p_leaves + c_leaves,
+                          specs + list(tree_leaves(csh))):
+            if st.sharding != sp:
+                raise ValueError(f"{st} laid out by {st.sharding}, the step "
+                                 f"by {sp}: lay it out with shard_tree")
+        x0 = batch.get("embeds", batch.get("tokens"))
+        B = x0.shape[0]
+        R = len(groups)
+        if B % R:
+            raise ValueError(f"batch {B} does not split over {R} data "
+                             "shards")
+        rows = B // R
+        inputs, ps, caches = [], [], []
+        for r, didx in enumerate(groups):
+            ps.append(tree_unflatten(params, [
+                st.shards[at(didx, 0)] if rt is None else SH.Blocks(
+                    [st.shards[at(didx, m)] for m in range(nm)], rt.dim,
+                    rt.route)
+                for st, rt in zip(p_leaves, routes)]))
+            cache = batch["cache"]
+            caches.append({
+                "groups": [{k: SH.Tiles.of(v, 1, didx) for k, v in c.items()}
+                           for c in cache["groups"]],
+                "tail": [{k: SH.Tiles.of(v, 0, didx) for k, v in c.items()}
+                         for c in cache["tail"]]})
+            x = {k: v[r * rows:(r + 1) * rows] for k, v in batch.items()
+                 if k != "cache" and v is not None}
+            if mode == "decode":
+                x["tokens"] = x["tokens"][:, None]
+                x["decode_slot"] = x["positions"]
+                x["positions"] = x["positions"][:, None]
+            inputs.append(x)
+        T = x0.shape[1] if mode != "decode" else 1
+        logits = M.forward_shards(
+            cfg, ps, inputs, caches, mode=mode, attn_impl=attn_impl,
+            moe_tokens=B * T if cfg.num_experts else None,
+            sync=_moe_sync(cfg, R) if cfg.num_experts else None,
+            scope=scope)
+        return torch.cat([lg.to(logits[0].device) for lg in logits], 0), \
+            batch["cache"]
+    return step

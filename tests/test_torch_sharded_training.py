@@ -709,8 +709,9 @@ def test_full_width_dryrun_on_meta(no_kernels, arch, shape, cc):
     """Full-width cells on the single production mesh: status ok, no
     kernel wrapper reached, CUDA never initialised, every record field
     filled (temp bytes null; the tensor-parallel collectives' bytes, the
-    train cell's those of ``tp_collective_bytes``, and only the train
-    cell's in the roofline's collective term), and the counted FLOPs
+    train cell's those of ``tp_collective_bytes``, a serving cell's those
+    of ``serving_collective_bytes`` through ``cell_tp_bytes``, each in
+    the roofline's collective term), and the counted FLOPs
     within a factor 2 of the reference's closed form (``analytic_flops``,
     which leaves out remat's second forward and the norms' and SSD's
     small products)."""
@@ -719,17 +720,22 @@ def test_full_width_dryrun_on_meta(no_kernels, arch, shape, cc):
     assert not torch.cuda.is_initialized()
     assert rec["chips"] == 256 and rec["memory"]["temp_gib"] is None
     tp = rec["counted"]["coll_bytes_tensor_parallel"]
-    assert set(tp) == {"reduce-scatter", "all-gather", "all-reduce"}
     coll = sum(rec["counted"]["coll_bytes_data_axes"].values())
+    cfg = get_config(arch).replace(dtype="bfloat16", param_dtype="bfloat16")
+    mesh = DR.meta_mesh(DR.make_production_mesh(device="cpu"))
+    sp = SHAPES[shape]
     if shape == "train_4k":
-        cfg = get_config(arch).replace(dtype="bfloat16",
-                                       param_dtype="bfloat16")
-        mesh = DR.meta_mesh(DR.make_production_mesh(device="cpu"))
-        sp = SHAPES["train_4k"]
+        assert set(tp) == {"reduce-scatter", "all-gather", "all-reduce"}
         assert tp == DR.tp_collective_bytes(cfg, mesh, DR.TRAIN_ACCUM,
                                             sp["global_batch"],
                                             sp["seq_len"])
-        coll += sum(tp.values())
+    else:
+        assert set(tp) == {"reduce-scatter", "all-gather", "all-reduce",
+                           "kv over model", "kv over data",
+                           "logits over model"}
+        assert tp == DR.cell_tp_bytes(cfg, sp["kind"], sp["global_batch"],
+                                      sp["seq_len"], mesh, cc=cc)
+    coll += sum(tp.values())
     assert rec["roofline"]["collective_s"] == pytest.approx(
         coll / RL.NVLINK_BW)
     assert rec["memory"]["argument_bytes"] > 0
@@ -768,7 +774,10 @@ def test_chip_smoke_sharded_phase_rehearsal(monkeypatch):
     assert out["elastic"]["shards_differ"] == 0
     assert out["elastic"]["shards"] > 0
     assert out["roofline"]["count_step_flops"] > 0
-    assert out["dryrun"]["decode_32k"]["dominant"] == "memory"
+    # the serving plan's gathers of the sequence-split cache (8 kv heads
+    # do not divide the model axis of 16) put llama3-8b's decode cell on
+    # the collective term
+    assert out["dryrun"]["decode_32k"]["dominant"] == "collective"
     # phase 15 on the same tiny configs: llama3-8b/2 on (2, 4) against
     # phase 14's unsharded run, recurrentgemma-9b/3 on (1, 4) against an
     # unsharded run (its rglru blocks split), mamba2 cut to 2 layers and

@@ -228,16 +228,38 @@ def test_split_ssd_norm_spans_all_channels(monkeypatch, n):
 
 
 @pytest.mark.parametrize("kind", ["rglru", "ssd"])
-def test_split_block_refuses_a_cache(kind):
-    """The plan runs stateless passes only: a split block given a cache
-    raises rather than run some other way."""
+def test_split_block_with_a_cache_matches_whole(kind):
+    """Given a cache, the block on 2 and 4 model shards, each reading and
+    writing its channels (and the SSD block's heads) of the state, ==
+    the whole block on the same cache: a prefill from an empty cache, a
+    partial pass from its state and 2 decode steps after it, outputs and
+    every cache leaf within ``PARAM_TOL``, no grad."""
     cfg, p = _layer(kind)
-    cache = TM.init_cache(cfg, B, S, device="cpu")
     pi = cfg.pattern.index(kind)
-    state = {k: v[0] for k, v in cache["groups"][pi].items()}
-    with pytest.raises(ValueError, match="stateless"):
-        BLOCK[kind](_ctx(cfg, mode="prefill"), _split(p, kind, 2),
-                    _x(cfg).detach(), state)
+    x = _x(cfg).detach()
+    rng = np.random.default_rng(4)
+
+    def ctx(mode, T, p0):
+        pos = torch.arange(p0, p0 + T, dtype=torch.int32).expand(B, T)
+        return TM.Ctx(cfg=cfg, mode=mode, positions=pos,
+                      decode_slot=pos[:, 0] if mode == "decode" else None)
+    passes = [("prefill", x, 0), ("partial", x[:, :8], S)] + [
+        ("decode", torch.from_numpy(rng.normal(size=(B, 1, cfg.d_model))
+                                    .astype(np.float32)), S + 8 + i)
+        for i in range(2)]
+    with torch.no_grad():
+        cache = TM.init_cache(cfg, B, S, device="cpu")
+        want_st = {k: v[0].clone() for k, v in cache["groups"][pi].items()}
+        states = {n: {k: v.clone() for k, v in want_st.items()}
+                  for n in (2, 4)}
+        for mode, h, p0 in passes:
+            want = BLOCK[kind](ctx(mode, h.shape[1], p0), p, h, want_st)[0]
+            for n, st in states.items():
+                got = BLOCK[kind](ctx(mode, h.shape[1], p0),
+                                  _split(p, kind, n), h, st)[0]
+                _assert_close(got, want, f"{mode} on {n}: output")
+                for k in want_st:
+                    _assert_close(st[k], want_st[k], f"{mode} on {n}: {k}")
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-370m"])
