@@ -238,7 +238,26 @@ Phases (each prints its own line; any failure raises and exits non-zero):
     and timed on the recorded inputs of its most frequent per-shard call
     (llama3-8b's on (1, 4), mamba2's for SSD) beside the unsharded call
     of that shape and SDPA on the shard's slice;
-19. a ``kernels`` JSON line (launches on the main paths, error, times,
+19. bf16 serving (after phase 10's long prompt, the last use of
+    llama3-8b's fp32 weights; TF32 off; ``run_bf16``): the weights rounded
+    to bf16 values in place and copied to bf16 (48 GB of weights on the
+    card, peak memory logged); engine A16 (``kernel``,
+    ``cfg.replace(dtype="bfloat16", param_dtype="bfloat16")``: bf16
+    weights and activations over the engine's fp32 caches, the chunk and
+    decode kernels' mixed instantiation, bf16 q and out over fp32 K/V)
+    after an untimed bf16 warm-up, and engine A32 (``kernel``, fp32, on
+    the same rounded weights), the smoke workload: both complete, A16's
+    chunk and decode launches counted from 0 all of the mixed
+    instantiation and exactly what its plans imply (one per layer and
+    prefill pass, one per layer and decode step), the A16-A32 decode
+    logit gap logged with the steps where greedy tokens part (each where
+    A32's top-two gap is within that gap), plans compared, TTFT mean and
+    p99, decode step and computed / total tokens of both; each mixed
+    kernel held on the recorded inputs of A16's most frequent call shape
+    (out within one bf16 rounding of the plain version's fp32 value plus
+    3e-5, the mass within 3e-5, two launches byte for byte) and timed
+    beside its plain version, its bound and the upcast plus SDPA;
+20. a ``kernels`` JSON line (launches on the main paths, error, times,
     bound, the D 256 rows, the paged kernel's per-shard call, each
     family's path shape, the pressure phase's and the strategies phase's
     beside them; and a row each for the chunk, decode and SSD kernels
@@ -246,16 +265,18 @@ Phases (each prints its own line; any failure raises and exits non-zero):
     figures, per-engine TTFT / decode-step figures, the server's, the
     families', the recurrent and vision ones, the mesh phases', the
     pressure phase's, the strategies phase's, phases 14-15's and phase
-    18's;
-20. last line: ``{"ok": true, "device": {...}}``.
+    18's; and the two mixed rows of phase 19 with its figures;
+21. last line: ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before the mamba2 phase, the training
 runs, the engine serving the trained checkpoint, engines A and B,
 each family's engine A, each counted run of phase 11, engine B on the
-mesh, the pressure phase's runs and the strategies phase's, and read
+mesh, the pressure phase's runs, the strategies phase's and engine A16
+(with each instantiation's count, ``launches_by_type``), and read
 just after (rope and the attention kernels of engine A in A, paged
 decode in B and in B on the mesh, all four in phase 16, chunk and rope
-in phase 17, chunk, decode and SSD around each sharded run of phase 18);
+in phase 17, chunk, decode and SSD around each sharded run of phase 18,
+the mixed chunk and decode instantiations and rope in A16);
 the comparison launches
 of phase 3 and the replays after the engines do not count. Without CUDA, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
@@ -283,6 +304,16 @@ SRC = os.path.join(ROOT, "src")
 # rate
 TF32_PASSES = 3
 TOL = {"float32": 3e-5, "bfloat16": 3e-2}
+# the (q and out, K/V) dtype pairs the attention kernels take: one type
+# for all, or the bf16 engine's mix, bf16 q and out over fp32 K/V (phase
+# 19). A mixed kernel's bf16 output is held within one bf16 rounding (half
+# an ulp, at most 2^-8 |x|) of the plain version's fp32 value, plus the
+# fp32 kernels' 3e-5 for the difference of the fp32 values; its fp32 mass
+# at 3e-5
+SAME_TYPES = (("float32", "float32"), ("bfloat16", "bfloat16"))
+MIXED_TYPES = (("bfloat16", "float32"),)
+MIXED = "bfloat16 q / float32 kv"     # build.ATTN_TYPE_NAMES of the mix
+BF16_ONE_ROUNDING = 2.0 ** -8
 # A/B vs C decode logits: fp32 attention summed in another order (online
 # softmax over 64-key tiles vs one dense softmax), carried through 32
 # layers; logits are O(1) (unit-variance unembedding). The families phase
@@ -454,13 +485,38 @@ def time_head_dim_halves(ci):
     return out
 
 
-def measure_chunk(label, ci):
+def _pair(q_name, kv_name):
+    """A (q, K/V) dtype pair's name: the dtype, or MIXED."""
+    return q_name if q_name == kv_name else MIXED
+
+
+def _hold_rounding(what, out, ref32):
+    """bf16 ``out`` within one bf16 rounding of fp32 ``ref32`` plus 3e-5:
+    returns (max abs error, worst ratio to that bound); raises beyond."""
+    import torch
+    d = (out.float() - ref32).abs()
+    ratio = float((d / (BF16_ONE_ROUNDING * ref32.abs()
+                        + TOL["float32"])).max())
+    if out.dtype != torch.bfloat16 or not ratio <= 1.0 or \
+            not bool(torch.isfinite(out).all()):
+        raise RuntimeError(f"{what}: {out.dtype} out beyond one bf16 "
+                           f"rounding + 3e-5 (worst ratio {ratio:.3f})")
+    return float(d.max()), ratio
+
+
+def measure_chunk(label, ci, pairs=SAME_TYPES):
     """chunk_attention on ``ci`` (batched tensors as the wrapper takes
-    them, fp32, plus ``C`` and ``window``) in fp32 and bf16: error against
-    the plain version (per batch row), two launches byte for byte, kernel /
-    plain / SDPA times and the bound from the pairs these inputs mask in.
-    The fp32 bound counts the 3xTF32 products at the TF32 rate; the
-    CUDA-core bound (fp32 at 67 TFLOP/s) is kept beside it."""
+    them, plus ``C`` and ``window``) for each (q, K/V) dtype pair of
+    ``pairs``: error against the plain version (per batch row; a mix
+    within one bf16 rounding of the plain version's fp32 value, its mass
+    within 3e-5), two launches byte for byte, kernel / plain / SDPA times
+    by events over 20 calls after 3 warm-up calls (for a mix, SDPA's
+    column is two calls: q upcast, then SDPA), and the bound from what
+    these inputs need: the (query, key) pairs they mask in, q read for the
+    rows that attend a key and K/V for the slots that some row attends,
+    out and the mass written for every row. On fp32 K/V (the mix too) the
+    bound counts the 3xTF32 products at the TF32 rate; the CUDA-core bound
+    (fp32 at 67 TFLOP/s) is kept beside it. Returns {pair name: {...}}."""
     import torch
     import torch.nn.functional as F
 
@@ -476,12 +532,18 @@ def measure_chunk(label, ci):
     if window:
         mask &= (qp[:, :, None] - kp[:, None]) < window
     n_pairs = int(mask.sum())
+    rows_live = int(mask.any(2).sum())       # q rows that attend a key
+    slots_live = int(mask.any(1).sum())      # K/V slots some row attends
     flops = 4 * D * H * n_pairs
+    shape = (f"B {B}, A {A}, S {S}, H {H}/{Hkv}, D {D}, C {C}, "
+             f"window {window}")
     res = {}
-    for dt_name in ("float32", "bfloat16"):
-        dt = getattr(torch, dt_name)
-        x = {n: (t.to(dt) if t.is_floating_point() else t)
+    for q_name, kv_name in pairs:
+        name = _pair(q_name, kv_name)
+        kv_dt = getattr(torch, kv_name)
+        x = {n: (t.to(kv_dt) if t.is_floating_point() else t)
              for n, t in ci.items() if isinstance(t, torch.Tensor)}
+        x["q"] = ci["q"].to(getattr(torch, q_name))
         args = (x["q"], x["k"], x["v"], x["q_pos"], x["k_pos"], x["k_chunk"])
         kw = dict(q_seg=x["q_seg"], k_seg=x["k_seg"], num_chunks=C,
                   window=window)
@@ -489,48 +551,67 @@ def measure_chunk(label, ci):
         o2, m2 = cops.chunk_attention(*args, **kw)
         torch.cuda.synchronize()
         if not (torch.equal(o, o2) and torch.equal(m, m2)):
-            raise RuntimeError(f"chunk_attention {label} {dt_name}: two "
+            raise RuntimeError(f"chunk_attention {label} {name}: two "
                                "launches on the same inputs differ")
 
-        def plain():
+        def plain(qq=x["q"], x=x):
             return [chunk_attention_ref(
-                x["q"][b], x["k"][b], x["v"][b], x["q_pos"][b],
+                qq[b], x["k"][b], x["v"][b], x["q_pos"][b],
                 x["k_pos"][b], x["k_chunk"][b], num_chunks=C, window=window,
                 q_seg=x["q_seg"][b], k_seg=x["k_seg"][b]) for b in range(B)]
-        e = 0.0
-        for b, (orf, mrf) in enumerate(plain()):
-            e = max(e, float((o[b].float() - orf.float()).abs().max()),
-                    float((m[b] - mrf).abs().max()))
-        if not (e <= TOL[dt_name] and torch.isfinite(o).all()):
-            raise RuntimeError(f"chunk_attention {label} {dt_name}: max abs "
-                               f"err {e} > {TOL[dt_name]}")
+        extra = {}
+        if name == MIXED:
+            ref = plain(x["q"].float())
+            e, ratio = _hold_rounding(f"chunk_attention {label} {name}", o,
+                                      torch.stack([r for r, _ in ref]))
+            mass_err = float((m - torch.stack([r for _, r in ref]))
+                             .abs().max())
+            if not mass_err <= TOL["float32"]:
+                raise RuntimeError(f"chunk_attention {label} {name}: mass "
+                                   f"err {mass_err} > {TOL['float32']}")
+            extra = dict(ratio=ratio, mass_err=mass_err)
+            tol = (f"worst {ratio:.3f} of one bf16 rounding + 3e-5, mass "
+                   f"err {mass_err:.3e}")
+        else:
+            e = 0.0
+            for b, (orf, mrf) in enumerate(plain()):
+                e = max(e, float((o[b].float() - orf.float()).abs().max()),
+                        float((m[b] - mrf).abs().max()))
+            if not (e <= TOL[name] and torch.isfinite(o).all()):
+                raise RuntimeError(f"chunk_attention {label} {name}: max "
+                                   f"abs err {e} > {TOL[name]}")
+            tol = f"tol {TOL[name]}"
         qh = x["q"].transpose(1, 2).contiguous()           # [B, H, A, D]
         kh = x["k"].transpose(1, 2).contiguous()
         vh = x["v"].transpose(1, 2).contiguous()
         t_k = cuda_ms(lambda: cops.chunk_attention(*args, **kw))
         t_p = cuda_ms(plain, iters=5)
         t_l = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask[:, None], enable_gqa=True))
-        el = x["q"].element_size()
-        nbytes = B * ((2 * A * H * D + 2 * S * Hkv * D) * el
-                      + 4 * (2 * A + 3 * S) + 4 * A * C)
-        if dt_name == "float32":
+            qh.to(kv_dt), kh, vh, attn_mask=mask[:, None], enable_gqa=True))
+        el_q, el_kv = x["q"].element_size(), x["k"].element_size()
+        nbytes = ((rows_live + B * A) * H * D * el_q
+                  + 2 * slots_live * Hkv * D * el_kv
+                  + B * (4 * (2 * A + 3 * S) + 4 * A * C))
+        cc_ms, note = None, ""
+        if kv_name == "float32":
             b_ms, b_by = bound(nbytes, TF32_PASSES * flops, "tf32")
             cc_ms, cc_by = bound(nbytes, flops, "float32")
             note = (f" (3xTF32 at 495 TFLOP/s; CUDA cores: {cc_ms:.4f} "
                     f"{cc_by})")
         else:
-            b_ms, b_by = bound(nbytes, flops, dt_name)
-            cc_ms, note = None, ""
-        res[dt_name] = dict(err=e, ms=t_k, plain_ms=t_p, library_ms=t_l,
-                            bound_ms=b_ms, bound_by=b_by,
-                            bound_ms_cuda_cores=cc_ms)
-        log(f"kernel chunk_attention {label} {dt_name} B={B} A={A} S={S} "
-            f"H={H} Hkv={Hkv} D={D} C={C} splits="
-            f"{cops.num_splits(B, A, S, H, Hkv, dt)} pairs={n_pairs}: "
-            f"max_abs_err={e:.3e} (tol {TOL[dt_name]}) two launches "
+            b_ms, b_by = bound(nbytes, flops, kv_name)
+        ns = cops.num_splits(B, A, S, H, Hkv, kv_dt)
+        res[name] = dict(err=e, ms=t_k, plain_ms=t_p, library_ms=t_l,
+                         bound_ms=b_ms, bound_by=b_by,
+                         bound_ms_cuda_cores=cc_ms, splits=ns, shape=shape,
+                         **extra)
+        lib = " (upcast + SDPA)" if name == MIXED else ""
+        log(f"kernel chunk_attention {label} {name} B={B} A={A} S={S} "
+            f"H={H} Hkv={Hkv} D={D} C={C} window={window} splits={ns} "
+            f"pairs={n_pairs} live_rows={rows_live} live_slots="
+            f"{slots_live}: max_abs_err={e:.3e} ({tol}) two launches "
             f"bit-identical ms={t_k:.4f} plain_ms={t_p:.4f} "
-            f"library_ms={t_l:.4f} bound_ms={b_ms:.4f} ({b_by}){note} "
+            f"library_ms={t_l:.4f}{lib} bound_ms={b_ms:.4f} ({b_by}){note} "
             f"share={b_ms / t_k:.1%}")
     return res
 
@@ -736,11 +817,15 @@ def _paged_gather(pi):
     return safe, gpos
 
 
-def measure_decode(label, di):
+def measure_decode(label, di, pairs=SAME_TYPES):
     """decode_attention on ``di`` (q, k, v, q_pos, k_pos as the wrapper
-    takes them, fp32, and ``window``) in fp32 and bf16: error against the
-    plain version, two launches byte for byte, kernel / plain / SDPA
-    times and the bound from the keys these inputs let through."""
+    takes them, and ``window``) for each (q, K/V) dtype pair of ``pairs``:
+    error against the plain version (a mix within one bf16 rounding of the
+    plain version's fp32 value), two launches byte for byte, kernel /
+    plain / SDPA times by events over 20 calls after 3 warm-up calls and
+    by ``torch.profiler``'s device time (for a mix, SDPA's column is two
+    calls: q upcast, then SDPA), and the bound from the keys these inputs
+    let through. Returns {pair name: {...}}."""
     import torch
     import torch.nn.functional as F
 
@@ -752,21 +837,33 @@ def measure_decode(label, di):
     S, Hkv = di["k"].shape[1:3]
     live = _decode_live(di["q_pos"], di["k_pos"], window)
     n_keys = int(live.sum())
+    shape = f"B {B}, S {S}, H {H}/{Hkv}, D {D}, window {window}"
     res = {}
-    for dt_name in ("float32", "bfloat16"):
-        dt = getattr(torch, dt_name)
-        x = _cast(di, dt)
+    for q_name, kv_name in pairs:
+        name = _pair(q_name, kv_name)
+        kv_dt = getattr(torch, kv_name)
+        x = _cast(di, kv_dt)
+        x["q"] = di["q"].to(getattr(torch, q_name))
         args = (x["q"], x["k"], x["v"], x["q_pos"], x["k_pos"])
         o = dops.decode_attention(*args, window=window)
         o2 = dops.decode_attention(*args, window=window)
         torch.cuda.synchronize()
         if not torch.equal(o, o2):
-            raise RuntimeError(f"decode_attention {label} {dt_name}: two "
+            raise RuntimeError(f"decode_attention {label} {name}: two "
                                "launches on the same inputs differ")
-        e = _err(o, decode_attention_ref(*args, window=window))
-        if not (e <= TOL[dt_name] and torch.isfinite(o).all()):
-            raise RuntimeError(f"decode_attention {label} {dt_name}: max "
-                               f"abs err {e} > {TOL[dt_name]}")
+        extra = {}
+        if name == MIXED:
+            e, ratio = _hold_rounding(
+                f"decode_attention {label} {name}", o, decode_attention_ref(
+                    x["q"].float(), *args[1:], window=window))
+            extra = dict(ratio=ratio)
+            tol = f"worst {ratio:.3f} of one bf16 rounding + 3e-5"
+        else:
+            e = _err(o, decode_attention_ref(*args, window=window))
+            if not (e <= TOL[name] and torch.isfinite(o).all()):
+                raise RuntimeError(f"decode_attention {label} {name}: max "
+                                   f"abs err {e} > {TOL[name]}")
+            tol = f"tol {TOL[name]}"
         qh = x["q"][:, :, None]                          # [B, H, 1, D]
         kh = x["k"].transpose(1, 2).contiguous()
         vh = x["v"].transpose(1, 2).contiguous()
@@ -774,26 +871,27 @@ def measure_decode(label, di):
         kern = lambda: dops.decode_attention(  # noqa: E731
             *args, window=window)
         lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qh, kh, vh, attn_mask=lmask, enable_gqa=True)
+            qh.to(kv_dt), kh, vh, attn_mask=lmask, enable_gqa=True)
         t_k, t_l = cuda_ms(kern), cuda_ms(lib)
         t_p = cuda_ms(lambda: decode_attention_ref(*args, window=window))
         d_k, d_l = device_ms(kern), device_ms(lib)
-        el = x["q"].element_size()
-        nbytes = (2 * B * H * D + 2 * n_keys * Hkv * D) * el + \
-            4 * (B + B * S)
-        b_ms, b_by = bound(nbytes, 4 * D * H * n_keys, dt_name)
-        ns = dops.num_splits(B, S, Hkv, dt)
-        res[dt_name] = dict(err=e, ms=t_k, plain_ms=t_p, library_ms=t_l,
-                            device_ms=d_k, library_device_ms=d_l,
-                            bound_ms=b_ms, bound_by=b_by, splits=ns)
-        log(f"kernel decode_attention {label} {dt_name} B={B} S={S} H={H} "
+        nbytes = 2 * B * H * D * x["q"].element_size() + \
+            2 * n_keys * Hkv * D * x["k"].element_size() + 4 * (B + B * S)
+        b_ms, b_by = bound(nbytes, 4 * D * H * n_keys, kv_name)
+        ns = dops.num_splits(B, S, Hkv, kv_dt)
+        res[name] = dict(err=e, ms=t_k, plain_ms=t_p, library_ms=t_l,
+                         device_ms=d_k, library_device_ms=d_l,
+                         bound_ms=b_ms, bound_by=b_by, splits=ns,
+                         shape=shape, **extra)
+        up = " (upcast + SDPA)" if name == MIXED else ""
+        log(f"kernel decode_attention {label} {name} B={B} S={S} H={H} "
             f"Hkv={Hkv} D={D} window={window} live_keys={n_keys} "
-            f"splits={ns}: max_abs_err={e:.3e} (tol {TOL[dt_name]}) two "
+            f"splits={ns}: max_abs_err={e:.3e} ({tol}) two "
             f"launches bit-identical ms={t_k:.4f} device_ms={_fmt(d_k)} "
             f"plain_ms={t_p:.4f} library_ms={t_l:.4f} library_device_ms="
-            f"{_fmt(d_l)} bound_ms={b_ms:.4f} ({b_by}) share={b_ms / t_k:.1%}"
-            f" of ms, {'-' if d_k is None else f'{b_ms / d_k:.1%}'} of "
-            "device_ms")
+            f"{_fmt(d_l)}{up} bound_ms={b_ms:.4f} ({b_by}) share="
+            f"{b_ms / t_k:.1%} of ms, "
+            f"{'-' if d_k is None else f'{b_ms / d_k:.1%}'} of device_ms")
     return res
 
 
@@ -962,17 +1060,19 @@ class DecodeRecorder:
             if entry == "decode_attention_fwd":
                 names = ("q", "k", "v", "q_pos", "k_pos")
                 key = ("dense", ints[0], ints[1])
-                if ints[-1]:
+                window = ints[5]      # the type code follows on the card
+                if window:
                     self.window_masked += _window_masked(
-                        ptrs[3][:, None], ptrs[4], ints[-1])
+                        ptrs[3][:, None], ptrs[4], window)
             else:
                 names = ("q", "k_blocks", "v_blocks", "kpos_blocks",
                          "block_rows", "q_pos")
                 key = ("paged", ints[0], ints[2], ints[3])
+                window = ints[8]
             self.shapes[key] += 1
             if key not in self.calls:
                 d = {n: t.clone() for n, t in zip(names, ptrs)}
-                d["window"] = int(ints[-1])
+                d["window"] = int(window)
                 self.calls[key] = d
             return self.orig(what, entry, ptrs, ints, q, nsplit)
         self.dops._call = rec
@@ -4855,6 +4955,201 @@ def run_tp_serving(dev, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: bf16 serving through the engine's kernel route
+# ---------------------------------------------------------------------------
+def _leaves(params):
+    return [params["embed"], params["unembed"], params["final_norm"]] + \
+        [x for g in params["groups"] + params["tail"] for x in g.values()]
+
+
+# A16 against A32: their decode logits within BF16_FORWARD_FACTOR times the
+# bf16-vs-fp32 gap of the plain train-mode forward (dense attention, no
+# kernel and no cache) on the same weights, read in the same run over
+# FORWARD_TOKENS of random prompts. The engine rounds in more stages than
+# that forward (stored chunks computed in bf16, partial recompute, decode
+# over the generated tokens), and fewer per stage (its K/V stay fp32, its
+# kernels work in fp32). On tiny llama3-8b on the CPU the engine's gap is
+# 0.64x the forward's for the reference and 0.80x for the port on the
+# same weights and trace (tests/test_torch_bf16_serving.py), 1.69x in
+# this phase's rehearsal (its workload, its seed-0 weights); 4x leaves
+# 2.4x above the highest. One layer's bf16 decode output zeroed (a planted
+# fault of the bf16 path alone) read 50x there, and this bound refuses it
+BF16_FORWARD_FACTOR = 4.0
+FORWARD_TOKENS = (2, 256)            # (prompts, tokens each)
+
+
+def forward_gap(cfg, params, cfg16, params16, dev, seed=4):
+    """The plain train-mode forward on ``dense`` in bf16 (``cfg16``,
+    ``params16``) against fp32 (``cfg``, ``params``) on FORWARD_TOKENS of
+    random tokens: (max |logit gap|, the fp32 logits' max |value|)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as M
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, FORWARD_TOKENS).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        lo32 = M.forward(cfg, params, tokens=toks, attn_impl="dense").logits
+        lo16 = M.forward(cfg16, params16, tokens=toks,
+                         attn_impl="dense").logits
+        gap = float((lo16.float() - lo32.float()).abs().max())
+        scale = float(lo32.float().abs().max())
+    return gap, scale
+
+
+def _bf16_gap(trace16, tok16, trace32, tok32, rids):
+    """A16 against A32 on the requests ``rids`` (those whose plans agree:
+    another plan recomputes other tokens, which is not rounding), request
+    by request over the decode steps whose inputs agree (tokens equal so
+    far): the largest logit gap over them
+    all (``gap``), the largest over the steps where the greedy tokens stay
+    equal (``kept``), each step where they part (rid, step, A32's top-two
+    gap there), the steps compared and A32's largest |logit| over them."""
+    import numpy as np
+
+    mine, ref = _per_rid(trace16), _per_rid(trace32)
+    if set(mine) != set(ref):
+        raise RuntimeError("phase 19: A16 and A32 decoded other requests")
+    gap = kept = scale = 0.0
+    parts, steps = [], 0
+    for rid in sorted(set(ref) & set(rids)):
+        for i, (a, b) in enumerate(zip(mine[rid], ref[rid])):
+            if tok16[rid][:i + 1] != tok32[rid][:i + 1]:
+                break
+            if not (a.shape == b.shape and np.isfinite(a).all()):
+                raise RuntimeError(f"phase 19: rid {rid} step {i}: bad "
+                                   "logits")
+            d = float(np.abs(a - b).max())
+            gap = max(gap, d)
+            scale = max(scale, float(np.abs(b).max()))
+            steps += 1
+            if int(a.argmax()) != int(b.argmax()):
+                top2 = np.sort(b)[-2:]
+                parts.append((rid, i, float(top2[1] - top2[0])))
+                break
+            kept = max(kept, d)
+    return dict(gap=gap, kept=kept, parts=parts, steps=steps, scale=scale)
+
+
+def run_bf16(cfg, params, tmp):
+    """Phase 19: full-width llama3-8b served in bf16 on ``kernel`` (bf16
+    weights and activations over the engine's fp32 caches, the mixed
+    chunk and decode instantiations), engine A16, beside engine A32, the
+    same route in fp32 on the same bf16-rounded weights, so that their gap
+    measures the bf16 activations alone. ``params`` (fp32) is rounded to
+    bf16 values in place, then copied to bf16 (16 GB beside its 32). The
+    smoke workload, TF32 off. A16's launches counted from 0: every chunk
+    and decode launch the mixed one, as many as its plans imply (a chunk
+    launch per layer and prefill pass, a decode launch per layer and
+    step); each mixed kernel held and timed on the recorded inputs of
+    A16's most frequent call shape."""
+    import torch
+
+    from repro_torch.kernels.chunk_attention import ops as cops
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.rope import ops as rops
+
+    t_phase = time.perf_counter()
+    dev = params["embed"].device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.no_grad():
+        for x in _leaves(params):
+            x.copy_(x.to(torch.bfloat16))
+        p16 = {"embed": params["embed"].to(torch.bfloat16),
+               "unembed": params["unembed"].to(torch.bfloat16),
+               "final_norm": params["final_norm"].to(torch.bfloat16),
+               "groups": [{n: x.to(torch.bfloat16) for n, x in g.items()}
+                          for g in params["groups"]],
+               "tail": [{n: x.to(torch.bfloat16) for n, x in t.items()}
+                        for t in params["tail"]]}
+    torch.cuda.synchronize()
+    cfg16 = cfg.replace(dtype="bfloat16", param_dtype="bfloat16")
+    w_gb = sum(x.numel() * x.element_size() for x in _leaves(params)
+               + _leaves(p16)) / 1e9
+    log(f"phase 19: llama3-8b weights rounded to bf16 in place, bf16 copy "
+        f"made: {w_gb:.2f} GB of weights on the card")
+    # first-use costs of the bf16 products and the mixed kernels land in
+    # an untimed warm-up, not in A16
+    run_engine("warmup16", cfg16, p16, tmp, attn_impl="kernel",
+               num_requests=4, max_new_tokens=2)
+    counts = {}
+    for f in (cops.chunk_attention, dops.decode_attention):
+        f.launches = 0
+        f.launches_by_type.clear()
+    rops.rope.launches = 0
+    with ChunkRecorder(cops) as cc, DecodeRecorder(dops) as dc:
+        a16, tr16, tok16, plan16, _c16 = run_engine(
+            "A16", cfg16, p16, tmp, attn_impl="kernel")
+    for name, f in (("chunk_attention", cops.chunk_attention),
+                    ("decode_attention", dops.decode_attention)):
+        counts[name] = dict(f.launches_by_type)
+    counts["rope"] = rops.rope.launches
+    a32, tr32, tok32, plan32, _c32 = run_engine("A32", cfg, params, tmp,
+                                                attn_impl="kernel")
+    L = cfg.num_layers
+    want = {"chunk_attention": a16["prefill_batches"] * L,
+            "decode_attention": a16["decode_steps"] * L}
+    log(f"phase 19: A16 launches by instantiation {json.dumps(counts)}; "
+        f"its plans imply {json.dumps(want)} (A32's "
+        f"{a32['prefill_batches'] * L} / {a32['decode_steps'] * L})")
+    for name, n in want.items():
+        if counts[name] != {MIXED: n}:
+            raise RuntimeError(f"phase 19: A16's {name} launches "
+                               f"{counts[name]}, want {{{MIXED!r}: {n}}}")
+    plan_diff = sum(plan16[r] != plan32[r] for r in plan32)
+    g = _bf16_gap(tr16, tok16, tr32, tok32,
+                  [r for r in plan32 if plan16[r] == plan32[r]])
+    fwd, fwd_scale = forward_gap(cfg, params, cfg16, p16, dev)
+    limit = BF16_FORWARD_FACTOR * fwd
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    same = sum(tok16[r] == tok32[r] for r in tok32)
+    log(f"phase 19: A16 vs A32 decode logits {g['gap']:.3e} over "
+        f"{g['steps']} request-steps of the requests whose plans agree "
+        f"(A32's logits up to {g['scale']:.3f}), "
+        f"{g['kept']:.3e} over the steps whose tokens stay equal; the plain "
+        f"forward's bf16 vs fp32 gap {fwd:.3e} (logits up to "
+        f"{fwd_scale:.3f}), limit {BF16_FORWARD_FACTOR:g}x = {limit:.3e}; "
+        f"greedy tokens part at {len(g['parts'])} step(s) (rid, step, "
+        f"A32's top-two gap) {g['parts']}; identical token streams "
+        f"{same}/{len(tok32)}; plans differ for {plan_diff}/{len(plan32)} "
+        f"requests; peak memory {peak:.2f} GB")
+    if g["steps"] == 0 or not g["gap"] <= limit:
+        raise RuntimeError(f"phase 19: A16 vs A32 decode logit gap "
+                           f"{g['gap']} beyond {BF16_FORWARD_FACTOR:g}x the "
+                           f"plain forward's bf16 gap {fwd}")
+    # a parting's tolerance is read off the other steps: the greedy tokens
+    # may part only where A32's top-two gap is within the gap of the steps
+    # whose tokens stayed equal
+    beyond = [p for p in g["parts"] if not p[2] <= g["kept"]]
+    if beyond:
+        raise RuntimeError(f"phase 19: greedy tokens part where A32's "
+                           f"top-two gap exceeds the A16-A32 logit gap "
+                           f"{g['kept']} of the steps that agree: {beyond}")
+    ck = max(cc.shapes, key=lambda k: (cc.shapes[k], k))
+    dk = dc.most_frequent("dense")
+    rows = {"chunk_attention": dict(
+                calls=cc.shapes[ck], **measure_chunk(
+                    f"A16 path{list(ck)}", cc.calls[ck], MIXED_TYPES)[MIXED]),
+            "decode_attention": dict(
+                calls=dc.shapes[dk], **measure_decode(
+                    f"A16 path{list(dk[1:])}", dc.calls[dk],
+                    MIXED_TYPES)[MIXED])}
+    del cc, dc, p16
+    _free()
+    out = dict(A16=a16, A32=a32, launches=counts, want=want,
+               logit_gap=g["gap"], logit_gap_kept=g["kept"],
+               logit_scale=g["scale"], forward_gap=fwd,
+               forward_scale=fwd_scale, logit_limit=limit,
+               greedy_parts=g["parts"], compared_steps=g["steps"],
+               identical_streams=same, plan_diff=plan_diff,
+               weights_gb=w_gb, peak_gb=peak, kernels=rows,
+               seconds=time.perf_counter() - t_phase)
+    log(f"phase 19 (bf16 serving on kernel): {out['seconds']:.1f}s")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4912,7 +5207,7 @@ def main() -> int:
     occ = {dt: dict(
         smem_bytes=clib.chunk_attention_smem_bytes(128, 16, bf, 32),
         ctas_per_sm=clib.chunk_attention_occupancy(128, 16, bf, 32))
-        for dt, bf in (("float32", 0), ("bfloat16", 1))}
+        for dt, bf in (("float32", 0), ("bfloat16", 1), (MIXED, 2))}
     log("chunk_attention D=128 C=16 per CTA: " + json.dumps(occ)
         + "; ptxas:\n  " + "\n  ".join(
             ln.strip() for ln in blog["chunk_attention"]["log"].splitlines()
@@ -4937,6 +5232,9 @@ def main() -> int:
         ctas_per_sm=dlib.decode_attention_occupancy(128, 4, bf, paged))
         for kind, paged in (("dense", 0), ("paged", 1))
         for dt, bf in (("float32", 0), ("bfloat16", 1))}
+    docc[f"dense {MIXED}"] = dict(
+        smem_bytes=dlib.decode_attention_smem_bytes(128, 4, 2, 0),
+        ctas_per_sm=dlib.decode_attention_occupancy(128, 4, 2, 0))
     log("decode_attention G=4 D=128 per CTA: " + json.dumps(docc)
         + "; ptxas:\n  " + "\n  ".join(
             ln.strip() for ln in blog["decode_attention"]["log"].splitlines()
@@ -5058,6 +5356,9 @@ def main() -> int:
         # phase 10: the families. First the paper's model once more, on
         # a prompt past auto's 2^21 score elements, then its weights go
         long_gap = run_long_prompt(cfg, params, dev)
+        # phase 19: bf16 serving on kernel, engines A16 and A32; it rounds
+        # the fp32 weights to bf16 values in place, their last use
+        bf16 = run_bf16(cfg, params, tmp)
         del params
         _free()
         families = run_families(dev, tmp)
@@ -5109,7 +5410,7 @@ def main() -> int:
     err_a = compare_logits("A(kernel)", tr_a, tok_a, tr_c, tok_c)
     err_b = compare_logits("B(paged_kernel)", tr_b, tok_b, tr_c, tok_c)
 
-    # phase 19: the kernels line, the mamba2, training, engine, family,
+    # phase 20: the kernels line, the mamba2, training, engine, family,
     # recurrent / vision, mesh, pressure, strategies, sharded-training and
     # sharded-serving figures
     sources = {
@@ -5416,6 +5717,37 @@ def main() -> int:
         kernels.append(row)
     log(f"sharded serving [{card}]: " + json.dumps({
         k: v for k, v in tp_serving.items() if k != "kernels"}))
+    # the mixed instantiations on the bf16 engine's path (phase 19): A16's
+    # launches of each, and each held and timed on the recorded inputs of
+    # A16's most frequent call shape
+    for name in ("chunk_attention", "decode_attention"):
+        r = bf16["kernels"][name]
+        src, rep = sources[name]
+        kernels.append(dict(
+            name=f"{name} {MIXED}", route="cuda", source=src, replaces=rep,
+            launches=bf16["launches"][name][MIXED], max_abs_err=r["err"],
+            worst_ratio_to_one_rounding=r["ratio"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            library_note="two calls: q upcast to fp32, then SDPA with the "
+                         "same mask", shape=r["shape"],
+            calls_at_shape=r["calls"],
+            **{k: r[k] for k in ("mass_err", "bound_ms_cuda_cores",
+                                 "device_ms", "library_device_ms", "splits")
+               if k in r}))
+    log(f"bf16 serving [{card}]: " + json.dumps({
+        "A16": {m: bf16["A16"][m] for m in (
+            "ttft_mean_ms", "ttft_p99_ms", "prefill_pass_ms",
+            "decode_step_ms", "decode_tokens_per_s", "prefill_tokens_computed",
+            "prefill_tokens_total", "wall_s")},
+        "A32": {m: bf16["A32"][m] for m in (
+            "ttft_mean_ms", "ttft_p99_ms", "prefill_pass_ms",
+            "decode_step_ms", "decode_tokens_per_s", "prefill_tokens_computed",
+            "prefill_tokens_total", "wall_s")},
+        **{k: bf16[k] for k in ("launches", "want", "logit_gap",
+                                "greedy_parts", "compared_steps",
+                                "identical_streams", "plan_diff",
+                                "weights_gb", "peak_gb", "seconds")}}))
     log(f"end-to-end vs dense: A max abs logit diff {err_a:.3e}, "
         f"B {err_b:.3e}; total {time.perf_counter() - t_all:.1f}s")
     log(card)    # nvidia-smi's name, power.limit line, verbatim

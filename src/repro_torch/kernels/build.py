@@ -129,6 +129,31 @@ def check_no_grad(what: str, **tensors):
             "torch.no_grad() (training uses the differentiable route)")
 
 
+# (q and out, K and V) element types the attention kernels' sources
+# instantiate, by the type code their C entry points take: fp32, bf16, and
+# bf16 q over fp32 K/V (a bf16 model over fp32 caches, as the reference's
+# kernels take it)
+ATTN_TYPES = {("float32", "float32"): 0, ("bfloat16", "bfloat16"): 1,
+              ("bfloat16", "float32"): 2}
+ATTN_TYPE_NAMES = {0: "float32", 1: "bfloat16", 2: "bfloat16 q / float32 kv"}
+
+
+def attn_type_code(what: str, q, k, v, codes=(0, 1, 2)) -> int:
+    """The type code of an attention call's (q, K/V) dtypes, one of
+    ``codes``; raise ``TypeError`` naming the pairs the kernel takes on
+    anything else (K and V of two dtypes included). The CPU path checks it
+    too, so that it takes what the kernel takes."""
+    def name(t):
+        return str(t.dtype).replace("torch.", "")
+    code = ATTN_TYPES.get((name(q), name(k)))
+    if k.dtype != v.dtype or code not in codes:
+        pairs = "; ".join(f"q {qn} with K and V {kn}"
+                          for (qn, kn), c in ATTN_TYPES.items() if c in codes)
+        raise TypeError(f"{what}: q {name(q)}, k {name(k)}, v {name(v)}: "
+                        f"the kernel takes {pairs}")
+    return code
+
+
 def check_tensor(what: str, name: str, t, shape, dtypes, device):
     """Raise unless ``t`` is what a kernel's C entry point takes: on
     ``device``, one of ``dtypes``, exactly ``shape``, contiguous."""

@@ -78,11 +78,24 @@
 //    Without a split the CTA normalises itself and the second kernel sums
 //    the per-KV-head mass. No atomics: the same inputs give the same bits
 //    on every launch.
-// Later work: wgmma with TMA-fed, warp-specialised stages.
+//  * Three instantiations of element types (the C entry's type code):
+//    fp32 (0), bf16 (1), and bf16 q and out over fp32 K/V (2), the mix a
+//    bf16 model serves with over the engine's fp32 caches, as the
+//    reference's kernel takes it (kernel.py upcasts q, K and V to fp32 and
+//    writes out in q's dtype). The mix runs the fp32 route: K/V on the same
+//    fp32 cp.async ring and key tiles, 3xTF32 products, the mass in fp32;
+//    its Q tile is read once per CTA with plain 16-byte loads and widened
+//    to the fp32 tile the 3xTF32 path reads (cp.async cannot convert), and
+//    the output is rounded to bf16 to nearest even, as astype rounds.
+// Later work: wgmma with TMA-fed, warp-specialised stages. In the mix a
+// bf16 q has a zero TF32 low part, so one of the three TF32 products of
+// Q.K^T (small(q) . big(k)) is exactly zero and could be dropped.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #ifndef CPU_EMULATION
 #define LAUNCH(kernel, grid, block, smem, stream) \
@@ -166,7 +179,7 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 }
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+  return __float2bfloat16_rn(x);
 }
 
 // two bf16 in one register: lo in the low half (the lower k index)
@@ -192,7 +205,7 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
 }
 
 struct ChunkParams {
-  const void* q;       // [B, A, H, D]
+  const void* q;       // [B, A, H, D] (TQ)
   const void* k;       // [B, S, Hkv, D]
   const void* v;       // [B, S, Hkv, D]
   const int* qpos;     // [B, A]
@@ -200,7 +213,7 @@ struct ChunkParams {
   const int* kchunk;   // [B, S]
   const int* qseg;     // [B, A]
   const int* kseg;     // [B, S]
-  void* out;           // [B, A, H, D]
+  void* out;           // [B, A, H, D] (TQ)
   float* work;         // nsplit 1: mass per KV head [B, Hkv, A, C];
                        // else o [ns,B,A,H,D], m, l [ns,B,A,H], mass
                        // [ns,B,A,H,C] (unnormalised partials)
@@ -246,8 +259,10 @@ size_t smem_bytes(int C, int tiles_per_split) {
   return main > epi ? main : epi;
 }
 
-// CTM: chunk-mass column tiles held in registers (C <= 8 CTM)
-template <typename T, int D, int CTM>
+// TQ: the element type of q and out; T: of K and V, and the route the
+// products take (bf16 mma, or 3xTF32 on an fp32 Q tile); CTM: chunk-mass
+// column tiles held in registers (C <= 8 CTM)
+template <typename TQ, typename T, int D, int CTM>
 __global__ void __launch_bounds__(threads_per_cta<D>(),
                                   column_groups<D>() == 1 ? 2 : 1)
 chunk_attention_kernel(ChunkParams p) {
@@ -280,22 +295,49 @@ chunk_attention_kernel(ChunkParams p) {
   int* qseg_s = qpos_s + NR;                            // [NR]
   int* live_s = qseg_s + NR;                            // [tiles_per_split]
 
-  const T* q = static_cast<const T*>(p.q);
   const T* k = static_cast<const T*>(p.k);
   const T* v = static_cast<const T*>(p.v);
   const float scale2 = p.scale * 1.4426950408889634f;   // log2 e
 
-  // ---- Q (cp.async group 0) and the row metadata ----
-  for (int idx = tid; idx < NR * CPR; idx += THREADS) {
-    const int r = idx / CPR, c = idx % CPR;
-    const int a = qb * BQ + r / G, g = r % G;
-    const bool live = r < nrow && a < p.A;
-    const T* src = live ? q + ((size_t)(b * p.A + a) * p.H + hkv * G + g) * D +
-                              c * VEC
-                        : q;
-    cp_async_cg16(q_s + r * RS + c * VEC, src, live);
+  // ---- Q (cp.async group 0, or widened loads) and the row metadata ----
+  if constexpr (std::is_same_v<TQ, T>) {
+    const T* q = static_cast<const T*>(p.q);
+    for (int idx = tid; idx < NR * CPR; idx += THREADS) {
+      const int r = idx / CPR, c = idx % CPR;
+      const int a = qb * BQ + r / G, g = r % G;
+      const bool live = r < nrow && a < p.A;
+      const T* src = live ? q + ((size_t)(b * p.A + a) * p.H + hkv * G + g) *
+                                    D + c * VEC
+                          : q;
+      cp_async_cg16(q_s + r * RS + c * VEC, src, live);
+    }
+    cp_async_commit();
+  } else {
+    // bf16 q over fp32 K/V: 8 elements per 16-byte load, each 32-bit word
+    // two bf16 (the lower index in the low half), widened exactly to fp32
+    static_assert(!IsBf16<T>::v && IsBf16<TQ>::v, "bf16 q, fp32 K/V only");
+    const TQ* q = static_cast<const TQ*>(p.q);
+    constexpr int QPR = D / 8;                 // 16-byte loads per q row
+    for (int idx = tid; idx < NR * QPR; idx += THREADS) {
+      const int r = idx / QPR, c = idx % QPR;
+      const int a = qb * BQ + r / G, g = r % G;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < nrow && a < p.A)
+        x = *reinterpret_cast<const float4*>(
+            q + ((size_t)(b * p.A + a) * p.H + hkv * G + g) * D + c * 8);
+      const uint32_t w[4] = {__float_as_uint(x.x), __float_as_uint(x.y),
+                             __float_as_uint(x.z), __float_as_uint(x.w)};
+      float4* dst = reinterpret_cast<float4*>(q_s + r * RS + c * 8);
+      dst[0] = make_float4(__uint_as_float(w[0] << 16),
+                           __uint_as_float(w[0] & 0xFFFF0000u),
+                           __uint_as_float(w[1] << 16),
+                           __uint_as_float(w[1] & 0xFFFF0000u));
+      dst[1] = make_float4(__uint_as_float(w[2] << 16),
+                           __uint_as_float(w[2] & 0xFFFF0000u),
+                           __uint_as_float(w[3] << 16),
+                           __uint_as_float(w[3] & 0xFFFF0000u));
+    }
   }
-  cp_async_commit();
   for (int r = tid; r < NR; r += THREADS) {
     const int a = qb * BQ + r / G;
     const bool live = r < nrow && a < p.A;
@@ -606,7 +648,7 @@ chunk_attention_kernel(ChunkParams p) {
     l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
   }
   if (p.nsplit == 1) {
-    T* out = static_cast<T*>(p.out);
+    TQ* out = static_cast<TQ*>(p.out);
     float* ms_s = reinterpret_cast<float*>(dyn_smem());   // [NR][8 CT]
     const int CP = 8 * CT;
 #pragma unroll
@@ -615,11 +657,12 @@ chunk_attention_kernel(ChunkParams p) {
       const int a = qb * BQ + r / G, g = r % G;
       const float inv_l = 1.f / fmaxf(l_r[i], 1e-30f);
       if (r < nrow && a < p.A) {
-        T* orow = out + ((size_t)(b * p.A + a) * p.H + hkv * G + g) * D;
+        TQ* orow = out + ((size_t)(b * p.A + a) * p.H + hkv * G + g) * D;
 #pragma unroll
         for (int n = 0; n < NTD; ++n) {
-          orow[d0 + 8 * n + 2 * ti] = from_f<T>(o[n][2 * i] * inv_l);
-          orow[d0 + 8 * n + 2 * ti + 1] = from_f<T>(o[n][2 * i + 1] * inv_l);
+          orow[d0 + 8 * n + 2 * ti] = from_f<TQ>(o[n][2 * i] * inv_l);
+          orow[d0 + 8 * n + 2 * ti + 1] =
+              from_f<TQ>(o[n][2 * i + 1] * inv_l);
         }
       }
 #pragma unroll
@@ -687,6 +730,7 @@ __global__ void mass_reduce_kernel(const float* mass_part, float* mass,
 
 // One CTA per (a, b): merges the nsplit key ranges of every head (max,
 // rescaled sums, in split order), then sums the mass over heads in order.
+// T: the element type of out
 template <typename T>
 __global__ void combine_kernel(ChunkParams p, float* mass) {
   const int a = blockIdx.x, b = blockIdx.y, H = p.H, D = p.D, C = p.C;
@@ -751,19 +795,20 @@ __global__ void combine_kernel(ChunkParams p, float* mass) {
   }
 }
 
-// the attention kernel for (T, D) and C chunks: 2 mass tiles when C <= 16
-template <typename T, int D>
+// the attention kernel for (TQ, T, D) and C chunks: 2 mass tiles when
+// C <= 16
+template <typename TQ, typename T, int D>
 void (*kernel_for(int C))(ChunkParams) {
-  return C <= 16 ? chunk_attention_kernel<T, D, 2>
-                 : chunk_attention_kernel<T, D, MAXC / 8>;
+  return C <= 16 ? chunk_attention_kernel<TQ, T, D, 2>
+                 : chunk_attention_kernel<TQ, T, D, MAXC / 8>;
 }
 
-template <typename T, int D>
+template <typename TQ, typename T, int D>
 int launch(const ChunkParams& p, float* mass, cudaStream_t stream) {
   const int G = p.H / p.Hkv;
   const int BQ = NR / G;
   const size_t smem = smem_bytes<T, D>(p.C, p.tiles_per_split);
-  void (*kern)(ChunkParams) = kernel_for<T, D>(p.C);
+  void (*kern)(ChunkParams) = kernel_for<TQ, T, D>(p.C);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -780,54 +825,73 @@ int launch(const ChunkParams& p, float* mass, cudaStream_t stream) {
   } else {
     const size_t csmem =
         sizeof(float) * (size_t)(p.nsplit + 1 + p.C) * p.H;
-    LAUNCH(combine_kernel<T>, dim3(p.A, p.B), dim3(256), csmem,
+    LAUNCH(combine_kernel<TQ>, dim3(p.A, p.B), dim3(256), csmem,
            stream)(p, mass);
   }
   return (int)cudaGetLastError();
 }
 
-// f(kernel, shared memory bytes, threads) for the (dtype, D) instantiation
-template <typename T, int D, typename F>
-int with_instance(int C, int tiles_per_split, F f) {
-  return f(kernel_for<T, D>(C), smem_bytes<T, D>(C, tiles_per_split),
-           threads_per_cta<D>());
-}
-template <typename F>
-int with_kernel(int is_bf16, int D, int C, int tiles_per_split, F f) {
-  const int t = tiles_per_split;
-  if (is_bf16) {
-    switch (D) {
-      case 32: return with_instance<__nv_bfloat16, 32>(C, t, f);
-      case 64: return with_instance<__nv_bfloat16, 64>(C, t, f);
-      case 128: return with_instance<__nv_bfloat16, 128>(C, t, f);
-      case 256: return with_instance<__nv_bfloat16, 256>(C, t, f);
-    }
-  } else {
-    switch (D) {
-      case 32: return with_instance<float, 32>(C, t, f);
-      case 64: return with_instance<float, 64>(C, t, f);
-      case 128: return with_instance<float, 128>(C, t, f);
-      case 256: return with_instance<float, 256>(C, t, f);
-    }
+template <typename TQ, typename T> struct TypeTag {
+  using q = TQ;    // q and out
+  using kv = T;    // K and V
+};
+template <int D> struct DimTag { static constexpr int value = D; };
+
+// the element types of type code ``types``: 0 fp32, 1 bf16, 2 bf16 q and
+// out over fp32 K/V
+constexpr int TYPES_FP32 = 0, TYPES_BF16 = 1, TYPES_BF16_Q_FP32_KV = 2;
+
+// f(TypeTag<TQ, T>, DimTag<D>) for the instantiation of ``types`` and D;
+// -1 when either is not one of the source's
+template <typename TQ, typename T, typename F>
+int with_dim(int D, F f) {
+  switch (D) {
+    case 32: return f(TypeTag<TQ, T>(), DimTag<32>());
+    case 64: return f(TypeTag<TQ, T>(), DimTag<64>());
+    case 128: return f(TypeTag<TQ, T>(), DimTag<128>());
+    case 256: return f(TypeTag<TQ, T>(), DimTag<256>());
   }
   return -1;
+}
+template <typename F>
+int with_instance(int types, int D, F f) {
+  switch (types) {
+    case TYPES_FP32: return with_dim<float, float>(D, f);
+    case TYPES_BF16: return with_dim<__nv_bfloat16, __nv_bfloat16>(D, f);
+    case TYPES_BF16_Q_FP32_KV: return with_dim<__nv_bfloat16, float>(D, f);
+  }
+  return -1;
+}
+// f(kernel, shared memory bytes, threads) of the attention kernel
+template <typename F>
+int with_kernel(int types, int D, int C, int tiles_per_split, F f) {
+  return with_instance(types, D, [&](auto tt, auto dd) {
+    using TT = decltype(tt);
+    constexpr int DD = decltype(dd)::value;
+    using TQ = typename TT::q;
+    using T = typename TT::kv;
+    return f(kernel_for<TQ, T, DD>(C), smem_bytes<T, DD>(C, tiles_per_split),
+             threads_per_cta<DD>());
+  });
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Pointers are device pointers;
-// int tensors are int32; is_bf16 selects bf16 (1) or fp32 (0) q/k/v/out.
-// ``work`` is fp32 scratch of ops.workspace_floats(...) elements, ``nsplit``
-// the number of key ranges (ops.num_splits; at most one per key tile of
-// 64 keys in bf16, 32 in fp32). D must be 32, 64, 128 or 256, H / Hkv <=
-// 64, C <= 64. Returns the cudaError_t of the launches (0 = success).
+// int tensors are int32; ``types`` is the element-type code: 0 fp32 q / k
+// / v / out, 1 bf16, 2 bf16 q and out over fp32 k and v. The mass is fp32
+// in all three. ``work`` is fp32 scratch of ops.workspace_floats(...)
+// elements, ``nsplit`` the number of key ranges (ops.num_splits; at most
+// one per key tile of 64 keys in bf16 K/V, 32 in fp32). D must be 32, 64,
+// 128 or 256, H / Hkv <= 64, C <= 64. Returns the cudaError_t of the
+// launches (0 = success).
 extern "C" int chunk_attention_fwd(
     const void* q, const void* k, const void* v, const void* qpos,
     const void* kpos, const void* kchunk, const void* qseg, const void* kseg,
     void* out, void* work, void* mass, int B, int A, int S, int H, int Hkv,
-    int D, int C, int window, int is_bf16, int nsplit, void* stream) {
-  const int BK = is_bf16 ? keys_per_tile<__nv_bfloat16>()
-                         : keys_per_tile<float>();
+    int D, int C, int window, int types, int nsplit, void* stream) {
+  const int BK = types == TYPES_BF16 ? keys_per_tile<__nv_bfloat16>()
+                                     : keys_per_tile<float>();
   const int ntiles = (S + BK - 1) / BK;
   if (B < 1 || A < 1 || S < 1 || Hkv < 1 || H % Hkv || H / Hkv > NR ||
       C < 1 || C > MAXC || nsplit < 1 || nsplit > ntiles)
@@ -848,24 +912,19 @@ extern "C" int chunk_attention_fwd(
   p.scale = 1.0f / sqrtf((float)D);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* m = static_cast<float*>(mass);
-  switch (D + is_bf16) {
-    case 32: return launch<float, 32>(p, m, st);
-    case 64: return launch<float, 64>(p, m, st);
-    case 128: return launch<float, 128>(p, m, st);
-    case 256: return launch<float, 256>(p, m, st);
-    case 33: return launch<__nv_bfloat16, 32>(p, m, st);
-    case 65: return launch<__nv_bfloat16, 64>(p, m, st);
-    case 129: return launch<__nv_bfloat16, 128>(p, m, st);
-    case 257: return launch<__nv_bfloat16, 256>(p, m, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  const int err = with_instance(types, D, [&](auto tt, auto dd) {
+    using TT = decltype(tt);
+    return launch<typename TT::q, typename TT::kv, decltype(dd)::value>(
+        p, m, st);
+  });
+  return err < 0 ? (int)cudaErrorInvalidValue : err;
 }
 
 // Dynamic shared memory per CTA of the attention kernel, in bytes, for a
-// key range of tiles_per_split tiles; -1 on an unsupported D.
-extern "C" long long chunk_attention_smem_bytes(int D, int C, int is_bf16,
+// key range of tiles_per_split tiles; -1 on an unsupported D or type code.
+extern "C" long long chunk_attention_smem_bytes(int D, int C, int types,
                                                 int tiles_per_split) {
-  return with_kernel(is_bf16, D, C, tiles_per_split,
+  return with_kernel(types, D, C, tiles_per_split,
                      [](void (*)(ChunkParams), size_t smem, int) {
                        return (int)smem;
                      });
@@ -873,10 +932,10 @@ extern "C" long long chunk_attention_smem_bytes(int D, int C, int is_bf16,
 
 #ifndef CPU_EMULATION
 // Resident CTAs per SM of the attention kernel, from the runtime's
-// occupancy calculator; -1 on an unsupported D.
-extern "C" int chunk_attention_occupancy(int D, int C, int is_bf16,
+// occupancy calculator; -1 on an unsupported D or type code.
+extern "C" int chunk_attention_occupancy(int D, int C, int types,
                                          int tiles_per_split) {
-  return with_kernel(is_bf16, D, C, tiles_per_split,
+  return with_kernel(types, D, C, tiles_per_split,
                      [](void (*kern)(ChunkParams), size_t smem,
                         int threads) {
                        int n = -1;

@@ -3,10 +3,14 @@
 CPU tensors go through the plain version (``ref.py``); CUDA tensors
 launch the CUDA kernel (``csrc/chunk_attention.cu``) or raise: there is
 no fallback on the card. ``chunk_attention.launches`` counts kernel
-launches (never the CPU path).
+launches (never the CPU path), and ``chunk_attention.launches_by_type``
+the launches of each element-type instantiation apart, by
+``build.ATTN_TYPE_NAMES``: fp32, bf16, and bf16 q and out over fp32 K/V
+(a bf16 model over the engine's fp32 caches). Any other mix of dtypes is
+refused with ``TypeError``, on the CPU too; the mass is fp32 always.
 
 The kernel takes 64 query vectors (row x head of one KV head) per CTA and
-32 keys per tile in fp32, 64 in bf16 (at D 256 with two warps per 16
+32 keys per tile in fp32 K/V, 64 in bf16 (at D 256 with two warps per 16
 vectors, each owning half of the output columns); where that gives fewer
 CTAs than fill the card, the keys
 are split into ``num_splits`` ranges whose partial rows a second kernel
@@ -14,6 +18,7 @@ combines in a fixed order (``workspace_floats`` of fp32 scratch).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -39,10 +44,10 @@ _MAX_SPLIT = 16
 
 def num_splits(B: int, A: int, S: int, H: int, Hkv: int,
                dtype=torch.float32) -> int:
-    """Key ranges of one call, from the shapes and dtype alone: enough
-    CTAs to reach ``_TARGET_CTAS`` where query blocks x KV heads x batch
-    do not, at least one key tile (32 keys in fp32, 64 in bf16) per range
-    and at most ``_MAX_SPLIT`` ranges, none empty."""
+    """Key ranges of one call, from the shapes and K/V's dtype alone:
+    enough CTAs to reach ``_TARGET_CTAS`` where query blocks x KV heads x
+    batch do not, at least one key tile (32 keys in fp32, 64 in bf16) per
+    range and at most ``_MAX_SPLIT`` ranges, none empty."""
     base = -(-A // (_NR // (H // Hkv))) * Hkv * B
     tiles = -(-S // _BK[dtype])
     n = max(1, min(_TARGET_CTAS[dtype] // base, tiles, _MAX_SPLIT))
@@ -74,10 +79,11 @@ def _launch(q, k, v, q_pos, k_pos, k_chunk, q_seg, k_seg, num_chunks,
     B, A, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     dev = q.device
+    types = build.attn_type_code(_WHAT, q, k, v)
     build.check_no_grad(_WHAT, q=q, k=k, v=v)
     build.check_tensor(_WHAT, "q", q, (B, A, H, D), _FLOATS, dev)
     for name, t in (("k", k), ("v", v)):
-        build.check_tensor(_WHAT, name, t, (B, S, Hkv, D), (q.dtype,),
+        build.check_tensor(_WHAT, name, t, (B, S, Hkv, D), (k.dtype,),
                            dev)
     for name, t, n in (("q_pos", q_pos, A), ("q_seg", q_seg, A),
                        ("k_pos", k_pos, S), ("k_chunk", k_chunk, S),
@@ -98,7 +104,7 @@ def _launch(q, k, v, q_pos, k_pos, k_chunk, q_seg, k_seg, num_chunks,
         if t.data_ptr() % 16:
             raise ValueError(f"chunk_attention: {name} is not 16-byte "
                              "aligned (16-byte asynchronous copies)")
-    nsplit = num_splits(B, A, S, H, Hkv, q.dtype)
+    nsplit = num_splits(B, A, S, H, Hkv, k.dtype)
     out = torch.empty_like(q)
     work = torch.empty(workspace_floats(B, A, H, Hkv, D, num_chunks, nsplit),
                        dtype=torch.float32, device=dev)
@@ -108,10 +114,10 @@ def _launch(q, k, v, q_pos, k_pos, k_chunk, q_seg, k_seg, num_chunks,
                  q_pos.data_ptr(), k_pos.data_ptr(), k_chunk.data_ptr(),
                  q_seg.data_ptr(), k_seg.data_ptr(), out.data_ptr(),
                  work.data_ptr(), mass.data_ptr(), B, A, S, H, Hkv, D,
-                 num_chunks, int(window), int(q.dtype == torch.bfloat16),
-                 nsplit, stream)
+                 num_chunks, int(window), types, nsplit, stream)
     build.check(err, _WHAT)
     chunk_attention.launches += 1
+    chunk_attention.launches_by_type[build.ATTN_TYPE_NAMES[types]] += 1
     return out, mass
 
 
@@ -120,7 +126,8 @@ def chunk_attention(q, k, v, q_pos, k_pos, k_chunk, *, q_seg=None,
     """Batched entry point. q [B,A,H,D] (or [A,H,D]), k/v [B,S,Hkv,D],
     q_pos [B,A], k_pos [B,S], k_chunk [B,S] int32. Optional ``q_seg`` /
     ``k_seg`` ([B,A] / [B,S]) carry packed-request segment ids (zeros when
-    absent). Returns (out like q, mass [B,A,C] fp32)."""
+    absent). q and K/V are fp32, bf16, or bf16 q over fp32 K/V. Returns
+    (out like q, mass [B,A,C] fp32)."""
     squeeze = q.dim() == 3
     if squeeze:
         q, k, v = q[None], k[None], v[None]
@@ -132,6 +139,7 @@ def chunk_attention(q, k, v, q_pos, k_pos, k_chunk, *, q_seg=None,
     if k_seg is None:
         k_seg = torch.zeros_like(k_pos)
     if q.device.type == "cpu":
+        build.attn_type_code(_WHAT, q, k, v)     # _launch's check on CUDA
         outs = [chunk_attention_ref(q[b], k[b], v[b], q_pos[b], k_pos[b],
                                     k_chunk[b], num_chunks=num_chunks,
                                     window=window, q_seg=q_seg[b],
@@ -151,3 +159,4 @@ def chunk_attention(q, k, v, q_pos, k_pos, k_chunk, *, q_seg=None,
 
 
 chunk_attention.launches = 0
+chunk_attention.launches_by_type = collections.Counter()

@@ -59,12 +59,22 @@
 //    thread per (head, key) for the scores, a warp per head for the
 //    online softmax (exp2 of log2e-scaled scores), one thread per (head,
 //    4 output columns) for P.V with the accumulators in registers.
+//  * Element types (the C entries' type code): fp32 (0), bf16 (1), and for
+//    the dense arena bf16 q and out over fp32 K/V (2), the mix a bf16
+//    model decodes with over the engine's fp32 arena, as the reference's
+//    kernel takes it (kernel.py upcasts q, K and V and writes out in q's
+//    dtype). The mix is the fp32 kernel with its G query rows widened to
+//    fp32 on load (plain 16-byte loads: cp.async cannot convert) and the
+//    output rounded to bf16 to nearest even. The paged kernel takes no
+//    mix: no served path reaches it with one.
 // Later work: a persistent grid or a fused combine (the combine is a
 // second launch), and a TMA-fed producer warp.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #ifndef CPU_EMULATION
 #define LAUNCH(kernel, grid, block, smem, stream) \
@@ -116,7 +126,7 @@ template <> __device__ __forceinline__ float from_f<float>(float x) {
 }
 template <> __device__ __forceinline__ __nv_bfloat16
 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+  return __float2bfloat16_rn(x);
 }
 
 // keys per tile: 32 in fp32, 64 in bf16 (16 KB of K and 16 KB of V per
@@ -150,13 +160,13 @@ struct Layout {
 };
 
 struct DecodeParams {
-  const void* q;      // [B, H, D]
+  const void* q;      // [B, H, D] (TQ)
   const void* k;      // dense [B, S, Hkv, D] | paged [NB, bs, kvh, D]
   const void* v;
   const int* qpos;    // [B]
   const int* kpos;    // dense [B, S] | paged [NB, bs]
   const int* rows;    // paged [B, NBmax] block ids (-1 padded)
-  void* out;          // [B, H, D]
+  void* out;          // [B, H, D] (TQ)
   float* work;        // nsplit > 1: acc [ns,B,H,D], m, l [ns,B,H]
   int B, H, Hkv, D, window;
   int kvh;            // paged: heads per pool slot (the slot stride), >= Hkv
@@ -221,7 +231,9 @@ __device__ __forceinline__ float4 load4(const T* p) {
   }
 }
 
-template <typename T, int D, bool PAGED>
+// TQ: the element type of q and out; T: of K and V (and of the staged q
+// rows, widened on load where TQ is bf16 and T fp32)
+template <typename TQ, typename T, int D, bool PAGED>
 __global__ void __launch_bounds__(THREADS, 3)
 decode_kernel(DecodeParams p) {
   constexpr int TK = keys_per_tile<T>();
@@ -245,15 +257,37 @@ decode_kernel(DecodeParams p) {
   int* blk_s = reinterpret_cast<int*>(sm + L.blk);      // [WIN + 1]
   int* live_s = reinterpret_cast<int*>(sm + L.live);    // [WIN / TK]
 
-  const T* q = static_cast<const T*>(p.q);
   const T* k = static_cast<const T*>(p.k);
   const T* v = static_cast<const T*>(p.v);
   const size_t qbase = ((size_t)b * p.H + (size_t)hkv * G) * D;
 
-  // the group's G query rows (cp.async group 0)
-  for (int i = tid; i < G * CPR; i += THREADS)
-    cp_async_cg16(q_s + i * VEC, q + qbase + i * VEC, true);
-  cp_async_commit();
+  // the group's G query rows (cp.async group 0, or widened loads)
+  if constexpr (std::is_same_v<TQ, T>) {
+    const T* q = static_cast<const T*>(p.q);
+    for (int i = tid; i < G * CPR; i += THREADS)
+      cp_async_cg16(q_s + i * VEC, q + qbase + i * VEC, true);
+    cp_async_commit();
+  } else {
+    // bf16 q over fp32 K/V: 8 elements per 16-byte load, each 32-bit word
+    // two bf16 (the lower index in the low half), widened exactly
+    static_assert(!IsBf16<T>::v && IsBf16<TQ>::v && !PAGED,
+                  "bf16 q over fp32 K/V, dense arena only");
+    const TQ* q = static_cast<const TQ*>(p.q) + qbase;
+    for (int i = tid; i < G * D / 8; i += THREADS) {
+      const float4 x = *reinterpret_cast<const float4*>(q + i * 8);
+      const uint32_t w[4] = {__float_as_uint(x.x), __float_as_uint(x.y),
+                             __float_as_uint(x.z), __float_as_uint(x.w)};
+      float4* dst = reinterpret_cast<float4*>(q_s + i * 8);
+      dst[0] = make_float4(__uint_as_float(w[0] << 16),
+                           __uint_as_float(w[0] & 0xFFFF0000u),
+                           __uint_as_float(w[1] << 16),
+                           __uint_as_float(w[1] & 0xFFFF0000u));
+      dst[1] = make_float4(__uint_as_float(w[2] << 16),
+                           __uint_as_float(w[2] & 0xFFFF0000u),
+                           __uint_as_float(w[3] << 16),
+                           __uint_as_float(w[3] & 0xFFFF0000u));
+    }
+  }
   for (int g = tid; g < G; g += THREADS) {
     m_s[g] = NEG_INF;
     l_s[g] = 0.f;
@@ -422,7 +456,7 @@ decode_kernel(DecodeParams p) {
   __syncthreads();
 
   if (p.nsplit == 1) {
-    T* out = static_cast<T*>(p.out);
+    TQ* out = static_cast<TQ*>(p.out);
 #pragma unroll
     for (int u = 0; u < MAXU; ++u) {
       const int o = tid + THREADS * u;
@@ -430,7 +464,7 @@ decode_kernel(DecodeParams p) {
         const float den = fmaxf(l_s[o / D4], 1e-30f);
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          out[qbase + 4 * o + e] = from_f<T>(acc[u][e] / den);
+          out[qbase + 4 * o + e] = from_f<TQ>(acc[u][e] / den);
       }
     }
   } else {
@@ -455,7 +489,8 @@ decode_kernel(DecodeParams p) {
 
 // One CTA per (request, head): merges the nsplit partial rows in range
 // order with the reference's rescaling. Every thread computes the same
-// max and denominator in the same order, then 4 output columns.
+// max and denominator in the same order, then 4 output columns. T: the
+// element type of out
 template <typename T>
 __global__ void __launch_bounds__(COMBINE_THREADS)
 combine_kernel(DecodeParams p) {
@@ -488,40 +523,54 @@ combine_kernel(DecodeParams p) {
   }
 }
 
-template <typename T, int D, bool PAGED>
+template <typename TQ, typename T, int D, bool PAGED>
 int launch(const DecodeParams& p, cudaStream_t stream) {
   const size_t smem = Layout<T, D>(p.H / p.Hkv, PAGED).total;
-  void (*kern)(DecodeParams) = decode_kernel<T, D, PAGED>;
+  void (*kern)(DecodeParams) = decode_kernel<TQ, T, D, PAGED>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   LAUNCH(kern, dim3(p.B, p.Hkv, p.nsplit), dim3(THREADS), smem, stream)(p);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.nsplit == 1) return (int)err;
-  LAUNCH(combine_kernel<T>, dim3(p.B, p.H), dim3(COMBINE_THREADS), 0,
+  LAUNCH(combine_kernel<TQ>, dim3(p.B, p.H), dim3(COMBINE_THREADS), 0,
          stream)(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T> struct TypeTag { using type = T; };
+template <typename TQ, typename T> struct TypeTag {
+  using q = TQ;    // q and out
+  using kv = T;    // K and V
+};
 template <int D> struct DimTag { static constexpr int value = D; };
 
-// f(TypeTag<T>, DimTag<D>) for the (dtype, D) instantiation; -1 when D is
-// not one of the source's head dims
-template <typename T, typename F>
+// the element types of type code ``types``: 0 fp32, 1 bf16, 2 bf16 q and
+// out over fp32 K/V (dense arena only)
+constexpr int TYPES_FP32 = 0, TYPES_BF16 = 1, TYPES_BF16_Q_FP32_KV = 2;
+
+// f(TypeTag<TQ, T>, DimTag<D>) for the (types, D) instantiation; -1 when
+// D or the type code is not one of the source's (the paged kernel has no
+// mixed one)
+template <typename TQ, typename T, typename F>
 long long with_dim(int D, F f) {
   switch (D) {
-    case 16: return f(TypeTag<T>(), DimTag<16>());
-    case 32: return f(TypeTag<T>(), DimTag<32>());
-    case 64: return f(TypeTag<T>(), DimTag<64>());
-    case 128: return f(TypeTag<T>(), DimTag<128>());
-    case 256: return f(TypeTag<T>(), DimTag<256>());
+    case 16: return f(TypeTag<TQ, T>(), DimTag<16>());
+    case 32: return f(TypeTag<TQ, T>(), DimTag<32>());
+    case 64: return f(TypeTag<TQ, T>(), DimTag<64>());
+    case 128: return f(TypeTag<TQ, T>(), DimTag<128>());
+    case 256: return f(TypeTag<TQ, T>(), DimTag<256>());
   }
   return -1;
 }
-template <typename F>
-long long with_instance(int is_bf16, int D, F f) {
-  return is_bf16 ? with_dim<__nv_bfloat16>(D, f) : with_dim<float>(D, f);
+template <bool PAGED, typename F>
+long long with_instance(int types, int D, F f) {
+  switch (types) {
+    case TYPES_FP32: return with_dim<float, float>(D, f);
+    case TYPES_BF16: return with_dim<__nv_bfloat16, __nv_bfloat16>(D, f);
+    case TYPES_BF16_Q_FP32_KV:
+      if constexpr (!PAGED) return with_dim<__nv_bfloat16, float>(D, f);
+  }
+  return -1;
 }
 
 DecodeParams make_params(const void* q, const void* k, const void* v,
@@ -552,11 +601,13 @@ bool valid(int B, int H, int Hkv, int D, int nsplit, int units,
 }
 
 template <bool PAGED>
-int run(const DecodeParams& p, int is_bf16, void* stream) {
+int run(const DecodeParams& p, int types, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long r = with_instance(is_bf16, p.D, [&](auto tt, auto dd) {
-    using T = typename decltype(tt)::type;
-    return (long long)launch<T, decltype(dd)::value, PAGED>(p, st);
+  const long long r = with_instance<PAGED>(types, p.D, [&](auto tt,
+                                                           auto dd) {
+    using TT = decltype(tt);
+    return (long long)launch<typename TT::q, typename TT::kv,
+                             decltype(dd)::value, PAGED>(p, st);
   });
   return r < 0 ? (int)cudaErrorInvalidValue : (int)r;
 }
@@ -564,7 +615,8 @@ int run(const DecodeParams& p, int is_bf16, void* stream) {
 }  // namespace
 
 // Plain C entry points (bound with ctypes, ops.bind): device pointers,
-// int32 index tensors, is_bf16 selects bf16 (1) or fp32 (0). ``work`` is
+// int32 index tensors, ``types`` the element-type code: 0 fp32, 1 bf16,
+// 2 bf16 q and out over fp32 k and v (the dense entry only). ``work`` is
 // fp32 scratch of ops.workspace_floats(B, H, D, nsplit) elements (unused
 // when nsplit == 1); ``nsplit`` is the number of key ranges
 // (ops.num_splits), at most one per key tile (dense: 32 keys in fp32, 64
@@ -576,9 +628,9 @@ int run(const DecodeParams& p, int is_bf16, void* stream) {
 extern "C" int decode_attention_fwd(
     const void* q, const void* k, const void* v, const void* qpos,
     const void* kpos, void* out, void* work, int B, int S, int H, int Hkv,
-    int D, int window, int is_bf16, int nsplit, void* stream) {
-  const int tk = is_bf16 ? keys_per_tile<__nv_bfloat16>()
-                         : keys_per_tile<float>();
+    int D, int window, int types, int nsplit, void* stream) {
+  const int tk = types == TYPES_BF16 ? keys_per_tile<__nv_bfloat16>()
+                                     : keys_per_tile<float>();
   const int ntiles = (S + tk - 1) / tk;
   if (S < 1 || !valid(B, H, Hkv, D, nsplit, ntiles, (long long)B * S * Hkv))
     return (int)cudaErrorInvalidValue;
@@ -586,18 +638,18 @@ extern "C" int decode_attention_fwd(
                                window, nsplit);
   p.S = S;
   p.keys_per_split = (ntiles + nsplit - 1) / nsplit * tk;
-  return run<false>(p, is_bf16, stream);
+  return run<false>(p, types, stream);
 }
 
 extern "C" int paged_decode_attention_fwd(
     const void* q, const void* k_blocks, const void* v_blocks,
     const void* kpos_blocks, const void* block_rows, const void* qpos,
     void* out, void* work, int B, int NB, int NBmax, int bs, int H, int Hkv,
-    int kvh, int D, int window, int is_bf16, int nsplit, void* stream) {
+    int kvh, int D, int window, int types, int nsplit, void* stream) {
   // ranges of whole runs of blocks that hold one tile's keys (one block
   // where a block holds a tile or more), so that they start on tiles
-  const int tk = is_bf16 ? keys_per_tile<__nv_bfloat16>()
-                         : keys_per_tile<float>();
+  const int tk = types == TYPES_BF16 ? keys_per_tile<__nv_bfloat16>()
+                                     : keys_per_tile<float>();
   const int per_run = bs < tk ? tk / bs : 1;   // blocks
   const int nruns = (NBmax + per_run - 1) / per_run;
   if (NBmax < 1 || bs < 1 || kvh < Hkv ||
@@ -611,35 +663,42 @@ extern "C" int paged_decode_attention_fwd(
   p.NBmax = NBmax;
   p.S = NBmax * bs;
   p.keys_per_split = (nruns + nsplit - 1) / nsplit * per_run * bs;
-  return run<true>(p, is_bf16, stream);
+  return run<true>(p, types, stream);
 }
 
 // Dynamic shared memory per CTA of the attention kernel, in bytes; -1 on
-// an unsupported D.
-extern "C" long long decode_attention_smem_bytes(int D, int G, int is_bf16,
+// an unsupported D or type code.
+extern "C" long long decode_attention_smem_bytes(int D, int G, int types,
                                                  int paged) {
-  return with_instance(is_bf16, D, [&](auto tt, auto dd) {
-    using T = typename decltype(tt)::type;
+  auto f = [&](auto tt, auto dd) {
+    using T = typename decltype(tt)::kv;
     return (long long)Layout<T, decltype(dd)::value>(G, paged != 0).total;
-  });
+  };
+  return paged ? with_instance<true>(types, D, f)
+               : with_instance<false>(types, D, f);
 }
 
 #ifndef CPU_EMULATION
 // Resident CTAs per SM of the attention kernel, from the runtime's
-// occupancy calculator; -1 on an unsupported D.
-extern "C" int decode_attention_occupancy(int D, int G, int is_bf16,
-                                          int paged) {
-  return (int)with_instance(is_bf16, D, [&](auto tt, auto dd) {
-    using T = typename decltype(tt)::type;
+// occupancy calculator; -1 on an unsupported D or type code.
+template <bool PAGED>
+int occupancy(int D, int G, int types) {
+  return (int)with_instance<PAGED>(types, D, [&](auto tt, auto dd) {
+    using TT = decltype(tt);
     constexpr int DD = decltype(dd)::value;
-    void (*kern)(DecodeParams) = paged ? decode_kernel<T, DD, true>
-                                       : decode_kernel<T, DD, false>;
-    const size_t smem = Layout<T, DD>(G, paged != 0).total;
+    void (*kern)(DecodeParams) =
+        decode_kernel<typename TT::q, typename TT::kv, DD, PAGED>;
+    const size_t smem = Layout<typename TT::kv, DD>(G, PAGED).total;
     int n = -1;
     cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, THREADS, smem);
     return (long long)n;
   });
+}
+extern "C" int decode_attention_occupancy(int D, int G, int types,
+                                          int paged) {
+  return paged ? occupancy<true>(D, G, types)
+               : occupancy<false>(D, G, types);
 }
 #endif

@@ -4,7 +4,12 @@ CPU tensors go through the plain versions (``ref.py``); CUDA tensors
 launch the CUDA kernels (``csrc/decode_attention.cu``) or raise: there
 is no fallback on the card. ``decode_attention.launches`` and
 ``paged_decode_attention.launches`` count wrapper calls that launched
-the kernel (the combine included), never the CPU path.
+the kernel (the combine included), never the CPU path, and their
+``launches_by_type`` the launches of each element-type instantiation
+apart (``build.ATTN_TYPE_NAMES``). The dense kernel takes fp32, bf16, and
+bf16 q and out over fp32 K/V (a bf16 model over the engine's fp32 arena);
+the paged one fp32 or bf16 alone. Any other mix is refused with
+``TypeError``, on the CPU too.
 
 The kernels take one CTA per (request, KV head, key range): the keys are
 split into ``num_splits`` ranges, from the shapes and dtype alone, whose
@@ -23,6 +28,7 @@ unsharded output bit for bit.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -48,13 +54,13 @@ _MAX_SPLIT = 16
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ABI = {
-    # q, k, v, q_pos, k_pos, out, work; B, S, H, Hkv, D, window, is_bf16,
+    # q, k, v, q_pos, k_pos, out, work; B, S, H, Hkv, D, window, types,
     # nsplit; stream
     "decode_attention_fwd": ([_P] * 7 + [_I] * 8 + [_P], _I),
     # q, k_blocks, v_blocks, kpos_blocks, block_rows, q_pos, out, work;
-    # B, NB, NBmax, bs, H, Hkv, kvh, D, window, is_bf16, nsplit; stream
+    # B, NB, NBmax, bs, H, Hkv, kvh, D, window, types, nsplit; stream
     "paged_decode_attention_fwd": ([_P] * 8 + [_I] * 11 + [_P], _I),
-    # D, G, is_bf16, paged
+    # D, G, types, paged
     "decode_attention_smem_bytes": ([_I] * 4, ctypes.c_longlong),
     "decode_attention_occupancy": ([_I] * 4, _I),   # not in emulated builds
 }
@@ -89,7 +95,7 @@ def split_units(S: int, dtype=torch.float32, block: int = 0) -> int:
 
 def num_splits(B: int, S: int, Hkv: int, dtype=torch.float32,
                block: int = 0) -> int:
-    """Key ranges of one call, from the shapes and dtype alone: enough
+    """Key ranges of one call, from the shapes and K/V's dtype alone: enough
     CTAs to reach ``_TARGET_CTAS`` where B x Hkv does not, at most
     ``_MAX_SPLIT``, each of the same number of ``split_units`` (whole
     tiles, or whole runs of pool blocks), none empty."""
@@ -158,8 +164,9 @@ def _device_of(q, what):
 
 
 def _call(what, entry, ptrs, ints, q, nsplit):
-    """Launch ``entry`` with a fresh output like ``q`` and the split's
-    workspace; raise on a launch error."""
+    """Launch ``entry`` on ``ptrs`` and ``ints`` (the shapes, the window
+    and, last, the type code of q's and K/V's dtypes) with a fresh output
+    like ``q`` and the split's workspace; raise on a launch error."""
     B, H, D = q.shape
     out = torch.empty_like(q)
     n_work = workspace_floats(B, H, D, nsplit)
@@ -167,17 +174,18 @@ def _call(what, entry, ptrs, ints, q, nsplit):
         if n_work else None
     err = getattr(_lib(), entry)(
         *[t.data_ptr() for t in ptrs], out.data_ptr(),
-        None if work is None else work.data_ptr(), *ints,
-        int(q.dtype == torch.bfloat16), nsplit,
+        None if work is None else work.data_ptr(), *ints, nsplit,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, what)
     return out
 
 
 def decode_attention(q, k, v, q_pos, k_pos, *, window: int = 0):
-    """q [B,H,D], k/v [B,S,Hkv,D], q_pos [B], k_pos [B,S] -> [B,H,D].
-    Rows with q_pos = -1 give zeros."""
+    """q [B,H,D], k/v [B,S,Hkv,D], q_pos [B], k_pos [B,S] -> [B,H,D] in
+    q's dtype; q and K/V fp32, bf16, or bf16 q over fp32 K/V. Rows with
+    q_pos = -1 give zeros."""
     what = "decode_attention"
+    types = build.attn_type_code(what, q, k, v)
     if _device_of(q, what) == "cpu":
         return decode_attention_ref(q, k, v, q_pos, k_pos, window=window)
     B, H, D = q.shape
@@ -186,7 +194,7 @@ def decode_attention(q, k, v, q_pos, k_pos, *, window: int = 0):
     build.check_no_grad(what, q=q, k=k, v=v)
     build.check_tensor(what, "q", q, (B, H, D), _FLOATS, dev)
     for name, t in (("k", k), ("v", v)):
-        build.check_tensor(what, name, t, (B, S, Hkv, D), (q.dtype,),
+        build.check_tensor(what, name, t, (B, S, Hkv, D), (k.dtype,),
                            dev)
     build.check_tensor(what, "q_pos", q_pos, (B,), (torch.int32,), dev)
     build.check_tensor(what, "k_pos", k_pos, (B, S), (torch.int32,), dev)
@@ -195,9 +203,10 @@ def decode_attention(q, k, v, q_pos, k_pos, *, window: int = 0):
     if min(B, S) < 1:
         raise ValueError(f"{what}: B={B}, S={S} must be >= 1")
     out = _call(what, "decode_attention_fwd", (q, k, v, q_pos, k_pos),
-                (B, S, H, Hkv, D, int(window)), q,
-                num_splits(B, S, Hkv, q.dtype))
+                (B, S, H, Hkv, D, int(window), types), q,
+                num_splits(B, S, Hkv, k.dtype))
     decode_attention.launches += 1
+    decode_attention.launches_by_type[build.ATTN_TYPE_NAMES[types]] += 1
     return out
 
 
@@ -206,8 +215,9 @@ def paged_decode_attention(q, k_blocks, v_blocks, kpos_blocks, block_rows,
     """Block-table-native decode: q [B,H,D], k_blocks/v_blocks
     [NB, bs, Hkv, D] (the pool arena or a head slice of it, read in
     place), kpos_blocks [NB, bs], block_rows [B, NBmax] (-1 padded), q_pos
-    [B] -> [B,H,D]."""
+    [B] -> [B,H,D]; q and the blocks both fp32 or both bf16."""
     what = "paged_decode_attention"
+    types = build.attn_type_code(what, q, k_blocks, v_blocks, codes=(0, 1))
     if _device_of(q, what) == "cpu":
         return paged_decode_attention_ref(q, k_blocks, v_blocks,
                                           kpos_blocks, block_rows, q_pos,
@@ -231,11 +241,15 @@ def paged_decode_attention(q, k_blocks, v_blocks, kpos_blocks, block_rows,
                          "must be >= 1")
     out = _call(what, "paged_decode_attention_fwd",
                 (q, k_blocks, v_blocks, kpos_blocks, block_rows, q_pos),
-                (B, NB, NBmax, bs, H, Hkv, kvh, D, int(window)), q,
+                (B, NB, NBmax, bs, H, Hkv, kvh, D, int(window), types), q,
                 num_splits(B, NBmax * bs, kvh, q.dtype, block=bs))
     paged_decode_attention.launches += 1
+    paged_decode_attention.launches_by_type[
+        build.ATTN_TYPE_NAMES[types]] += 1
     return out
 
 
 decode_attention.launches = 0
 paged_decode_attention.launches = 0
+decode_attention.launches_by_type = collections.Counter()
+paged_decode_attention.launches_by_type = collections.Counter()

@@ -83,6 +83,9 @@ inline __nv_bfloat16 __float2bfloat16(float f) {  // round to nearest even
   b.x = (uint16_t)((u + r) >> 16);
   return b;
 }
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  return __float2bfloat16(f);
+}
 
 struct EmuBlock {
   std::unique_ptr<std::barrier<>> bar;

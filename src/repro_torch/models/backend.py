@@ -293,6 +293,9 @@ def _impl_sharded(ctx, window, packed, q, k_all, v_all, kv_pos):
 
 
 def _impl_kernel(ctx, window, packed, q, k_all, v_all, kv_pos):
+    # q and K/V go to the kernels in their own dtypes: a bf16 model over
+    # fp32 caches hands bf16 q with fp32 K/V (the kernels' mixed
+    # instantiation, output in q's dtype), as the reference does
     cfg = ctx.cfg
     if ctx.mode == "decode" and q.shape[1] == 1 and not ctx.collect_stats:
         # one-token step: the decode kernel (masked batch rows with

@@ -261,7 +261,14 @@ def params_from_jax(cfg: ModelConfig, np_params, device) -> Params:
         _check_kind(kind)
 
     def conv(x):
-        return torch.from_numpy(np.array(x, copy=True)).to(device)
+        # bf16 leaves are numpy arrays of ml_dtypes' bfloat16, which torch
+        # cannot read: they come across bit for bit through their 16-bit
+        # integer view
+        x = np.array(x, copy=True)
+        if x.dtype.itemsize == 2 and x.dtype.name == "bfloat16":
+            return torch.from_numpy(x.view(np.int16)).view(
+                torch.bfloat16).to(device)
+        return torch.from_numpy(x).to(device)
 
     return {
         "embed": conv(np_params["embed"]),
@@ -419,6 +426,9 @@ def _self_attention(ctx: Ctx, kind: str, p, x, state):
     q = L.apply_rope(q, ctx.positions, cfg.rope_theta)
     k = L.apply_rope(k, ctx.positions, cfg.rope_theta)
 
+    # a fresh K/V written into a cache takes the cache's dtype, as the
+    # reference's ``.at[].set`` does (a bf16 model over fp32 caches: the
+    # engine's and the executor's are fp32)
     new_state = state
     if ctx.mode == "train":
         k_all, v_all, kv_pos = k, v, ctx.positions
@@ -431,8 +441,8 @@ def _self_attention(ctx: Ctx, kind: str, p, x, state):
         pos = ctx.positions[:, -w:]
         bi = torch.arange(x.shape[0], device=x.device)[:, None]
         slot = (pos % w).long()
-        state["k"][bi, slot] = k[:, -w:]
-        state["v"][bi, slot] = v[:, -w:]
+        state["k"][bi, slot] = k[:, -w:].to(state["k"].dtype)
+        state["v"][bi, slot] = v[:, -w:].to(state["v"].dtype)
         state["pos"][bi, slot] = pos.to(torch.int32)
         k_all, v_all, kv_pos = k, v, ctx.positions
     elif ctx.mode in ("prefill", "partial"):
@@ -441,8 +451,8 @@ def _self_attention(ctx: Ctx, kind: str, p, x, state):
         # supplies explicit slots (request layout offset + local position)
         wpos = ctx.slots if ctx.slots is not None else ctx.positions
         bi, ti, slot = _write_index(ctx, wpos)
-        state["k"][bi, slot] = k[bi, ti]
-        state["v"][bi, slot] = v[bi, ti]
+        state["k"][bi, slot] = k[bi, ti].to(state["k"].dtype)
+        state["v"][bi, slot] = v[bi, ti].to(state["v"].dtype)
         state["pos"][bi, slot] = ctx.positions[bi, ti].to(torch.int32)
         k_all, v_all, kv_pos = state["k"], state["v"], state["pos"]
     elif ctx.mode == "decode" and "kp" in state:
@@ -450,8 +460,8 @@ def _self_attention(ctx: Ctx, kind: str, p, x, state):
         # by every request, no batch axis); decode_slot carries pool-FLAT
         # slot ids, masked rows (-1) write nothing
         bi, _ti, slot = _write_index(ctx, ctx.decode_slot[:, None])
-        state["kp"][slot] = k[bi, 0]
-        state["vp"][slot] = v[bi, 0]
+        state["kp"][slot] = k[bi, 0].to(state["kp"].dtype)
+        state["vp"][slot] = v[bi, 0].to(state["vp"].dtype)
         state["ppos"][slot] = ctx.positions[bi, 0].to(torch.int32)
         k_all, v_all, kv_pos = state["kp"], state["vp"], state["ppos"]
     elif ctx.mode == "decode":
@@ -462,8 +472,8 @@ def _self_attention(ctx: Ctx, kind: str, p, x, state):
         bi, ti, slot = _write_index(ctx, ctx.decode_slot[:, None])
         if kind == "local":
             slot = slot % state["k"].shape[1]
-        state["k"][bi, slot] = k[bi, ti]
-        state["v"][bi, slot] = v[bi, ti]
+        state["k"][bi, slot] = k[bi, ti].to(state["k"].dtype)
+        state["v"][bi, slot] = v[bi, ti].to(state["v"].dtype)
         state["pos"][bi, slot] = ctx.positions[bi, ti].to(torch.int32)
         k_all, v_all, kv_pos = state["k"], state["v"], state["pos"]
     else:

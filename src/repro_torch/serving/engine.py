@@ -43,6 +43,16 @@ readers released, table blocks and the open reservation reclaimed in one
 pool op, so ``free + live + reserved == num_blocks`` holds throughout.
 Queue-driven tier prefetch runs every iteration under cancellable
 tickets. See ``repro/serving/engine.py`` for the full design notes.
+
+bf16 (``cfg.dtype="bfloat16"``, as ``cfg.replace(dtype="bfloat16",
+param_dtype="bfloat16")`` gives): weights and activations in bf16 over
+the fp32 caches of the executor, the decode arena and the pool, as in the
+reference. Its engine serves that on ``attn_impl="kernel"`` alone: the
+chunk and decode kernels take bf16 q over fp32 K/V and write bf16, while
+every other route returns fp32 attention into the bf16 residual and
+fails in the first prefill (or, with ``paged_decode``, the first decode
+step). The port refuses those routes when the engine is built
+(``_check_bf16_route``, ROADMAP C12).
 """
 from __future__ import annotations
 
@@ -101,6 +111,25 @@ def _leave_row(cache, row: int):
         t["pos"][row] = -1
 
 
+def _check_bf16_route(cfg: ModelConfig, attn_impl: Optional[str],
+                      paged_decode: bool):
+    """Raise ``ValueError`` for a model that is not fp32 on any route but
+    ``kernel`` without paged decode: the routes the reference's engine
+    cannot serve in bf16 (ROADMAP C12)."""
+    if cfg.dtype == "float32" or (attn_impl == "kernel"
+                                  and not paged_decode):
+        return
+    route = "the default (dense prefill, auto decode)" \
+        if attn_impl is None else repr(attn_impl)
+    if paged_decode:
+        route += " with paged_decode"
+    raise ValueError(
+        f"Engine: a {cfg.dtype} model is served on attn_impl='kernel' "
+        f"without paged_decode only, not on route {route}: the reference "
+        "engine fails there in bf16 (fp32 attention into the bf16 "
+        "residual; ROADMAP C12)")
+
+
 @dataclass
 class EngineStats:
     prefill_tokens_total: int = 0
@@ -155,6 +184,8 @@ class Engine:
         # reference's split: "dense" prefill windows, "auto" decode. A
         # serving mesh forces "sharded" and a head-sharded pool
         self.mesh = mesh
+        _check_bf16_route(cfg, "sharded" if mesh is not None else attn_impl,
+                          paged_decode)
         kv_shards = 1
         if mesh is not None:
             from repro_torch.distributed.sharding import serving_kv_shards
