@@ -257,7 +257,38 @@ Phases (each prints its own line; any failure raises and exits non-zero):
     (out within one bf16 rounding of the plain version's fp32 value plus
     3e-5, the mass within 3e-5, two launches byte for byte) and timed
     beside its plain version, its bound and the upcast plus SDPA;
-20. a ``kernels`` JSON line (launches on the main paths, error, times,
+20. the reference's bf16 deployment through the step roots and the
+    train step (TF32 off; ``run_bf16_steps`` after phase 19, on its
+    weights; ``run_bf16_families`` after llama3-8b's weights are freed):
+    ``cfg.replace(dtype="bfloat16", param_dtype="bfloat16")`` with bf16
+    caches from ``init_cache`` at ``cfg.dtype``, phase 18's inputs and
+    steps (recurrentgemma-9b's prompt 2048 tokens, filling its ring; no
+    Cache-Craft step where the config takes no chunk cache). llama3-8b at
+    full width and depth on ``kernel`` and ``dense`` in bf16, on
+    ``kernel`` over (1, 4) and on ``kernel`` in fp32 on the same
+    bf16-rounded weights (the yardstick); recurrentgemma-9b, gemma3-4b
+    and mamba2-370m whole likewise, unsharded (its ``dense`` and fp32
+    routes on the plain SSD, ``PlainSsd``). Held by the bf16 rule
+    (``BF16_GAP_FACTOR``: the bf16 kernel route against the fp32 one,
+    against ``dense`` in bf16 and sharded against unsharded, each within
+    twice the rms and the largest of the ``dense`` bf16 route's gap to the
+    fp32 one, the largest plus one bf16 ulp; positions equal). The chunk,
+    decode and SSD launches counted from 0 around each run by
+    instantiation: every chunk and decode launch the pure-bf16 one, one
+    per attention layer (and model shard) and pass or step, the SSD ones
+    fp32; the pure-bf16 chunk and decode kernels held (3e-2) and timed on
+    the recorded inputs of each model's most frequent calls (and
+    recurrentgemma's decode at B 1) beside SDPA in bf16 and their bound,
+    mamba2's SSD call against ``ssd_intra_ref`` (fp32 allclose bound).
+    The bf16 train step of llama3-8b/2 (phase 5's shape, 3 steps) beside
+    the fp32 step from the same bf16-rounded init: step ms, tokens/s,
+    peak memory, MFU against the bf16 peak, the bf16 losses falling, the
+    first step's loss and grad norm (the same params in both) within
+    twice the plain forward's per-token NLL gap and grad gap norm, its
+    update bit-equal to AdamW written out in fp32 and rounded to nearest
+    bf16 (``BF16_UPDATE_EQUAL``) and beyond one ulp of the fp32 run's no
+    more often than twice the grads' sign flips;
+21. a ``kernels`` JSON line (launches on the main paths, error, times,
     bound, the D 256 rows, the paged kernel's per-shard call, each
     family's path shape, the pressure phase's and the strategies phase's
     beside them; and a row each for the chunk, decode and SSD kernels
@@ -265,8 +296,11 @@ Phases (each prints its own line; any failure raises and exits non-zero):
     figures, per-engine TTFT / decode-step figures, the server's, the
     families', the recurrent and vision ones, the mesh phases', the
     pressure phase's, the strategies phase's, phases 14-15's and phase
-    18's; and the two mixed rows of phase 19 with its figures;
-21. last line: ``{"ok": true, "device": {...}}``.
+    18's; the two mixed rows of phase 19 with its figures; and the two
+    pure-bf16 step-root rows of phase 20 and its fp32 SSD row with its
+    figures (a row cut from another call, never launched at its own
+    shape, shows 0 launches);
+22. last line: ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before the mamba2 phase, the training
 runs, the engine serving the trained checkpoint, engines A and B,
@@ -276,7 +310,8 @@ mesh, the pressure phase's runs, the strategies phase's and engine A16
 just after (rope and the attention kernels of engine A in A, paged
 decode in B and in B on the mesh, all four in phase 16, chunk and rope
 in phase 17, chunk, decode and SSD around each sharded run of phase 18,
-the mixed chunk and decode instantiations and rope in A16);
+the mixed chunk and decode instantiations and rope in A16, chunk, decode
+and SSD by instantiation around each run of phase 20);
 the comparison launches
 of phase 3 and the replays after the engines do not count. Without CUDA, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
@@ -288,6 +323,7 @@ import collections
 import ctypes
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -4612,6 +4648,7 @@ class SsdRecorder:
                                         (xdt, log_a, B_mat, C_mat))
             return orig(xdt, log_a, B_mat, C_mat)
         rec.launches = orig.launches
+        rec.launches_by_type = orig.launches_by_type
         self.sops.ssd_intra = rec
         return self
 
@@ -4624,14 +4661,42 @@ class SsdRecorder:
             if self.shapes else None
 
 
-def _serve_inputs(cfg, dev, seed=3):
-    """The prompt [4, 512], the Cache-Craft step's 160 active positions
-    of each row (sorted) and their tokens, and 8 decode steps' tokens,
-    from a numpy seed."""
+class PlainSsd:
+    """Routes the model's SSD calls to the plain version
+    (``ssd_intra_ref``, on the card's tensors) while entered: the plain
+    routes of phase 20 for a config with SSD layers, whose SSD takes the
+    one fp32 instantiation on every route (the model widens its inputs),
+    so that those routes share nothing with the kernel under test."""
+
+    def __init__(self, sops):
+        self.sops, self.orig = sops, sops.ssd_intra
+
+    def __enter__(self):
+        from repro_torch.kernels.ssd.ref import ssd_intra_ref
+
+        def plain(xdt, log_a, B_mat, C_mat):
+            lead = xdt.shape[:-4]
+            y, st = ssd_intra_ref(*(t.flatten(0, 1) if lead else t
+                                    for t in (xdt, log_a, B_mat, C_mat)))
+            if lead:
+                y, st = (t.unflatten(0, (lead[0], -1)) for t in (y, st))
+            return y, st
+        self.sops.ssd_intra = plain
+        return self
+
+    def __exit__(self, *exc):
+        self.sops.ssd_intra = self.orig
+
+
+def _serve_inputs(cfg, dev, seed=3, tokens=None):
+    """The prompt [4, ``tokens`` or SERVE_TOKENS], the Cache-Craft step's
+    160 active positions of each row (sorted; at most the prompt's) and
+    their tokens, and 8 decode steps' tokens, from a numpy seed."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
-    B, T, A = SERVE_ROWS, SERVE_TOKENS, SERVE_ACTIVE
+    B, T = SERVE_ROWS, tokens or SERVE_TOKENS
+    A = min(SERVE_ACTIVE, T)
 
     def t(x):
         return torch.from_numpy(x.astype(np.int32)).to(dev)
@@ -4646,9 +4711,11 @@ def _serve_inputs(cfg, dev, seed=3):
              for i in range(SERVE_DECODE)])
 
 
-def _serve_steps(cfg, params, inp, impl, dev, mesh=None, sparams=None):
+def _serve_steps(cfg, params, inp, impl, dev, mesh=None, sparams=None,
+                 cache_len=None, with_cc=True):
     """The three serving steps on ``impl``: the prefill of the prompt
-    into a cache of SERVE_CACHE slots, the Cache-Craft step on a copy of
+    into a cache of ``cache_len`` (SERVE_CACHE) slots at ``cfg.dtype``,
+    the Cache-Craft step (``with_cc``) on a copy of
     that cache and the decode steps on another; unsharded, or on ``mesh``
     with ``sparams`` (the params laid out) and each cache laid out by the
     step's layout. Returns {step: (logits, the whole cache)}."""
@@ -4660,12 +4727,13 @@ def _serve_steps(cfg, params, inp, impl, dev, mesh=None, sparams=None):
     from repro_torch.training import steps as TS
 
     pre, cc, dec = inp
+    cache_len = cache_len or SERVE_CACHE
 
     def run(mode, maker, cache, batches):
         if mesh is None:
             step, p, c = maker(cfg, impl), params, cache
         else:
-            shs = DR.serving_shardings(cfg, mode, SERVE_ROWS, SERVE_CACHE,
+            shs = DR.serving_shardings(cfg, mode, SERVE_ROWS, cache_len,
                                        mesh)
             step, p = maker(cfg, impl, shardings=shs), sparams
             c = SH.shard_tree(cache, shs[1]["cache"])
@@ -4678,10 +4746,11 @@ def _serve_steps(cfg, params, inp, impl, dev, mesh=None, sparams=None):
         return torch.cat(lgs, 1), (c if mesh is None
                                    else SH.unshard_tree(c))
     out = {"prefill": run("prefill", TS.make_prefill_step, M.init_cache(
-        cfg, SERVE_ROWS, SERVE_CACHE, device=dev), [pre])}
+        cfg, SERVE_ROWS, cache_len, device=dev), [pre])}
     base = out["prefill"][1]
-    out["cc"] = run("partial", TS.make_cachecraft_prefill_step,
-                    _clone_cache(base), [cc])
+    if with_cc:
+        out["cc"] = run("partial", TS.make_cachecraft_prefill_step,
+                        _clone_cache(base), [cc])
     out["decode"] = run("decode", TS.make_decode_step, _clone_cache(base),
                         dec)
     return out
@@ -4963,6 +5032,22 @@ def _leaves(params):
         [x for g in params["groups"] + params["tail"] for x in g.values()]
 
 
+def bf16_copy(params):
+    """Rounds fp32 ``params`` to bf16 values in place and returns a bf16
+    copy of them: the same weights in both dtypes."""
+    import torch
+    with torch.no_grad():
+        for x in _leaves(params):
+            x.copy_(x.to(torch.bfloat16))
+        p16 = {k: params[k].to(torch.bfloat16)
+               for k in ("embed", "unembed", "final_norm")}
+        for part in ("groups", "tail"):
+            p16[part] = [{n: x.to(torch.bfloat16) for n, x in g.items()}
+                         for g in params[part]]
+    torch.cuda.synchronize()
+    return p16
+
+
 # A16 against A32: their decode logits within BF16_FORWARD_FACTOR times the
 # bf16-vs-fp32 gap of the plain train-mode forward (dense attention, no
 # kernel and no cache) on the same weights, read in the same run over
@@ -5054,17 +5139,7 @@ def run_bf16(cfg, params, tmp):
     dev = params["embed"].device
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    with torch.no_grad():
-        for x in _leaves(params):
-            x.copy_(x.to(torch.bfloat16))
-        p16 = {"embed": params["embed"].to(torch.bfloat16),
-               "unembed": params["unembed"].to(torch.bfloat16),
-               "final_norm": params["final_norm"].to(torch.bfloat16),
-               "groups": [{n: x.to(torch.bfloat16) for n, x in g.items()}
-                          for g in params["groups"]],
-               "tail": [{n: x.to(torch.bfloat16) for n, x in t.items()}
-                        for t in params["tail"]]}
-    torch.cuda.synchronize()
+    p16 = bf16_copy(params)
     cfg16 = cfg.replace(dtype="bfloat16", param_dtype="bfloat16")
     w_gb = sum(x.numel() * x.element_size() for x in _leaves(params)
                + _leaves(p16)) / 1e9
@@ -5136,7 +5211,7 @@ def run_bf16(cfg, params, tmp):
                 calls=dc.shapes[dk], **measure_decode(
                     f"A16 path{list(dk[1:])}", dc.calls[dk],
                     MIXED_TYPES)[MIXED])}
-    del cc, dc, p16
+    del cc, dc
     _free()
     out = dict(A16=a16, A32=a32, launches=counts, want=want,
                logit_gap=g["gap"], logit_gap_kept=g["kept"],
@@ -5147,6 +5222,535 @@ def run_bf16(cfg, params, tmp):
                weights_gb=w_gb, peak_gb=peak, kernels=rows,
                seconds=time.perf_counter() - t_phase)
     log(f"phase 19 (bf16 serving on kernel): {out['seconds']:.1f}s")
+    # the bf16 copy, for phase 20 (popped there)
+    out["params16"] = p16
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the reference's bf16 deployment through the step roots and the
+# train step (bf16 params and activations over bf16 caches)
+# ---------------------------------------------------------------------------
+# The bf16 rule on the card (PERF.md §2). The reference's own form
+# (tests/test_torch_bf16_steps.py, on the CPU) holds the port's bf16 value
+# within twice the reference's bf16-vs-fp32 gap. No reference runs here,
+# so the plain route stands in for it: the yardstick gap of a value is
+# the ``dense`` route in bf16 against the ``kernel`` route in fp32 on the
+# same bf16-rounded weights (fp32 caches, TF32 off). A bf16 value (the
+# ``kernel`` route against that fp32 route, ``kernel`` against ``dense``
+# in bf16, sharded against unsharded in bf16) holds when, for each step
+# and each kind of floating leaf (the logits; ``k``, ``v``, ``h``,
+# ``conv``, ``s`` over every layer), its rms gap is within
+# BF16_GAP_FACTOR x the yardstick's rms gap and its largest within
+# BF16_GAP_FACTOR x the yardstick's largest plus one bf16 ulp of the
+# value's largest magnitude (two bf16 roundings of nearly equal values
+# land up to one ulp apart); positions equal. The bf16 train step: each
+# step's loss within BF16_GAP_FACTOR x the mean per-token NLL gap of the
+# plain train-mode forward (bf16 against fp32) at the initial params on
+# the first batch, its grad norm within BF16_GAP_FACTOR x the norm of
+# that forward's grad gap (a mean and a norm cancel their elements'
+# rounding by chance, so their own gaps are no scale), at the first step,
+# where both runs hold the same params; the bf16 losses falling.
+BF16_GAP_FACTOR = 2.0
+# the families whose bf16 model roots run whole beside llama3-8b
+BF16_FAMILIES = ("recurrentgemma-9b", "gemma3-4b", "mamba2-370m")
+BF16_MESH = (1, 4)
+BF16_TRAIN_STEPS = 3
+# the bf16 params after the first AdamW step: at least this share of them
+# bit-equal to the update written out in fp32 and rounded to nearest (the
+# same fp32 operations in the same order give the same bits; a rounding
+# other than to nearest parts about half of them), none beyond one ulp
+BF16_UPDATE_EQUAL = 0.999
+BF16_PAIR = (("bfloat16", "bfloat16"),)
+
+
+def _leaf_gaps(got, want):
+    """{(step, leaf kind): [sum of squares, count, max abs, max |want|]}
+    of ``got`` against ``want`` (``_serve_steps``' results) over the
+    logits and every floating cache leaf; positions must be equal."""
+    import torch
+    gaps = {}
+    for what, (lg, cache) in want.items():
+        pairs = [("logits", got[what][0], lg)]
+        for part in ("groups", "tail"):
+            for g, w in zip(got[what][1][part], cache[part]):
+                for n, x in w.items():
+                    if x.is_floating_point():
+                        pairs.append((n, g[n], x))
+                    elif not torch.equal(g[n], x):
+                        raise RuntimeError(f"phase 20: {what} {part} {n}: "
+                                           "the cache positions differ")
+        for n, a, b in pairs:
+            d = a.float() - b.float()
+            acc = gaps.setdefault((what, n), [0.0, 0, 0.0, 0.0])
+            acc[0] += float(d.double().square().sum())
+            acc[1] += d.numel()
+            acc[2] = max(acc[2], float(d.abs().max()))
+            acc[3] = max(acc[3], float(b.float().abs().max()))
+    return gaps
+
+
+def _ulp16(x):
+    """One bf16 ulp at magnitude ``x``."""
+    return 2.0 ** (math.floor(math.log2(max(x, 2.0 ** -126))) - 7)
+
+
+def hold_bf16(tag, got, want, yard):
+    """``got`` against ``want`` by the bf16 rule of ``yard`` (the
+    yardstick's ``_leaf_gaps``): raises beyond it; returns the worst
+    ratios of the rms and the largest gap to their limits."""
+    worst, bad = [0.0, 0.0], []
+    for key, (ss, n, mx, top) in _leaf_gaps(got, want).items():
+        ys, yn, ymx, _ = yard[key]
+        rms, yrms = math.sqrt(ss / n), math.sqrt(ys / yn)
+        r = (rms / (BF16_GAP_FACTOR * yrms) if yrms else
+             (0.0 if rms == 0 else math.inf),
+             mx / (BF16_GAP_FACTOR * ymx + _ulp16(top)))
+        worst = [max(worst[0], r[0]), max(worst[1], r[1])]
+        if not (r[0] <= 1.0 and r[1] <= 1.0):
+            bad.append((key, rms, yrms, mx, ymx))
+    log(f"phase 20: {tag}: worst {worst[0]:.3f} (rms) and {worst[1]:.3f} "
+        f"(largest) of the bf16 rule's limits")
+    if bad:
+        raise RuntimeError(f"phase 20: {tag} beyond the bf16 rule "
+                           f"(step, leaf, rms, yardstick rms, max, "
+                           f"yardstick max): {bad}")
+    return dict(worst_rms_ratio=worst[0], worst_max_ratio=worst[1])
+
+
+def _counted(run):
+    """Runs ``run()`` with the chunk, decode and SSD counts (by
+    instantiation) set to 0 just before it and their calls recorded;
+    returns its result, {kernel: {instantiation: launches}} and the
+    recorders."""
+    from repro_torch.kernels.chunk_attention import ops as cops
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.ssd import ops as sops
+
+    fns = {"chunk_attention": cops.chunk_attention,
+           "decode_attention": dops.decode_attention,
+           "ssd_intra": sops.ssd_intra}
+    for f in fns.values():
+        f.launches = 0
+        f.launches_by_type.clear()
+    with ChunkRecorder(cops) as cc, DecodeRecorder(dops) as dc, \
+            SsdRecorder(sops) as sc:
+        res = run()
+    return res, {k: dict(f.launches_by_type) for k, f in fns.items()}, \
+        (cc, dc, sc)
+
+
+def _expect_types(tag, got, cfg, shards=1, decode=SERVE_DECODE,
+                  with_cc=True, dtype="bfloat16", ssd=True):
+    """Launch counts from 0: a chunk launch per attention layer, model
+    shard and prefill pass (the Cache-Craft step one more), a decode
+    launch per attention layer, shard and step, an SSD launch per SSD
+    layer and shard in the prefill (none where ``ssd`` is false, the SSD
+    on its plain version); the chunk and decode ones all of ``dtype``'s
+    instantiation, the SSD ones fp32 (the model widens its inputs)."""
+    n_attn = sum(k in ("attn", "local") for k in cfg.layer_kinds)
+    n_ssd = cfg.layer_kinds.count("ssd") if ssd else 0
+    want = {"chunk_attention": (1 + with_cc) * n_attn * shards,
+            "decode_attention": decode * n_attn * shards,
+            "ssd_intra": n_ssd * shards}
+    want = {k: {("float32" if k == "ssd_intra" else dtype): n}
+            if n else {} for k, n in want.items()}
+    log(f"phase 20: {tag}: launches by instantiation {json.dumps(got)} "
+        f"(expected {json.dumps(want)})")
+    if got != want:
+        raise RuntimeError(f"phase 20: {tag}: launches {got}, expected "
+                           f"{want}")
+
+
+def _bf16_routes(name, cfg, params, p16, inp, dev, cache_len, mesh=None):
+    """The three steps of ``cfg`` on ``kernel`` in bf16 (counted), on
+    ``dense`` in bf16 and on ``kernel`` in fp32 on the same bf16-rounded
+    weights, and with ``mesh`` on ``kernel`` in bf16 sharded (counted);
+    each held by the bf16 rule. Where ``cfg`` has SSD layers, the
+    ``dense`` and fp32 routes run the SSD through its plain version
+    (``PlainSsd``): its one fp32 instantiation would else make ``dense``
+    and ``kernel`` one computation and the yardstick the kernel's own.
+    Returns the figures and the bf16 kernel run's recorders."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.launch import dryrun as DR
+
+    cfg16 = cfg.replace(dtype="bfloat16", param_dtype="bfloat16")
+    cc_on = cfg.supports_chunk_cache
+    kw = dict(cache_len=cache_len, with_cc=cc_on)
+    has_ssd = "ssd" in cfg.layer_kinds
+
+    def plain(c, p, impl):
+        with (PlainSsd(sops) if has_ssd else contextlib.nullcontext()):
+            return _serve_steps(c, p, inp, impl, dev, **kw)
+    out, t0 = {}, time.perf_counter()
+    k16, n, rec = _counted(lambda: _serve_steps(cfg16, p16, inp, "kernel",
+                                                dev, **kw))
+    out["kernel_seconds"] = time.perf_counter() - t0
+    _expect_types(f"{name} kernel bf16", n, cfg, with_cc=cc_on)
+    out["launches"] = n
+    d16, nd, _ = _counted(lambda: plain(cfg16, p16, "dense"))
+    if any(nd.values()):
+        raise RuntimeError(f"phase 20: {name}: the dense route launched "
+                           f"{nd}")
+    k32, n32, _ = _counted(lambda: plain(cfg, params, "kernel"))
+    _expect_types(f"{name} kernel fp32", n32, cfg, with_cc=cc_on,
+                  dtype="float32", ssd=not has_ssd)
+    yard = _leaf_gaps(d16, k32)
+    out["yardstick"] = {f"{w} {k}": dict(rms=math.sqrt(v[0] / v[1]),
+                                         max=v[2])
+                        for (w, k), v in yard.items()}
+    out["plain_ssd"] = has_ssd
+    log(f"phase 20: {name}: the yardstick (dense bf16 vs kernel fp32"
+        f"{', both with the plain SSD' if has_ssd else ''}): "
+        + json.dumps({k: f"rms {v['rms']:.3e} max {v['max']:.3e}"
+                      for k, v in out["yardstick"].items()}))
+    out["kernel_vs_fp32"] = hold_bf16(f"{name} kernel bf16 vs fp32", k16,
+                                      k32, yard)
+    out["kernel_vs_dense"] = hold_bf16(f"{name} kernel vs dense in bf16",
+                                       k16, d16, yard)
+    del d16, k32
+    _free()
+    if mesh is not None:
+        psh = DR.serving_shardings(cfg16, "prefill", SERVE_ROWS, cache_len,
+                                   mesh)[0]
+        sp16 = SH.shard_tree(p16, psh)
+        shards = mesh.devices.size
+        t0 = time.perf_counter()
+        ks, ns, _ = _counted(lambda: _serve_steps(
+            cfg16, p16, inp, "kernel", dev, mesh, sp16, **kw))
+        out["mesh_seconds"] = time.perf_counter() - t0
+        _expect_types(f"{name} kernel bf16 on {list(mesh.devices.shape)}",
+                      ns, cfg, shards=shards, with_cc=cc_on)
+        out["mesh_launches"] = ns
+        out["sharded_vs_unsharded"] = hold_bf16(
+            f"{name} on {list(mesh.devices.shape)} vs unsharded", ks, k16,
+            yard)
+        del sp16, ks
+    del k16
+    _free()
+    return out, rec
+
+
+def _kernel_rows(tag, rec, decode_b1=False):
+    """The pure-bf16 chunk and decode kernels held and timed on the
+    recorded inputs of the run's most frequent call of each (and the
+    decode call's first row, ``decode_b1``); the SSD kernel (fp32, the
+    model widens its inputs) likewise, against ``ssd_intra_ref``."""
+    cc, dc, sc = rec
+    rows = {}
+    sk = sc.most_frequent()
+    if sk is not None:
+        rows["ssd_intra"] = dict(
+            calls=sc.shapes[sk], shape=list(sk), **measure_ssd_call(
+                f"{tag} bf16 step roots path", sc.calls[sk],
+                sc.calls[sk])["float32"])
+    if cc.shapes:
+        ck = max(cc.shapes, key=lambda k: (cc.shapes[k], k))
+        rows["chunk_attention"] = dict(
+            calls=cc.shapes[ck], **measure_chunk(
+                f"{tag} bf16 step roots path{list(ck)}", cc.calls[ck],
+                BF16_PAIR)["bfloat16"])
+    dk = dc.most_frequent("dense")
+    if dk is not None:
+        di = dc.calls[dk]
+        rows["decode_attention"] = dict(
+            calls=dc.shapes[dk], **measure_decode(
+                f"{tag} bf16 step roots path{list(dk[1:])}", di,
+                BF16_PAIR)["bfloat16"])
+        if decode_b1:
+            one = {k: (v[:1] if hasattr(v, "dim") else v)
+                   for k, v in di.items()}
+            rows["decode_attention_b1"] = dict(
+                calls=0, **measure_decode(f"{tag} bf16 step roots B 1 "
+                                          f"(row 0 of {list(dk[1:])})", one,
+                                          BF16_PAIR)["bfloat16"])
+    return rows
+
+
+def run_bf16_steps(cfg, params, p16, dev, card):
+    """Phase 20, llama3-8b: the reference's bf16 deployment (bf16 params
+    and activations, bf16 caches from ``init_cache`` at ``cfg.dtype``)
+    through the prefill, Cache-Craft and decode step roots at full width
+    and depth, on phase 19's weights (``params`` rounded to bf16 values,
+    ``p16`` their bf16 copy), phase 18's inputs (4 rows, a 512-token
+    prefill into 576 slots, 160 active positions, 8 decode steps), TF32
+    off: unsharded on ``kernel`` and ``dense``, on ``kernel`` over
+    (data 1, model 4), and on ``kernel`` in fp32 as the yardstick; the
+    pure-bf16 chunk and decode kernels counted from 0 and held and timed
+    on the recorded inputs of their most frequent calls."""
+    import torch
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            inp = _serve_inputs(cfg, dev)
+            out, rec = _bf16_routes(cfg.name, cfg, params, p16, inp, dev,
+                                    SERVE_CACHE,
+                                    make_debug_mesh(BF16_MESH, device=dev))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out["kernels"] = _kernel_rows(cfg.name, rec)
+    del rec
+    _free()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 20 (bf16 step roots, {cfg.name}) [{card}]: "
+        f"{out['seconds']:.1f}s")
+    return out
+
+
+def _nll_tokens(cfg, params, b):
+    """Per-token NLL of the plain train-mode forward (fp32 [B, T])."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import model as M
+    logits = M.forward(cfg, params, tokens=b["tokens"], mode="train",
+                       attn_impl="dense").logits.float()
+    return -F.log_softmax(logits, -1).gather(
+        -1, b["labels"].long()[..., None])[..., 0]
+
+
+def _ulp16_t(b):
+    """One bf16 ulp at each |b| (the smallest normal's at 0), fp32."""
+    import torch
+    return torch.exp2(torch.floor(torch.log2(
+        b.float().abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def _beyond_ulp(got, want):
+    """Elements of ``got`` more than one bf16 ulp of ``want`` from it
+    (a count), and those bit-equal."""
+    import torch
+    d = (got.float() - want.float()).abs()
+    return int((d > _ulp16_t(want)).sum()), int(torch.eq(got, want).sum())
+
+
+def bf16_train(dev, card):
+    """The bf16 train step of llama3-8b cut to 2 layers (phase 5's cut,
+    4 x 1024 tokens in 2 microbatches, TF32 off): BF16_TRAIN_STEPS steps
+    from a seed-0 init rounded to bf16, beside the fp32 step from the
+    same bf16-rounded init; step ms (events, after the first), tokens/s,
+    peak memory (the largest of the steps'), MFU against the bf16 peak;
+    the bf16 losses falling; the first step (the same params in both)
+    held by the bf16 rule's train part (the plain forward's per-token NLL
+    and grad gaps at the init); and the first update itself: the bf16
+    params after it equal AdamW's fp32 update of the initial params from
+    the run's own fp32 moments, rounded to nearest bf16 (BF16_UPDATE_EQUAL
+    of them bit for bit, every one within one ulp), and leave one ulp of the fp32 run's params rounded
+    to bf16 at no more than BF16_GAP_FACTOR x the share of elements
+    whose grad at the init changes sign between bf16 and fp32 (the first
+    AdamW step moves each param by lr x sign(grad), so two runs part by
+    2 lr only where the signs part)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.training import steps as TS
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
+                                                global_norm, tree_leaves)
+    rl = _roofline()
+    cfg = get_config("llama3-8b").replace(num_layers=2)
+    cfg16 = cfg.replace(dtype="bfloat16", param_dtype="bfloat16")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    p32 = TS._trainable(M.init_params(cfg, gen))
+    p16 = TS._trainable(bf16_copy(p32))
+    # the initial bf16 params, on the host (both runs update in place)
+    p0 = [x.detach().to("cpu", copy=True) for x in tree_leaves(p16)]
+    data = SyntheticLM(DataConfig(seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH,
+                                  vocab_size=cfg.vocab_size))
+
+    def batch(i):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in data.batch(i).items()}
+    b0 = batch(0)
+    # the yardsticks: the plain forward's per-token NLL gap, the norm of
+    # its grad gap and the share of its grads that change sign, bf16
+    # against fp32, at the init
+    with torch.no_grad():
+        nll_gap = float((_nll_tokens(cfg16, p16, b0) -
+                         _nll_tokens(cfg, p32, b0)).abs().mean())
+    grads = {}
+    for name, c, p in (("bf16", cfg16, p16), ("fp32", cfg, p32)):
+        loss = TS.loss_fn(c, p, b0)[0]
+        grads[name] = [g.float() for g in torch.autograd.grad(
+            loss, list(tree_leaves(p)))]
+        del loss
+    gn_gap = float(global_norm([a - b for a, b in zip(grads["bf16"],
+                                                      grads["fp32"])]))
+    n_el = sum(g.numel() for g in grads["fp32"])
+    sign_share = sum(int((torch.sign(a) != torch.sign(b)).sum()) for a, b
+                     in zip(grads["bf16"], grads["fp32"])) / n_el
+    del grads
+    _free()
+    opt = AdamWConfig(**_train_opt(cfg))
+    runs, upd = {}, {}
+    for name, c, p in (("fp32", cfg, p32), ("bf16", cfg16, p16)):
+        state = TS.TrainState(step=torch.zeros((), dtype=torch.int32,
+                                               device=dev),
+                              params=p, opt=adamw_init(p))
+        step = TS.make_train_step(c, opt, accum=TRAIN_ACCUM)
+        losses, gnorms, ms, peaks = [], [], [], []
+        for i in range(BF16_TRAIN_STEPS):
+            b = batch(i)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, m = step(state, b)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            peaks.append(torch.cuda.max_memory_allocated(dev))
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            if i == 0 and name == "fp32":
+                # the fp32 run's params after the first step, rounded
+                r32 = [x.to(torch.bfloat16).cpu()
+                       for x in tree_leaves(state.params)]
+            elif i == 0:
+                upd = _first_update(opt, state, p0, r32, dev)
+        step_ms = float(np.mean(ms[1:]))
+        flops = rl.model_flops_6nd(cfg, "train", TRAIN_BATCH, TRAIN_SEQ)
+        runs[name] = dict(
+            losses=losses, grad_norms=gnorms, step_ms=step_ms,
+            step_ms_all=ms, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ /
+            (step_ms / 1e3), peak_mem_gb=max(peaks) / 1e9,
+            mfu=flops / (step_ms / 1e3) / rl.PEAK_FLOPS_BY_TYPE[c.dtype],
+            param_dtype=str(next(tree_leaves(state.params)).dtype),
+            moment_dtype=str(next(tree_leaves(state.opt["m"])).dtype))
+        del state, step, m
+        if name == "fp32":
+            del p32
+        _free()
+    del p0, r32
+    a, b = runs["bf16"], runs["fp32"]
+    loss_gaps = [abs(x - y) for x, y in zip(a["losses"], b["losses"])]
+    gnorm_gaps = [abs(x - y) for x, y in zip(a["grad_norms"],
+                                             b["grad_norms"])]
+    out = dict(runs, nll_gap=nll_gap, grad_gap_norm=gn_gap,
+               loss_gaps=loss_gaps, grad_norm_gaps=gnorm_gaps,
+               grad_sign_share=sign_share, first_update=upd)
+    log(f"phase 20: train {cfg.name}/{cfg.num_layers} bf16 vs fp32 from "
+        f"one bf16-rounded init [{card}]: " + json.dumps(out))
+    if not (all(np.isfinite(a["losses"])) and a["param_dtype"] ==
+            "torch.bfloat16" and a["moment_dtype"] == "torch.float32"
+            and a["losses"][-1] < a["losses"][0]):
+        raise RuntimeError(f"phase 20: bf16 train step: {a}")
+    # the first step runs both on the same params: the rule holds its
+    # loss and grad norm; after it the bf16 params take rounded updates
+    # (an update below half an ulp is lost), the fp32 ones do not, so the
+    # later gaps are the two trainings', logged beside; the first update
+    # is held element by element instead
+    if not (loss_gaps[0] <= BF16_GAP_FACTOR * nll_gap and
+            gnorm_gaps[0] <= BF16_GAP_FACTOR * gn_gap):
+        raise RuntimeError(f"phase 20: bf16 train step beyond the bf16 "
+                           f"rule at the first step: loss gap "
+                           f"{loss_gaps[0]} (limit "
+                           f"{BF16_GAP_FACTOR * nll_gap}), grad norm gap "
+                           f"{gnorm_gaps[0]} (limit "
+                           f"{BF16_GAP_FACTOR * gn_gap})")
+    if not (upd["beyond_ulp_of_adamw"] == 0 and
+            upd["equal_to_adamw_share"] >= BF16_UPDATE_EQUAL and
+            upd["moved_share"] > 0 and
+            upd["beyond_ulp_of_fp32_share"] <= BF16_GAP_FACTOR * sign_share):
+        raise RuntimeError(f"phase 20: the bf16 train step's first update: "
+                           f"{upd}, grad sign share {sign_share} (limit of "
+                           f"the share beyond one ulp of the fp32 run's "
+                           f"{BF16_GAP_FACTOR * sign_share})")
+    return out
+
+
+def _first_update(opt, state, p0, r32, dev):
+    """The bf16 run's params after its first step (``state``) against
+    AdamW's update of the initial params ``p0`` (host copies) written out
+    in fp32 from the run's own moments, rounded to bf16 (elements beyond
+    one ulp of it, and bit-equal), and against ``r32``, the fp32 run's
+    params after its first step rounded to bf16 (the share beyond one ulp
+    of it); the share of params the step moved."""
+    import torch
+
+    from repro_torch.training.optimizer import adamw_scalars, tree_leaves
+    # the step's lr and bias corrections, as fp32 scalars on the card
+    _, lr, _, bc1, bc2 = adamw_scalars(
+        opt, torch.zeros((), dtype=torch.int32, device=dev),
+        torch.ones((), device=dev))
+    n = beyond = equal = beyond32 = moved = 0
+    for p1, m, v, x0, x32 in zip(tree_leaves(state.params),
+                                 tree_leaves(state.opt["m"]),
+                                 tree_leaves(state.opt["v"]), p0, r32):
+        x0 = x0.to(dev).float()
+        want = (x0 - lr * ((m / bc1) / (torch.sqrt(v / bc2) + opt.eps) +
+                           opt.weight_decay * x0)).to(torch.bfloat16)
+        k, e = _beyond_ulp(p1, want)
+        k32, _ = _beyond_ulp(p1, x32.to(dev))
+        n += p1.numel()
+        beyond, equal, beyond32 = beyond + k, equal + e, beyond32 + k32
+        moved += int((p1.float() != x0).sum())
+        del x0, want
+    return dict(beyond_ulp_of_adamw=beyond, equal_to_adamw_share=equal / n,
+                beyond_ulp_of_fp32_share=beyond32 / n, moved_share=moved / n,
+                elements=n, lr=float(lr))
+
+
+def run_bf16_families(dev, card):
+    """Phase 20, the families and training: recurrentgemma-9b (its
+    2048-slot ``local`` ring filled by a 2048-token prompt, so decode
+    runs G.D 4096 over it and wraps), gemma3-4b (D 256 on its local and
+    global layers) and mamba2-370m (its SSD launches fp32, as the
+    reference widens) whole in bf16, as phase 20's llama3-8b runs
+    (``_bf16_routes``; no Cache-Craft step where the config takes no
+    chunk cache, as the reference's dry-run applies it); then the bf16
+    train step (``bf16_train``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for arch in BF16_FAMILIES:
+            t_case = time.perf_counter()
+            cfg = get_config(arch)
+            params = _params(cfg, dev)
+            p16 = bf16_copy(params)
+            # recurrentgemma's prompt fills its ring; the others take
+            # phase 18's
+            rg = arch == "recurrentgemma-9b"
+            tokens = cfg.window if rg else SERVE_TOKENS
+            with torch.no_grad():
+                inp = _serve_inputs(cfg, dev, tokens=tokens)
+                r, rec = _bf16_routes(cfg.name, cfg, params, p16, inp, dev,
+                                      tokens + SERVE_DECODE if rg
+                                      else SERVE_CACHE)
+            del params, p16, inp
+            _free()
+            r["kernels"] = _kernel_rows(cfg.name, rec, decode_b1=rg)
+            del rec
+            _free()
+            r["seconds"] = time.perf_counter() - t_case
+            out[arch] = r
+        out["train"] = bf16_train(dev, card)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 20 (bf16 families and the bf16 train step) [{card}]: "
+        f"{out['seconds']:.1f}s")
     return out
 
 
@@ -5359,8 +5963,14 @@ def main() -> int:
         # phase 19: bf16 serving on kernel, engines A16 and A32; it rounds
         # the fp32 weights to bf16 values in place, their last use
         bf16 = run_bf16(cfg, params, tmp)
+        # phase 20: the reference's bf16 deployment through the step
+        # roots, llama3-8b on phase 19's weights, then the families and
+        # the bf16 train step once its weights are freed
+        bf16_steps = run_bf16_steps(cfg, params, bf16.pop("params16"), dev,
+                                    card)
         del params
         _free()
+        bf16_fams = run_bf16_families(dev, card)
         families = run_families(dev, tmp)
     # phase 11: the recurrent and vision families through the model roots
     recvis = run_recurrent_vision(dev)
@@ -5410,7 +6020,7 @@ def main() -> int:
     err_a = compare_logits("A(kernel)", tr_a, tok_a, tr_c, tok_c)
     err_b = compare_logits("B(paged_kernel)", tr_b, tok_b, tr_c, tok_c)
 
-    # phase 20: the kernels line, the mamba2, training, engine, family,
+    # phase 21: the kernels line, the mamba2, training, engine, family,
     # recurrent / vision, mesh, pressure, strategies, sharded-training and
     # sharded-serving figures
     sources = {
@@ -5748,6 +6358,61 @@ def main() -> int:
                                 "greedy_parts", "compared_steps",
                                 "identical_streams", "plan_diff",
                                 "weights_gb", "peak_gb", "seconds")}}))
+    # the pure-bf16 chunk and decode instantiations on the step roots'
+    # path (phase 20): llama3-8b's launches and its most frequent call of
+    # each, the families' beside them
+    for name in ("chunk_attention", "decode_attention"):
+        r = bf16_steps["kernels"][name]
+        src, rep = sources[name]
+        fams = {}
+        for tag, fr in bf16_fams.items():
+            if not isinstance(fr, dict) or "kernels" not in fr:
+                continue
+            for key, k in fr["kernels"].items():
+                if key.startswith(name):
+                    # a row cut from another call (calls 0) was never
+                    # launched at its own shape on the path
+                    fams[f"{tag}{key[len(name):]}"] = dict(
+                        launches=(fr["launches"][name].get("bfloat16", 0)
+                                  if k["calls"] else 0),
+                        **{m: k[m] for m in (
+                            "shape", "calls", "err", "ms", "device_ms",
+                            "plain_ms", "library_ms", "library_device_ms",
+                            "bound_ms", "bound_by") if m in k})
+        kernels.append(dict(
+            name=f"{name} bfloat16 step roots", route="cuda", source=src,
+            replaces=rep,
+            launches=bf16_steps["launches"][name]["bfloat16"],
+            launches_mesh=bf16_steps["mesh_launches"][name]["bfloat16"],
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"],
+            library_note="SDPA in bf16 with the same mask",
+            shape=r["shape"], calls_at_shape=r["calls"], families=fams,
+            **{k: r[k] for k in ("device_ms", "library_device_ms",
+                                 "splits") if k in r}))
+    # the SSD kernel on the bf16 step roots' path: fp32, as the model
+    # widens a bf16 model's inputs (mamba2-370m's prefill)
+    src, rep = sources["ssd_intra"]
+    for tag, fr in bf16_fams.items():
+        r = fr.get("kernels", {}).get("ssd_intra") \
+            if isinstance(fr, dict) else None
+        if r is None:
+            continue
+        kernels.append(dict(
+            name=f"ssd_intra float32 bf16 step roots ({tag})", route="cuda",
+            source=src, replaces=rep,
+            launches=fr["launches"]["ssd_intra"]["float32"],
+            max_abs_err=r["err"], worst_ratio_to_allclose=r["worst_ratio"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"],
+            bound_ms_cuda_cores=r["bound_ms_cuda_cores"], shape=r["shape"],
+            calls_at_shape=r["calls"]))
+    log(f"bf16 step roots and train step [{card}]: " + json.dumps({
+        cfg.name: {k: v for k, v in bf16_steps.items() if k != "kernels"},
+        **{k: ({m: x for m, x in v.items() if m != "kernels"}
+               if isinstance(v, dict) else v)
+           for k, v in bf16_fams.items()}}))
     log(f"end-to-end vs dense: A max abs logit diff {err_a:.3e}, "
         f"B {err_b:.3e}; total {time.perf_counter() - t_all:.1f}s")
     log(card)    # nvidia-smi's name, power.limit line, verbatim

@@ -14,7 +14,11 @@ The reference runs a body once per device of a mesh axis under
 * ``all_gather(parts, dim)`` concatenates per-shard tensors on the first
   shard's device: data movement only, so per-shard values keep their
   bits.
-* ``psum(parts)`` sums them on the first shard's device, in shard order.
+* ``psum(parts)`` sums them on the first shard's device, in shard order,
+  in the parts' dtype: a bf16 model's partial products are added in
+  bf16. The sharded bf16 steps so summed are held against the
+  reference's GSPMD-jitted ones by the bf16 rule
+  (``tests/test_torch_bf16_steps.py``).
 * ``reduce_scatter(parts, dim)`` is ``psum`` in shard order, after which
   shard s keeps its s-th block along ``dim``, on its own device
   (``jax.lax.psum_scatter(..., tiled=True)``). A part may be a list of

@@ -2,13 +2,17 @@
 
 CPU tensors go through the plain version (``ref.py``); CUDA tensors
 launch the kernel or raise: there is no fallback on the card.
-``ssd_intra.launches`` counts kernel launches (never the CPU path).
+``ssd_intra.launches`` counts kernel launches (never the CPU path), and
+``ssd_intra.launches_by_type`` the launches of each input dtype apart
+(``ssd_chunked`` widens a bf16 model's inputs to fp32 before it, as the
+reference does, so a bf16 model launches the fp32 instantiation).
 
 One CTA takes one chunk and ``heads_per_cta`` of its heads: it forms the
 chunk's scores C B^T once and reuses them for each of those heads.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -131,6 +135,7 @@ def ssd_intra(xdt, log_a, B_mat, C_mat):
                     torch.cuda.current_stream(dev).cuda_stream)
         build.check(err, what)
         ssd_intra.launches += 1
+        ssd_intra.launches_by_type[str(xdt.dtype).replace("torch.", "")] += 1
     else:
         raise ValueError(f"{what}: no kernel for device {xdt.device}")
     if lead:
@@ -140,3 +145,4 @@ def ssd_intra(xdt, log_a, B_mat, C_mat):
 
 
 ssd_intra.launches = 0
+ssd_intra.launches_by_type = collections.Counter()

@@ -1110,3 +1110,132 @@ def test_sharded_train_step_dp2_cuda_vs_unsharded(counts):
         assert all(2 * x.numel() == a.numel() for x in st.shards.flat)
     assert cops.chunk_attention.launches == 0
     assert dops.decode_attention.launches == 0
+
+
+# ---------------- the pure-bf16 kernels at the bf16 step roots' shapes ------
+# (name, B, A, S, H, Hkv, D, window, live slots): llama3-8b's prefill of
+# 512 tokens into a 576-slot cache and its Cache-Craft step of 160 active
+# positions against it; gemma3-4b's (D 256, the 1024-key window);
+# recurrentgemma-9b's 2048-token prompt filling its 2048-slot ring (G 16)
+BF16_CHUNK_STEPS = [("llama3-8b prefill", 4, 512, 576, 32, 8, 128, 0, 512),
+                    ("llama3-8b cc", 4, 160, 576, 32, 8, 128, 0, 512),
+                    ("gemma3-4b prefill", 4, 512, 576, 8, 4, 256, 1024, 512),
+                    ("recurrentgemma-9b prefill", 4, 2048, 2048, 16, 1, 256,
+                     2048, 2048)]
+# (name, B, S, H, Hkv, D, window, position): each one's decode over its
+# cache; recurrentgemma's at B 1 and B 4 over its wrapped ring
+BF16_DECODE_STEPS = [("llama3-8b", 4, 576, 32, 8, 128, 0, 515),
+                     ("gemma3-4b", 4, 576, 8, 4, 256, 1024, 515),
+                     ("recurrentgemma-9b B 1", 1, 2048, 16, 1, 256, 2048,
+                      2051),
+                     ("recurrentgemma-9b B 4", 4, 2048, 16, 1, 256, 2048,
+                      2051)]
+
+
+def _step_chunk_inputs(seed, B, A, S, H, Hkv, D, live):
+    """A prefill (A == live: every position) or a Cache-Craft step (A
+    sorted active positions) over ``live`` filled slots of S, per row."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, A, H, D)).astype(np.float32)
+    k = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
+    kpos = np.where(np.arange(S) < live, np.arange(S), -1).astype(np.int32)
+    kpos = np.tile(kpos, (B, 1))
+    qpos = np.stack([np.arange(A) if A == live else
+                     np.sort(rng.choice(live, A, replace=False))
+                     for _ in range(B)]).astype(np.int32)
+    kch = np.tile((np.maximum(kpos[0], 0) * 16 // S).astype(np.int32),
+                  (B, 1))
+    return q, k, v, qpos, kpos, kch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_CHUNK_STEPS, ids=lambda c: c[0])
+def test_chunk_cuda_bf16_step_root_shapes(counts, case):
+    """The pure-bf16 chunk instantiation at the bf16 step roots' call
+    shapes against its plain version (3e-2); one launch, of that
+    instantiation."""
+    dev = _need_cuda()
+    _, B, A, S, H, Hkv, D, win, live = case
+    cops.chunk_attention.launches_by_type.clear()
+    ins = _step_chunk_inputs(29, B, A, S, H, Hkv, D, live)
+    td = _t(*ins, device=dev, dtype=torch.bfloat16)
+    o, m = cops.chunk_attention(*td, num_chunks=16, window=win)
+    torch.cuda.synchronize()
+    assert dict(cops.chunk_attention.launches_by_type) == {"bfloat16": 1}
+    for b in range(B):
+        orf, mrf = chunk_attention_ref(*(t[b] for t in td), num_chunks=16,
+                                       window=win)
+        np.testing.assert_allclose(_np(o[b]), _np(orf), **BF16)
+        np.testing.assert_allclose(_np(m[b]), _np(mrf), **BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BF16_DECODE_STEPS, ids=lambda c: c[0])
+def test_decode_cuda_bf16_step_root_shapes(counts, case):
+    """The pure-bf16 decode instantiation at the bf16 step roots' decode
+    shapes (recurrentgemma-9b's G.D 4096 over its 2048-slot ring after it
+    wrapped, at B 1 and B 4) against its plain version (3e-2)."""
+    dev = _need_cuda()
+    _, B, S, H, Hkv, D, win, pos = case
+    dops.decode_attention.launches_by_type.clear()
+    q, k, v, _qp, _kp = _decode_inputs(30, B, S, H, Hkv, D)
+    ring = min(S, win) if win else S
+    # slot s holds the latest position p <= pos with p % ring == s
+    slots = np.arange(S)
+    kpos = pos - ((pos - slots) % ring) if win else slots
+    kpos = np.where((kpos >= 0) & (kpos <= pos), kpos, -1)
+    kpos = np.tile(kpos.astype(np.int32), (B, 1))
+    qpos = np.full(B, pos, np.int32)
+    td = _t(q, k, v, qpos, kpos, device=dev, dtype=torch.bfloat16)
+    o = dops.decode_attention(*td, window=win)
+    torch.cuda.synchronize()
+    assert dict(dops.decode_attention.launches_by_type) == {"bfloat16": 1}
+    r = dops.decode_attention_ref(*td, window=win)
+    np.testing.assert_allclose(_np(o), _np(r), **BF16)
+
+
+@pytest.mark.cuda
+def test_bf16_step_roots_launch_only_bf16_kernels(counts):
+    """llama3-8b at full width cut to 2 layers in bf16 (bf16 params and
+    caches) through the prefill, Cache-Craft and decode step roots on
+    ``kernel``: every chunk and decode launch is the pure-bf16 one, one
+    per layer and pass or step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.training import steps as TS
+    dev = _need_cuda()
+    cfg = get_config("llama3-8b").replace(num_layers=2, dtype="bfloat16",
+                                          param_dtype="bfloat16")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = M.init_params(cfg, gen)
+    assert params["embed"].dtype == torch.bfloat16
+    rng = np.random.default_rng(31)
+    B, T, S, A = 2, 128, 144, 32
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, T)).astype(
+        np.int32)).to(dev)
+    for f in (cops.chunk_attention, dops.decode_attention):
+        f.launches_by_type.clear()
+    with torch.no_grad():
+        cache = M.init_cache(cfg, B, S, device=dev)
+        assert cache["groups"][0]["k"].dtype == torch.bfloat16
+        lg, cache = TS.make_prefill_step(cfg, "kernel")(
+            params, {"tokens": toks, "cache": cache})
+        pos = torch.from_numpy(np.sort(np.stack([
+            rng.choice(T, A, replace=False) for _ in range(B)]), 1).astype(
+            np.int32)).to(dev)
+        TS.make_cachecraft_prefill_step(cfg, "kernel")(
+            params, {"tokens": toks[:, :A], "positions": pos,
+                     "cache": {p: [{n: x.clone() for n, x in g.items()}
+                                   for g in gs] for p, gs in cache.items()}})
+        dec = TS.make_decode_step(cfg, "kernel")
+        for i in range(2):
+            lg, cache = dec(params, {
+                "tokens": toks[:, i], "positions": torch.full(
+                    (B,), T + i, dtype=torch.int32, device=dev),
+                "cache": cache})
+    torch.cuda.synchronize()
+    assert lg.dtype == torch.bfloat16 and bool(torch.isfinite(lg).all())
+    assert dict(cops.chunk_attention.launches_by_type) == {"bfloat16": 4}
+    assert dict(dops.decode_attention.launches_by_type) == {"bfloat16": 4}

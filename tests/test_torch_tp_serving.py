@@ -28,6 +28,7 @@ layer's output; logits and caches after the steps ``TOL`` (2e-4), the
 same for the port against the reference (XLA's fp32 sums in its own
 order). Layouts and byte counts are exact.
 """
+import collections
 import functools
 import os
 import subprocess
@@ -664,6 +665,7 @@ def test_chip_smoke_tp_serving_rehearsal(monkeypatch):
                                         (xdt, log_a, B_mat, C_mat))
         y, st = ssd_intra_ref(xdt, log_a, B_mat, C_mat)
         sops.ssd_intra.launches += 1
+        sops.ssd_intra.launches_by_type[str(xdt.dtype)[6:]] += 1
         if lead:
             y, st = y.unflatten(0, lead + (-1,)), st.unflatten(0,
                                                                lead + (-1,))
@@ -671,6 +673,7 @@ def test_chip_smoke_tp_serving_rehearsal(monkeypatch):
 
     chunk_attention.launches = decode_attention.launches = 0
     ssd_intra.launches = 0
+    ssd_intra.launches_by_type = collections.Counter()
     # the phase's Cache-Craft step runs on the prefill's cache, whose
     # local ring holds every slot at full width (a 2048-key window over
     # 576 slots): so too here
