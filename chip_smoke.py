@@ -288,7 +288,31 @@ Phases (each prints its own line; any failure raises and exits non-zero):
     update bit-equal to AdamW written out in fp32 and rounded to nearest
     bf16 (``BF16_UPDATE_EQUAL``) and beyond one ulp of the fp32 run's no
     more often than twice the grads' sign flips;
-21. a ``kernels`` JSON line (launches on the main paths, error, times,
+21. the rest of the bf16 engine (after phase 19, on its weights, before
+    phase 20; TF32 off; ``run_bf16_engine``), llama3-8b on ``kernel``
+    over the engine's fp32 caches: phase 17's 15 executor cases in bf16
+    over a store warmed on ``kernel`` in bf16, each beside the same case
+    in fp32 on the same rounded weights replaying the bf16 run's choices
+    (plans equal, the fp32 run's own choices differing only at near ties,
+    counted; the last logits within phase 19's limit, 4x the plain
+    forward's bf16 gap); in bf16 blend@1 == all and blend@0 == none byte
+    for byte, forced full recompute within 3e-4 of ``all``, the
+    deviation from ``all`` at 0.7 below that at 0 and without the RPE
+    fix above that with it, streamed loads == eager byte for byte; the
+    churn workload in fp32 at pool 512 (the yardstick: bf16 against it by
+    phase 19's rule) and in bf16 at pool 512 and 20 (preemptions, the
+    pool settled, the pressured logits within the limit while the tokens
+    agree, a token parted only where the unpressured top-two gap is
+    within it; a parted request run again without pressure, packed with
+    its pressured partners, logged); zero-copy == copy and incremental ==
+    rebuild byte for byte in bf16; the HTTP server around a bf16 engine
+    (``run_server``'s requirements, its survivors' tokens against A16's
+    logged). Every chunk and decode launch of the bf16 runs, counted from
+    0 around each, is the mixed instantiation and as many as the plans
+    imply; RoPE stays fp32; no paged launch. ``blend``'s probe call (A =
+    S) held in the mixed instantiation (one bf16 rounding + 3e-5) and
+    timed beside its fp32 call, upcast plus SDPA and its bound;
+22. a ``kernels`` JSON line (launches on the main paths, error, times,
     bound, the D 256 rows, the paged kernel's per-shard call, each
     family's path shape, the pressure phase's and the strategies phase's
     beside them; and a row each for the chunk, decode and SSD kernels
@@ -299,19 +323,22 @@ Phases (each prints its own line; any failure raises and exits non-zero):
     18's; the two mixed rows of phase 19 with its figures; and the two
     pure-bf16 step-root rows of phase 20 and its fp32 SSD row with its
     figures (a row cut from another call, never launched at its own
-    shape, shows 0 launches);
-22. last line: ``{"ok": true, "device": {...}}``.
+    shape, shows 0 launches); and phase 21's mixed probe row with its
+    figures;
+23. last line: ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before the mamba2 phase, the training
 runs, the engine serving the trained checkpoint, engines A and B,
 each family's engine A, each counted run of phase 11, engine B on the
-mesh, the pressure phase's runs, the strategies phase's and engine A16
-(with each instantiation's count, ``launches_by_type``), and read
+mesh, the pressure phase's runs, the strategies phase's, engine A16 and
+each bf16 run of phase 21 (with each instantiation's count,
+``launches_by_type``), and read
 just after (rope and the attention kernels of engine A in A, paged
 decode in B and in B on the mesh, all four in phase 16, chunk and rope
 in phase 17, chunk, decode and SSD around each sharded run of phase 18,
 the mixed chunk and decode instantiations and rope in A16, chunk, decode
-and SSD by instantiation around each run of phase 20);
+and SSD by instantiation around each run of phase 20, and around each
+bf16 run of phase 21, summed);
 the comparison launches
 of phase 3 and the replays after the engines do not count. Without CUDA, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
@@ -320,6 +347,7 @@ result.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import gc
 import json
@@ -1125,14 +1153,15 @@ class DecodeRecorder:
 
 class RopeRecorder:
     """Wraps the RoPE wrapper during a run: counts the calls by (x's
-    shape, theta) and keeps a copy of the first call's inputs for each
-    (x as fp32), so the path's own shapes and data can be replayed after
-    the run. The wrapper counts its launches on the module's ``rope``, so
-    the count moves to the stand-in and back."""
+    shape, theta) and by x's dtype, and keeps a copy of the first call's
+    inputs for each shape (x as fp32), so the path's own shapes and data
+    can be replayed after the run. The wrapper counts its launches on the
+    module's ``rope``, so the count moves to the stand-in and back."""
 
     def __init__(self, rops):
         self.rops, self.orig = rops, rops.rope
         self.shapes = collections.Counter()
+        self.dtypes = collections.Counter()
         self.calls = {}
 
     def __enter__(self):
@@ -1141,6 +1170,7 @@ class RopeRecorder:
         def rec(x, pos, *, theta, inverse=False):
             key = (tuple(x.shape), float(theta))
             self.shapes[key] += 1
+            self.dtypes[str(x.dtype).replace("torch.", "")] += 1
             if key not in self.calls:
                 self.calls[key] = (x.float().clone(), pos.clone(),
                                    float(theta))
@@ -1994,14 +2024,15 @@ def run_engine(tag, cfg, params, tmp, num_requests=12, max_new_tokens=8,
     return out, trace, tokens, plans, counters
 
 
-def run_server(cfg, params, tmp, offline_tokens):
+def run_server(cfg, params, tmp, offline_tokens, tag="server"):
     """The port's HTTP server around a fresh ``kernel`` engine with its
     own store: the smoke workload's 12 requests submitted and streamed
     through ``ServeClient`` on 12 threads, one cancelled after its 2nd
     token. Required: every survivor ends done with max_new_tokens tokens,
     the cancelled stream ends cancelled with fewer, /health is ok, /stats
     shows nothing in flight and no reserved block after the drain, and
-    the engine thread stops on shutdown. Logged: how many survivor
+    the engine thread stops on shutdown. ``tag`` names the run in the log
+    and its store's directory. Logged: how many survivor
     streams equal the offline engine A's tokens for the same rid (on the
     card a plan may depend on the measured window time, so bit identity
     is proved on the CPU, tests/test_torch_server.py), client-side TTFT
@@ -2012,7 +2043,7 @@ def run_server(cfg, params, tmp, offline_tokens):
 
     from repro_torch.serving.server import CacheCraftServer, ServeClient
 
-    eng, store, reqs = smoke_engine("server", cfg, params, tmp,
+    eng, store, reqs = smoke_engine(tag, cfg, params, tmp,
                                     attn_impl="kernel")
     cancel_rid = 5
     server = CacheCraftServer(eng, host="127.0.0.1", port=0).start()
@@ -2020,7 +2051,7 @@ def run_server(cfg, params, tmp, offline_tokens):
     try:
         client = ServeClient(server.host, server.port, timeout=300.0)
         if not client.health().get("ok"):
-            raise RuntimeError("server: /health not ok at start")
+            raise RuntimeError(f"{tag}: /health not ok at start")
         t0 = time.perf_counter()
 
         def reader(rid):
@@ -2049,7 +2080,7 @@ def run_server(cfg, params, tmp, offline_tokens):
             th.join(timeout=600)
         wall = time.perf_counter() - t0
         if errors or any(th.is_alive() for th in threads):
-            raise RuntimeError(f"server: stream readers failed or hung: "
+            raise RuntimeError(f"{tag}: stream readers failed or hung: "
                                f"{errors}")
         health = client.health()
         stats = client.stats()
@@ -2057,24 +2088,24 @@ def run_server(cfg, params, tmp, offline_tokens):
         server.shutdown()
         store.tiers.close()
     if server._thread.is_alive():
-        raise RuntimeError("server: engine thread still alive after "
+        raise RuntimeError(f"{tag}: engine thread still alive after "
                            "shutdown")
     if not health.get("ok"):
-        raise RuntimeError(f"server: /health {health}")
+        raise RuntimeError(f"{tag}: /health {health}")
     if stats["server"]["inflight"] != 0 or \
             stats["pool"]["reserved_blocks"] != 0:
-        raise RuntimeError(f"server: after the drain inflight "
+        raise RuntimeError(f"{tag}: after the drain inflight "
                            f"{stats['server']['inflight']}, reserved blocks "
                            f"{stats['pool']['reserved_blocks']}")
     same, n_new = 0, reqs[0].max_new_tokens
     for rid, (toks, state) in sorted(got.items()):
         if rid == cancel_rid:
             if not (state == "cancelled" and 2 <= len(toks) < n_new):
-                raise RuntimeError(f"server: cancelled rid {rid} ended "
+                raise RuntimeError(f"{tag}: cancelled rid {rid} ended "
                                    f"{state} with {len(toks)} tokens")
             continue
         if state != "done" or len(toks) != n_new:
-            raise RuntimeError(f"server: rid {rid} ended {state} with "
+            raise RuntimeError(f"{tag}: rid {rid} ended {state} with "
                                f"{len(toks)} tokens")
         same += toks == offline_tokens[rid]
     t = np.array([ttft[r] for r in sorted(ttft) if r != cancel_rid])
@@ -2088,8 +2119,10 @@ def run_server(cfg, params, tmp, offline_tokens):
                ttft_wall_p99_ms=float(np.percentile(t, 99) * 1e3),
                wall_s=wall, completed=stats["completed"],
                cancelled=stats["cancelled"],
-               reserved_blocks=stats["pool"]["reserved_blocks"])
-    log("server: " + json.dumps(out))
+               reserved_blocks=stats["pool"]["reserved_blocks"],
+               prefill_batches=eng.stats.prefill_batches,
+               decode_steps=eng.stats.decode_steps)
+    log(f"{tag}: " + json.dumps(out))
     del eng, store
     gc.collect()
     return out
@@ -2534,6 +2567,91 @@ def kv_gap(tag, kv, ref_kv):
     return worst, same
 
 
+def churn_engine(cfg, params, pool, after, pack=2, device="cuda", **kw):
+    """An engine for the churn workloads: ``strategy="all"``, no store,
+    ``pool`` blocks, prefill batch ``pack``, decode batch 4,
+    ``preempt_after_iters`` ``after``, the decode trace kept; ``kw``: the
+    route."""
+    from repro_torch.serving.api import EngineSpec, build_engine
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    return build_engine(EngineSpec(
+        strategy="all", use_focus=False, pool_blocks=pool, decode_bucket_b=4,
+        seq_bucket=512,
+        sched=SchedulerConfig(max_batch_tokens=100_000, max_decode_batch=4,
+                              max_prefill_batch=pack,
+                              preempt_after_iters=after),
+        trace_decode=True, device=device, **kw),
+        cfg=cfg, params=params, store=None)
+
+
+def _uncounted(eng, fn):
+    return fn()
+
+
+def zero_copy_runs(tag, cfg, params, tmp, device="cuda", counted=_uncounted,
+                   **kw):
+    """``tests/test_shared_chunks.py``'s workload with a store, without
+    and with zero-copy sharing (``{share: pressure_run(...)}``): two
+    warm-up runs, then the compared one. ``counted(eng, fn)`` makes each
+    run (phase 21 counts its launches there); ``kw``: the route."""
+    from repro_torch.core.chunkstore import ChunkStore
+    from repro_torch.core.tiers import TieredStore
+    from repro_torch.serving.api import EngineSpec, build_engine
+    from repro_torch.serving.engine import EngineStats
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    runs = {}
+    for share in (False, True):
+        store = ChunkStore(TieredStore(
+            1 << 28, 1 << 28, os.path.join(tmp, f"{tag}-zero-copy-{share}"),
+            start_worker=False), n_chunks=50, m_variants=4)
+        eng = build_engine(EngineSpec(
+            use_focus=False, store_fixed_variants=False,
+            force_recompute_fraction=0.3, pool_blocks=256,
+            sched=SchedulerConfig(max_batch_tokens=100_000,
+                                  max_decode_batch=8, max_prefill_batch=4),
+            share_chunk_kv=share, trace_decode=True, device=device, **kw),
+            cfg=cfg, params=params, store=store)
+        for _ in range(2):
+            counted(eng, lambda: eng.run(_overlap_requests(cfg, 4)))
+        eng.clock = 0.0
+        eng.stats = EngineStats()
+        eng.counters.reset()
+        eng.decode_trace, eng.final_kv = [], {}
+        runs[share] = counted(eng, lambda: pressure_run(
+            f"{tag} zero-copy {share}", eng, _overlap_requests(cfg, 4),
+            settle=False))
+        store.tiers.close()
+        del eng, store
+    return runs
+
+
+def incremental_runs(tag, cfg, params, device="cuda", counted=_uncounted,
+                     **kw):
+    """The churn workload of decode lengths 3, 5, 7, 9, 4, 6 (seed 11,
+    prefill batch 1) with the incremental decode batch and with rebuilds
+    (``{incremental: pressure_run(...)}``); ``counted`` and ``kw`` as
+    ``zero_copy_runs``'s."""
+    from repro_torch.serving.api import EngineSpec, build_engine
+    from repro_torch.serving.scheduler import SchedulerConfig
+
+    runs = {}
+    for inc in (True, False):
+        eng = build_engine(EngineSpec(
+            strategy="all", use_focus=False, pool_blocks=512,
+            decode_bucket_b=4, seq_bucket=320,
+            sched=SchedulerConfig(max_batch_tokens=100_000,
+                                  max_decode_batch=4, max_prefill_batch=1),
+            incremental_decode=inc, trace_decode=True, device=device, **kw),
+            cfg=cfg, params=params, store=None)
+        runs[inc] = counted(eng, lambda: pressure_run(
+            f"{tag} incremental {inc}", eng,
+            _churn_requests(cfg, (3, 5, 7, 9, 4, 6), 11)))
+        del eng
+    return runs
+
+
 def run_pressure(cfg, params, tmp):
     """Phase 16, full-width llama3-8b, fp32, TF32 off: the reference's
     pressure gates on the card. (1) Preemption: the churn workload
@@ -2557,14 +2675,9 @@ def run_pressure(cfg, params, tmp):
     of its most frequent call shape."""
     import torch
 
-    from repro_torch.core.chunkstore import ChunkStore
-    from repro_torch.core.tiers import TieredStore
     from repro_torch.kernels.chunk_attention import ops as cops
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.rope import ops as rops
-    from repro_torch.serving.api import EngineSpec, build_engine
-    from repro_torch.serving.engine import EngineStats
-    from repro_torch.serving.scheduler import SchedulerConfig
 
     t_phase = time.perf_counter()
     tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -2582,15 +2695,7 @@ def run_pressure(cfg, params, tmp):
                 runs = {}
                 for tag, pool, after, pack in PRESSURE_RUNS + (
                         (PACKING_CONTROL,) if route == "default" else ()):
-                    eng = build_engine(EngineSpec(
-                        strategy="all", use_focus=False, pool_blocks=pool,
-                        decode_bucket_b=4, seq_bucket=512,
-                        sched=SchedulerConfig(
-                            max_batch_tokens=100_000, max_decode_batch=4,
-                            max_prefill_batch=pack,
-                            preempt_after_iters=after),
-                        trace_decode=True, device="cuda", **kw),
-                        cfg=cfg, params=params, store=None)
+                    eng = churn_engine(cfg, params, pool, after, pack, **kw)
                     runs[tag] = pressure_run(
                         f"{route} {tag}", eng,
                         _churn_requests(cfg, (18, 18, 3, 5, 4, 6), 17))
@@ -2647,32 +2752,7 @@ def run_pressure(cfg, params, tmp):
                                        f"{tol})")
 
             for route, kw in PRESSURE_ROUTES[:2]:
-                runs = {}
-                for share in (False, True):
-                    store = ChunkStore(TieredStore(
-                        1 << 28, 1 << 28,
-                        os.path.join(tmp, f"pressure-{route}-{share}"),
-                        start_worker=False), n_chunks=50, m_variants=4)
-                    eng = build_engine(EngineSpec(
-                        use_focus=False, store_fixed_variants=False,
-                        force_recompute_fraction=0.3, pool_blocks=256,
-                        sched=SchedulerConfig(max_batch_tokens=100_000,
-                                              max_decode_batch=8,
-                                              max_prefill_batch=4),
-                        share_chunk_kv=share, trace_decode=True,
-                        device="cuda", **kw),
-                        cfg=cfg, params=params, store=store)
-                    eng.run(_overlap_requests(cfg, 4))
-                    eng.run(_overlap_requests(cfg, 4))
-                    eng.clock = 0.0
-                    eng.stats = EngineStats()
-                    eng.counters.reset()
-                    eng.decode_trace, eng.final_kv = [], {}
-                    runs[share] = pressure_run(
-                        f"{route} zero-copy {share}", eng,
-                        _overlap_requests(cfg, 4), settle=False)
-                    store.tiers.close()
-                    del eng, store
+                runs = zero_copy_runs(route, cfg, params, tmp, **kw)
                 (fc, trc, tokc, _kc), (fz, trz, tokz, _kz) = runs[False], \
                     runs[True]
                 if tokc != tokz:
@@ -2698,20 +2778,7 @@ def run_pressure(cfg, params, tmp):
                     f"{fz['shared_blocks_peak']}, cow_clones "
                     f"{fz['cow_clones']}")
 
-            runs = {}
-            for inc in (True, False):
-                eng = build_engine(EngineSpec(
-                    strategy="all", use_focus=False, pool_blocks=512,
-                    decode_bucket_b=4, seq_bucket=320,
-                    sched=SchedulerConfig(max_batch_tokens=100_000,
-                                          max_decode_batch=4,
-                                          max_prefill_batch=1),
-                    incremental_decode=inc, trace_decode=True,
-                    device="cuda"), cfg=cfg, params=params, store=None)
-                runs[inc] = pressure_run(
-                    f"incremental {inc}", eng,
-                    _churn_requests(cfg, (3, 5, 7, 9, 4, 6), 11))
-                del eng
+            runs = incremental_runs("default", cfg, params)
             (fi, tri, toki, kvi), (fr, trr, tokr, kvr) = runs[True], \
                 runs[False]
             gap, same = _trace_gap(tri, trr)
@@ -2874,6 +2941,53 @@ def selection_ties(tag, mine, ref, key, floor=0.0):
     return calls, tokens
 
 
+def strategy_cases():
+    """The executor cases of phases 17 and 21, (name, executor kwargs):
+    every registered strategy at STRATEGY_FRAC, ``cachecraft`` at its own
+    CFO, ``blend`` at 1 and 0, ``cachecraft`` forced to 1, 0 and 0.7,
+    ``none`` without the RPE fix and ``cachecraft`` at STRATEGY_FRAC
+    without the causality fix."""
+    from repro_torch.core.strategies import STRATEGIES
+
+    cases = [(name, dict(strategy=name, force_recompute_fraction=STRATEGY_FRAC))
+             for name in STRATEGIES]
+    return cases + [
+        ("cachecraft cfo", dict(strategy="cachecraft")),
+        ("blend 1.0", dict(strategy="blend", force_recompute_fraction=1.0)),
+        ("blend 0.0", dict(strategy="blend", force_recompute_fraction=0.0)),
+        ("forced 1.0", dict(force_recompute_fraction=1.0)),
+        ("frac 0.0", dict(force_recompute_fraction=0.0)),
+        ("frac 0.7", dict(force_recompute_fraction=0.7)),
+        ("no_rpe", dict(strategy="none", fix_rpe=False)),
+        # recomputed chunk rows laid out at their original positions: the
+        # chunk kernel's mask on positions that are not monotone
+        ("no_causal", dict(force_recompute_fraction=STRATEGY_FRAC,
+                           fix_causality=False)),
+    ]
+
+
+def ranked_by(strategy):
+    """The score ``strategy`` ranks a chunk's tokens by (None: it does not
+    rank)."""
+    return {"cachecraft": lambda s: s.inter,
+            "h2o": lambda s: s.total if s.total is not None else s.inter,
+            "blend": lambda s: s.deviation}.get(strategy, lambda s: None)
+
+
+def score_gap(mine, ref, key):
+    """The largest gap between two runs' ranked scores (``key``), call by
+    call where both ranked the same number of tokens."""
+    import numpy as np
+
+    worst = 0.0
+    for (sa, _fa, _ia), (sb, _fb, _ib) in zip(mine, ref):
+        a, b = key(sa), key(sb)
+        if a is not None and b is not None and len(a) == len(b) and len(a):
+            worst = max(worst, float(np.abs(np.asarray(a, np.float64)
+                                            - np.asarray(b)).max()))
+    return worst
+
+
 def run_strategies(cfg, params, tmp, device="cuda"):
     """Phase 17, full-width llama3-8b, fp32, TF32 off: the executor's
     whole decision surface on the card. One chunk store is warmed on
@@ -2903,7 +3017,6 @@ def run_strategies(cfg, params, tmp, device="cuda"):
 
     from repro_torch.core.chunkstore import ChunkStore
     from repro_torch.core.prefill import CacheCraftExecutor
-    from repro_torch.core.strategies import STRATEGIES
     from repro_torch.core.tiers import TieredStore
     from repro_torch.kernels.chunk_attention import ops as cops
     from repro_torch.kernels.rope import ops as rops
@@ -2956,21 +3069,7 @@ def run_strategies(cfg, params, tmp, device="cuda"):
                    for x, y in zip(a["results"], b["results"])
                    for w in ("logits_last", "k_layers", "v_layers"))
 
-    cases = [(name, dict(strategy=name, force_recompute_fraction=STRATEGY_FRAC))
-             for name in STRATEGIES]
-    cases += [
-        ("cachecraft cfo", dict(strategy="cachecraft")),
-        ("blend 1.0", dict(strategy="blend", force_recompute_fraction=1.0)),
-        ("blend 0.0", dict(strategy="blend", force_recompute_fraction=0.0)),
-        ("forced 1.0", dict(force_recompute_fraction=1.0)),
-        ("frac 0.0", dict(force_recompute_fraction=0.0)),
-        ("frac 0.7", dict(force_recompute_fraction=0.7)),
-        ("no_rpe", dict(strategy="none", fix_rpe=False)),
-        # recomputed chunk rows laid out at their original positions: the
-        # chunk kernel's mask on positions that are not monotone
-        ("no_causal", dict(force_recompute_fraction=STRATEGY_FRAC,
-                           fix_causality=False)),
-    ]
+    cases = strategy_cases()
     try:
         with ChunkRecorder(cops) as phase_calls:
             t0 = time.perf_counter()
@@ -5083,7 +5182,7 @@ def forward_gap(cfg, params, cfg16, params16, dev, seed=4):
     return gap, scale
 
 
-def _bf16_gap(trace16, tok16, trace32, tok32, rids):
+def _bf16_gap(trace16, tok16, trace32, tok32, rids, tag="phase 19"):
     """A16 against A32 on the requests ``rids`` (those whose plans agree:
     another plan recomputes other tokens, which is not rounding), request
     by request over the decode steps whose inputs agree (tokens equal so
@@ -5095,7 +5194,8 @@ def _bf16_gap(trace16, tok16, trace32, tok32, rids):
 
     mine, ref = _per_rid(trace16), _per_rid(trace32)
     if set(mine) != set(ref):
-        raise RuntimeError("phase 19: A16 and A32 decoded other requests")
+        raise RuntimeError(f"{tag}: the bf16 and fp32 runs decoded other "
+                           "requests")
     gap = kept = scale = 0.0
     parts, steps = [], 0
     for rid in sorted(set(ref) & set(rids)):
@@ -5103,8 +5203,7 @@ def _bf16_gap(trace16, tok16, trace32, tok32, rids):
             if tok16[rid][:i + 1] != tok32[rid][:i + 1]:
                 break
             if not (a.shape == b.shape and np.isfinite(a).all()):
-                raise RuntimeError(f"phase 19: rid {rid} step {i}: bad "
-                                   "logits")
+                raise RuntimeError(f"{tag}: rid {rid} step {i}: bad logits")
             d = float(np.abs(a - b).max())
             gap = max(gap, d)
             scale = max(scale, float(np.abs(b).max()))
@@ -5218,12 +5317,431 @@ def run_bf16(cfg, params, tmp):
                logit_scale=g["scale"], forward_gap=fwd,
                forward_scale=fwd_scale, logit_limit=limit,
                greedy_parts=g["parts"], compared_steps=g["steps"],
-               identical_streams=same, plan_diff=plan_diff,
+               identical_streams=same, plan_diff=plan_diff, tokens16=tok16,
                weights_gb=w_gb, peak_gb=peak, kernels=rows,
                seconds=time.perf_counter() - t_phase)
     log(f"phase 19 (bf16 serving on kernel): {out['seconds']:.1f}s")
     # the bf16 copy, for phase 20 (popped there)
     out["params16"] = p16
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 21: the bf16 engine surface (after phase 19, on its weights)
+# ---------------------------------------------------------------------------
+# the bf16 serving tests' factor (tests/test_torch_bf16_serving.py,
+# BF16_GAP_FACTOR): two runs' choices differ only at a near tie when the
+# tokens that differ sit within twice the two runs' own score gap of the
+# boundary
+BF16_GAP_FACTOR = 2.0
+
+
+class Bf16Launches:
+    """The chunk and decode launches by instantiation, the paged decode
+    launches and the RoPE launches with the dtypes they rotate, of the
+    runs made under ``counted()``: each counted from 0 and summed. Beside
+    them ``want``, what the runs' plans imply, added by the caller."""
+
+    def __init__(self):
+        self.got = dict(chunk_attention=collections.Counter(),
+                        decode_attention=collections.Counter(),
+                        paged_decode_attention=0, rope=0,
+                        rope_dtypes=collections.Counter())
+        self.want = dict(chunk_attention=0, decode_attention=0)
+
+    @contextlib.contextmanager
+    def counted(self):
+        from repro_torch.kernels.chunk_attention import ops as cops
+        from repro_torch.kernels.decode_attention import ops as dops
+        from repro_torch.kernels.rope import ops as rops
+
+        fs = dict(chunk_attention=cops.chunk_attention,
+                  decode_attention=dops.decode_attention)
+        for f in fs.values():
+            f.launches = 0
+            f.launches_by_type.clear()
+        dops.paged_decode_attention.launches = 0
+        rops.rope.launches = 0
+        with RopeRecorder(rops) as rc:
+            yield
+        for name, f in fs.items():
+            self.got[name].update(f.launches_by_type)
+        self.got["paged_decode_attention"] += \
+            dops.paged_decode_attention.launches
+        self.got["rope"] += rops.rope.launches
+        self.got["rope_dtypes"].update(rc.dtypes)
+
+    def engine(self, eng, fn):
+        """``fn()`` counted, with the launches ``eng``'s plans imply: a
+        chunk launch per layer and prefill pass, a decode launch per layer
+        and decode step."""
+        L = eng.cfg.num_layers
+        b0, d0 = eng.stats.prefill_batches, eng.stats.decode_steps
+        with self.counted():
+            out = fn()
+        self.want["chunk_attention"] += (eng.stats.prefill_batches - b0) * L
+        self.want["decode_attention"] += (eng.stats.decode_steps - d0) * L
+        return out
+
+    def check(self, tag):
+        got = {k: dict(v) if isinstance(v, collections.Counter) else v
+               for k, v in self.got.items()}
+        log(f"{tag}: launches {json.dumps(got)}; the plans imply "
+            f"{json.dumps(self.want)}")
+        for name, n in self.want.items():
+            if n <= 0 or got[name] != {MIXED: n}:
+                raise RuntimeError(f"{tag}: {name} launches {got[name]}, "
+                                   f"want {{{MIXED!r}: {n}}}")
+        if got["paged_decode_attention"] or got["rope"] <= 0 or \
+                set(got["rope_dtypes"]) != {"float32"}:
+            raise RuntimeError(f"{tag}: paged launches "
+                               f"{got['paged_decode_attention']}, rope "
+                               f"{got['rope']} over {got['rope_dtypes']}")
+        return got
+
+
+def _bf16_strategies(cfg, params, cfg16, p16, tmp, limit, counts, device):
+    """Phase 21's executor half: phase 17's cases on ``kernel`` in bf16
+    over one store warmed on ``kernel`` in bf16 by the smoke workload's 12
+    prompts and then only read, each beside the same case in fp32 on the
+    same rounded weights replaying the bf16 run's choices. Plans equal
+    (the fp32 run's own choices differ from the bf16 run's only at near
+    ties, counted), the last logits within ``limit``; the identities of
+    phase 17 in bf16 and streamed == eager; ``blend``'s probe calls kept
+    for the probe row."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.chunkstore import ChunkStore
+    from repro_torch.core.prefill import CacheCraftExecutor
+    from repro_torch.core.tiers import TieredStore
+    from repro_torch.kernels.chunk_attention import ops as cops
+    from repro_torch.serving.metrics import relative_deviation
+
+    warm, evals = _strategy_prompts(cfg)
+    store = ChunkStore(TieredStore(1 << 33, 1 << 33,
+                                   os.path.join(tmp, "bf16-strategies")),
+                       n_chunks=64, m_variants=3)
+    L, P = cfg.num_layers, len(cfg.pattern)
+    res = {"runs": {}}
+
+    def executor(c, p, **kw):
+        return CacheCraftExecutor(
+            c, p, store, attn_impl="kernel", use_focus=False,
+            rng=np.random.default_rng(STRATEGY_SEED), device=device, **kw)
+
+    def run(c, p, replay=None, **kw):
+        ex = executor(c, p, store_new_chunks=False,
+                      store_fixed_variants=False, **kw)
+        sel = record_selections(ex)
+        ex.strategy_obj.replay = None if replay is None else list(replay)
+        with ChunkRecorder(cops) as cc:
+            t0 = time.perf_counter()
+            out = ex.process_batch(evals)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        # blend's probe: one window of P layers for each prompt with a hit
+        probes = sum(ex.strategy_obj.needs_deviation
+                     and any(d.is_hit for d in r.plan.decisions)
+                     for r in out)
+        return dict(results=out, selections=sel, order=list(cc.order),
+                    calls=cc.calls, seconds=sec, probes=probes)
+
+    def bf16_run(**kw):
+        with counts.counted():
+            r = run(cfg16, p16, **kw)
+        counts.want["chunk_attention"] += L + P * r["probes"]
+        return r
+
+    def plan(r):
+        return [[(bool(d.is_hit), float(d.cfo),
+                  np.asarray(d.recompute_idx).tolist())
+                 for d in x.plan.decisions]
+                + [x.plan.num_active_tokens, x.plan.total_len,
+                   x.active_rows_layers] for x in r["results"]]
+
+    def gap(a, b, what="logits_last"):
+        return max(float(np.abs(np.asarray(getattr(x, what), np.float32)
+                                - np.asarray(getattr(y, what), np.float32))
+                         .max())
+                   for x, y in zip(a["results"], b["results"]))
+
+    def same(a, b):
+        return all(np.array_equal(getattr(x, w), getattr(y, w))
+                   for x, y in zip(a["results"], b["results"])
+                   for w in ("logits_last", "k_layers", "v_layers"))
+
+    try:
+        t0 = time.perf_counter()
+        warm_ex = executor(cfg16, p16)
+        with counts.counted():
+            for prompt in warm:
+                warm_ex.process_batch([prompt])
+        counts.want["chunk_attention"] += len(warm) * L
+        res["warm"] = dict(seconds=time.perf_counter() - t0,
+                           variants=store.num_variants())
+        runs = {}
+        for name, kw in strategy_cases():
+            r16 = runs[name] = bf16_run(**kw)
+            r32 = run(cfg, params, replay=r16["selections"], **kw)
+            if plan(r16) != plan(r32):
+                raise RuntimeError(f"phase 21 {name}: the fp32 run on the "
+                                   "bf16 run's choices plans differently")
+            key = ranked_by(kw.get("strategy", "cachecraft"))
+            floor = BF16_GAP_FACTOR * score_gap(r32["selections"],
+                                                r16["selections"], key)
+            ties = selection_ties(f"phase 21 {name}", r32["selections"],
+                                  r16["selections"], key, floor)
+            lg = gap(r16, r32)
+            row = dict(bf16_vs_fp32=lg, ratio=lg / limit,
+                       bf16_vs_fp32_kv=max(gap(r16, r32, "k_layers"),
+                                           gap(r16, r32, "v_layers")),
+                       near_tie_calls=ties[0], near_tie_tokens=ties[1],
+                       score_floor=floor, seconds=r16["seconds"],
+                       seconds_fp32=r32["seconds"],
+                       computed_tokens=sum(x.plan.num_active_tokens
+                                           for x in r16["results"]),
+                       total_tokens=sum(x.plan.total_len
+                                        for x in r16["results"]))
+            if not (lg <= limit and all(np.isfinite(np.asarray(
+                    x.logits_last, np.float32)).all()
+                    for x in r16["results"])):
+                raise RuntimeError(f"phase 21 {name}: bf16 vs fp32 logits "
+                                   f"{lg} beyond {limit}")
+            res["runs"][name] = row
+            del r32
+        runs["streamed"] = bf16_run(force_recompute_fraction=STRATEGY_FRAC,
+                                    layerwise_load=True)
+
+        # phase 17's identities, in bf16
+        idn = {}
+        for got, want in (("blend 1.0", "all"), ("blend 0.0", "none")):
+            a, b = runs[got], runs[want]
+            main = a["order"][len(evals):] if a["probes"] else a["order"]
+            shapes_same = collections.Counter(main) == \
+                collections.Counter(b["order"])
+            eq = same(a, b)
+            g = max(gap(a, b), gap(a, b, "k_layers"), gap(a, b, "v_layers"))
+            idn[f"{got} == {want}"] = dict(bit_equal=eq, max_abs=g,
+                                           shapes_same=shapes_same)
+            if not eq and (shapes_same or g > limit):
+                raise RuntimeError(f"phase 21: {got} vs {want}: max abs {g}")
+        fg = gap(runs["forced 1.0"], runs["all"])
+        idn["forced 1.0 vs all"] = fg
+        if fg > FORCED_TOL:
+            raise RuntimeError(f"phase 21: forced full recompute {fg} from "
+                               f"all (tol {FORCED_TOL})")
+        dv = {n: float(np.mean([relative_deviation(
+            np.asarray(x.logits_last, np.float32),
+            np.asarray(y.logits_last, np.float32))
+            for x, y in zip(runs[n]["results"], runs["all"]["results"])]))
+            for n in ("frac 0.0", "cachecraft", "frac 0.7", "none",
+                      "no_rpe", "no_causal")}
+        idn["deviation"] = dv
+        if not (dv["frac 0.7"] < dv["frac 0.0"]
+                and dv["no_rpe"] > dv["none"]):
+            raise RuntimeError(f"phase 21: deviations from all {dv}")
+        s, e = runs["streamed"], runs["cachecraft"]
+        hits = sum(d.is_hit for r in s["results"] for d in r.plan.decisions)
+        layers = sum(r.load_blocked_layers + r.load_hidden_layers
+                     for r in s["results"])
+        if not (all(r.streamed for r in s["results"])
+                and layers == cfg.num_layers * hits and same(s, e)):
+            raise RuntimeError(f"phase 21: streamed vs eager: {layers} layer "
+                               f"loads for {hits} hits, bit-equal "
+                               f"{same(s, e)}")
+        idn["streamed == eager"] = dict(bit_equal=True, layer_loads=layers,
+                                        hits=hits)
+        res["identities"] = idn
+        log("phase 21 strategies: bf16 vs fp32 on the bf16 choices "
+            f"(limit {limit:.3e}): " + ", ".join(
+                f"{n} {r['bf16_vs_fp32']:.3e} ({r['ratio']:.2f}, ties "
+                f"{r['near_tie_calls']}/{r['near_tie_tokens']})"
+                for n, r in res["runs"].items())
+            + "; identities " + json.dumps(idn))
+        # blend's probe (every row active, A = S), the mixed instantiation
+        b = runs["blend"]
+        keys = [k for k in b["order"][:len(evals)] if k[1] == k[2]]
+        if len(keys) != b["probes"] or not keys:
+            raise RuntimeError(f"phase 21: blend's probe calls "
+                               f"{b['order'][:len(evals)]}")
+        pk = max(set(keys), key=lambda k: (keys.count(k), k))
+        res["probe"] = dict(
+            shape=f"(B, A, S) {list(pk)}", calls=keys.count(pk),
+            probe_calls=len(keys),
+            **measure_chunk(f"bf16 probe{list(pk)}", b["calls"][pk],
+                            MIXED_TYPES + (("float32", "float32"),)))
+        del runs, b
+    finally:
+        store.tiers.close()
+    return res
+
+
+def _prefill_groups(eng):
+    """Log the rids of every packed prefill pass of ``eng``."""
+    groups, orig = [], eng._run_prefills
+
+    def run_prefills(reqs):
+        groups.append([r.rid for r in reqs])
+        return orig(reqs)
+    eng._run_prefills = run_prefills
+    return groups
+
+
+def _bf16_pressure(cfg, params, cfg16, p16, tmp, limit, counts):
+    """Phase 21's pressure half, on ``kernel``: phase 16's churn workload
+    in fp32 at pool 512 (the yardstick) and in bf16 at pool 512 and pool
+    20. bf16 against fp32 by phase 19's rule; pressured against
+    unpressured: preemptions, every request done, the pool settled, the
+    decode logits within ``limit`` while the tokens agree and the tokens
+    equal up to a step whose unpressured top-two gap is within ``limit``
+    (ROADMAP C3: a preempted request is re-prefilled beside another
+    partner). A request that parts is run again without pressure, packed
+    with its pressured partners (logged: the control reproduces the
+    pressured run or not). Then zero-copy against copy and incremental
+    against rebuild, byte for byte."""
+    import numpy as np
+
+    res = {}
+
+    def churn(c, p, pool, after, count=True, keep=None):
+        eng = churn_engine(c, p, pool, after, attn_impl="kernel")
+        groups = _prefill_groups(eng)
+        reqs = _churn_requests(cfg, (18, 18, 3, 5, 4, 6), 17)
+        if keep is not None:
+            reqs = [r for r in reqs if r.rid in keep]
+            for r in reqs:
+                r.arrival_time = 0.0
+        tag = f"bf16 pool {pool}" if c is cfg16 else f"fp32 pool {pool}"
+        run = (lambda: pressure_run(tag, eng, reqs))
+        out = counts.engine(eng, run) if count else run()
+        return out + (groups,)
+
+    f32 = churn(cfg, params, 512, 0, count=False)
+    unp = churn(cfg16, p16, 512, 0)
+    prs = churn(cfg16, p16, 20, 4)
+    if not (prs[0]["preemptions"] > 0 and prs[0]["burn_requeues"] == 0
+            and unp[0]["preemptions"] == 0):
+        raise RuntimeError(f"phase 21 pressure: preemptions "
+                           f"{prs[0]['preemptions']}, burn requeues "
+                           f"{prs[0]['burn_requeues']}")
+    g = _bf16_gap(unp[1], unp[2], f32[1], f32[2], list(f32[2]),
+                  tag="phase 21 pressure")
+    beyond = [pt for pt in g["parts"] if not pt[2] <= g["kept"]]
+    if g["steps"] == 0 or not g["gap"] <= limit or beyond:
+        raise RuntimeError(f"phase 21 pressure: bf16 vs fp32 decode logits "
+                           f"{g['gap']} (limit {limit}), partings beyond "
+                           f"{g['kept']}: {beyond}")
+    lg, lsame, cut = attempt_gap("phase 21 pressure", prs[1], prs[2], unp[1],
+                                 unp[2], limit)
+    # the final KV of the requests that did not part (logged)
+    kg, ksame = kv_gap("phase 21 pressure",
+                       {r: x for r, x in prs[3].items() if r not in cut},
+                       {r: x for r, x in unp[3].items() if r not in cut})
+    if lg > limit:
+        raise RuntimeError(f"phase 21 pressure: pool 20 vs 512 logits {lg} "
+                           f"(limit {limit})")
+    controls = {}
+    for rid in cut:
+        grp = next(gr for gr in prs[4][::-1] if rid in gr)
+        ctl = churn(cfg16, p16, 512, 0, keep=grp)
+        mine = _per_rid(ctl[1])[rid]
+        theirs = _per_rid(prs[1])[rid][-len(mine):]
+        controls[rid] = dict(partners=grp, tokens=ctl[2][rid],
+                             pressured_tokens=prs[2][rid],
+                             unpressured_tokens=unp[2][rid],
+                             reproduces=ctl[2][rid] == prs[2][rid] and all(
+                                 np.array_equal(a, b)
+                                 for a, b in zip(mine, theirs)))
+    res["preempt"] = dict(
+        unpressured=unp[0], pressured=prs[0], fp32=f32[0],
+        bf16_vs_fp32=dict(gap=g["gap"], kept=g["kept"], parts=g["parts"],
+                          steps=g["steps"], ratio=g["gap"] / limit),
+        logit_gap=lg, logit_bit_equal=lsame, kv_gap=kg, kv_bit_equal=ksame,
+        near_tie_cut=cut, controls=controls,
+        prefill_groups=dict(unpressured=unp[4], pressured=prs[4]))
+    log(f"phase 21 pressure: bf16 vs fp32 at pool 512 {g['gap']:.3e} "
+        f"(limit {limit:.3e}), partings {g['parts']}; pool 20 vs 512: "
+        f"{prs[0]['preemptions']} preemptions, logits {lg:.3e} (bit-equal "
+        f"{lsame}), parted at a near tie {cut}, controls packed with the "
+        f"pressured partners {json.dumps(controls)}; prefill passes "
+        f"{unp[4]} / {prs[4]}")
+    del f32, unp, prs
+
+    runs = zero_copy_runs("bf16", cfg16, p16, tmp, counted=counts.engine,
+                          attn_impl="kernel")
+    (fc, trc, tokc, _kc), (fz, trz, tokz, _kz) = runs[False], runs[True]
+    zgap, zsame = _trace_gap(trz, trc)
+    if not (tokc == tokz and zsame and fz["shared_seg_hits"] > 0
+            and fc["shared_seg_hits"] == 0):
+        raise RuntimeError(f"phase 21: zero-copy vs copy: tokens equal "
+                           f"{tokc == tokz}, logits {zgap}, shared "
+                           f"{fz['shared_seg_hits']}")
+    runs = incremental_runs("bf16", cfg16, p16, counted=counts.engine,
+                            attn_impl="kernel")
+    (fi, tri, toki, kvi), (fr, trr, tokr, kvr) = runs[True], runs[False]
+    igap, isame = _trace_gap(tri, trr)
+    ikg, iksame = kv_gap("phase 21 incremental", kvi, kvr)
+    if not (toki == tokr and isame and iksame and fi["decode_rebuilds"] == 1
+            and fr["decode_rebuilds"] > 1):
+        raise RuntimeError(f"phase 21: incremental vs rebuild: tokens equal "
+                           f"{toki == tokr}, logits {igap}, KV {ikg}, "
+                           f"rebuilds {fi['decode_rebuilds']} vs "
+                           f"{fr['decode_rebuilds']}")
+    res["zero_copy"] = dict(bit_equal=zsame, logit_gap=zgap,
+                            shared_seg_hits=fz["shared_seg_hits"],
+                            cow_clones=fz["cow_clones"])
+    res["incremental"] = dict(bit_equal=isame, kv_bit_equal=iksame,
+                              rebuilds=[fi["decode_rebuilds"],
+                                        fr["decode_rebuilds"]])
+    log(f"phase 21: zero-copy == copy and incremental == rebuild byte for "
+        f"byte in bf16: {json.dumps([res['zero_copy'], res['incremental']])}")
+    return res
+
+
+def run_bf16_engine(cfg, params, bf16, tmp, device="cuda"):
+    """Phase 21: the rest of the bf16 engine on the card, full-width
+    llama3-8b on phase 19's weights (``params`` rounded to bf16 values,
+    ``bf16["params16"]`` their bf16 copy), ``kernel``, TF32 off: the
+    executor's cases in bf16 beside fp32 (``_bf16_strategies``), the
+    engine under pool pressure (``_bf16_pressure``) and the HTTP server
+    around a bf16 engine (``run_server``; its survivors' tokens against
+    A16's offline ones from phase 19, logged). ``limit`` is phase 19's:
+    BF16_FORWARD_FACTOR times the plain forward's bf16-vs-fp32 gap read
+    in that run. Every chunk and decode launch of the bf16 runs, counted
+    from 0 around each, must be the mixed instantiation and as many as
+    their plans imply; RoPE stays fp32; no paged launch. ``blend``'s
+    probe call (A = S) is held and timed in the mixed instantiation beside
+    its fp32 call."""
+    import torch
+
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg16 = cfg.replace(dtype="bfloat16", param_dtype="bfloat16")
+    p16 = bf16["params16"]
+    limit = bf16["logit_limit"]
+    counts = Bf16Launches()
+    try:
+        strat = _bf16_strategies(cfg, params, cfg16, p16, tmp, limit, counts,
+                                 device)
+        pressure = _bf16_pressure(cfg, params, cfg16, p16, tmp, limit, counts)
+        with counts.counted():
+            served = run_server(cfg16, p16, tmp, bf16["tokens16"],
+                                tag="server bf16")
+        counts.want["chunk_attention"] += \
+            served["prefill_batches"] * cfg.num_layers
+        counts.want["decode_attention"] += \
+            served["decode_steps"] * cfg.num_layers
+        launches = counts.check("phase 21")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out = dict(strategies=strat, pressure=pressure, server=served,
+               launches=launches, want=dict(counts.want), limit=limit,
+               seconds=time.perf_counter() - t_phase)
+    log(f"phase 21 (the bf16 engine: strategies, pressure, server): "
+        f"{out['seconds']:.1f}s")
     return out
 
 
@@ -5963,6 +6481,9 @@ def main() -> int:
         # phase 19: bf16 serving on kernel, engines A16 and A32; it rounds
         # the fp32 weights to bf16 values in place, their last use
         bf16 = run_bf16(cfg, params, tmp)
+        # phase 21: the rest of the bf16 engine on phase 19's weights: the
+        # executor's cases beside fp32, pool pressure, the HTTP server
+        bf16_engine = run_bf16_engine(cfg, params, bf16, tmp)
         # phase 20: the reference's bf16 deployment through the step
         # roots, llama3-8b on phase 19's weights, then the families and
         # the bf16 train step once its weights are freed
@@ -6020,7 +6541,7 @@ def main() -> int:
     err_a = compare_logits("A(kernel)", tr_a, tok_a, tr_c, tok_c)
     err_b = compare_logits("B(paged_kernel)", tr_b, tok_b, tr_c, tok_c)
 
-    # phase 21: the kernels line, the mamba2, training, engine, family,
+    # phase 22: the kernels line, the mamba2, training, engine, family,
     # recurrent / vision, mesh, pressure, strategies, sharded-training and
     # sharded-serving figures
     sources = {
@@ -6358,6 +6879,33 @@ def main() -> int:
                                 "greedy_parts", "compared_steps",
                                 "identical_streams", "plan_diff",
                                 "weights_gb", "peak_gb", "seconds")}}))
+    # blend's probe call (A = S) in the mixed instantiation on the bf16
+    # engine's path (phase 21): the phase's mixed chunk launches, the
+    # probe calls, and the probe held and timed beside its fp32 call
+    r = bf16_engine["strategies"]["probe"]
+    m, f = r[MIXED], r["float32"]
+    src, rep = sources["chunk_attention"]
+    kernels.append(dict(
+        name=f"chunk_attention {MIXED} bf16 probe", route="cuda",
+        source=src, replaces=rep,
+        launches=bf16_engine["launches"]["chunk_attention"][MIXED],
+        probe_calls=r["probe_calls"], max_abs_err=m["err"],
+        worst_ratio_to_one_rounding=m["ratio"], mass_err=m["mass_err"],
+        ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+        bound_by=m["bound_by"], bound_ms_cuda_cores=m["bound_ms_cuda_cores"],
+        library_ms=m["library_ms"],
+        library_note="two calls: q upcast to fp32, then SDPA with the same "
+                     "mask", splits=m["splits"], shape=r["shape"],
+        calls_at_shape=r["calls"], ms_float32=f["ms"],
+        max_abs_err_float32=f["err"], plain_ms_float32=f["plain_ms"],
+        library_ms_float32=f["library_ms"], bound_ms_float32=f["bound_ms"]))
+    log(f"bf16 engine [{card}]: " + json.dumps({
+        "strategies": {k: bf16_engine["strategies"][k]
+                       for k in ("runs", "identities", "warm")},
+        "pressure": bf16_engine["pressure"],
+        "server": bf16_engine["server"],
+        "launches": bf16_engine["launches"], "want": bf16_engine["want"],
+        "limit": bf16_engine["limit"], "seconds": bf16_engine["seconds"]}))
     # the pure-bf16 chunk and decode instantiations on the step roots'
     # path (phase 20): llama3-8b's launches and its most frequent call of
     # each, the families' beside them

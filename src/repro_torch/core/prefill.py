@@ -46,6 +46,28 @@ def _bucket(n: int, b: int) -> int:
     return max(b, -(-n // b) * b)
 
 
+def check_bf16_route(cfg: ModelConfig, attn_impl: Optional[str],
+                     paged_decode: bool = False, *,
+                     who: str = "CacheCraftExecutor"):
+    """Raise ``ValueError`` for a model that is not fp32 on any route but
+    ``kernel`` without paged decode. The caches the executor, the decode
+    arena and the pool hold are fp32, and every other route returns fp32
+    attention into the bf16 residual: the reference's executor and engine
+    fail there in bf16 (ROADMAP C12). ``who`` names the caller."""
+    if cfg.dtype == "float32" or (attn_impl == "kernel"
+                                  and not paged_decode):
+        return
+    route = "the default (dense prefill, auto decode)" \
+        if attn_impl is None else repr(attn_impl)
+    if paged_decode:
+        route += " with paged_decode"
+    raise ValueError(
+        f"{who}: a {cfg.dtype} model is served on attn_impl='kernel' "
+        f"without paged_decode only, not on route {route}: the reference "
+        "fails there in bf16 (fp32 attention into the bf16 residual; "
+        "ROADMAP C12)")
+
+
 def rope_np(cfg: ModelConfig, k, pos, *, device,
             inverse: bool = False) -> np.ndarray:
     """RoPE over host K ``[L, n, Hkv, D]`` at positions ``pos [n]`` (the
@@ -301,6 +323,7 @@ class CacheCraftExecutor:
         if not cfg.supports_chunk_cache and store is not None:
             raise ValueError(
                 f"{cfg.name}: chunk-cache inapplicable (see DESIGN.md §6)")
+        check_bf16_route(cfg, attn_impl)
         self.device = devmod.resolve(device)
         if M.params_device(params) != self.device:
             raise ValueError(

@@ -51,8 +51,8 @@ reference. Its engine serves that on ``attn_impl="kernel"`` alone: the
 chunk and decode kernels take bf16 q over fp32 K/V and write bf16, while
 every other route returns fp32 attention into the bf16 residual and
 fails in the first prefill (or, with ``paged_decode``, the first decode
-step). The port refuses those routes when the engine is built
-(``_check_bf16_route``, ROADMAP C12).
+step). The port refuses those routes when the engine (or an executor)
+is built (``core.prefill.check_bf16_route``, ROADMAP C12).
 """
 from __future__ import annotations
 
@@ -67,8 +67,9 @@ import torch
 
 from repro_torch import device as devmod
 from repro_torch.core.chunkstore import ChunkStore, prompt_hashes
-from repro_torch.core.prefill import CacheCraftExecutor, decode_fn, \
-    inject_chunk_kv, pack_paged_cache, paged_decode_fn, paged_sync_fn
+from repro_torch.core.prefill import CacheCraftExecutor, \
+    check_bf16_route, decode_fn, inject_chunk_kv, pack_paged_cache, \
+    paged_decode_fn, paged_sync_fn
 from repro_torch.core.preload import preload_depth
 from repro_torch.core.tiers import PrefetchTicket
 from repro_torch.models.config import ModelConfig
@@ -109,25 +110,6 @@ def _leave_row(cache, row: int):
         c["pos"][:, row] = -1
     for t in cache["tail"]:
         t["pos"][row] = -1
-
-
-def _check_bf16_route(cfg: ModelConfig, attn_impl: Optional[str],
-                      paged_decode: bool):
-    """Raise ``ValueError`` for a model that is not fp32 on any route but
-    ``kernel`` without paged decode: the routes the reference's engine
-    cannot serve in bf16 (ROADMAP C12)."""
-    if cfg.dtype == "float32" or (attn_impl == "kernel"
-                                  and not paged_decode):
-        return
-    route = "the default (dense prefill, auto decode)" \
-        if attn_impl is None else repr(attn_impl)
-    if paged_decode:
-        route += " with paged_decode"
-    raise ValueError(
-        f"Engine: a {cfg.dtype} model is served on attn_impl='kernel' "
-        f"without paged_decode only, not on route {route}: the reference "
-        "engine fails there in bf16 (fp32 attention into the bf16 "
-        "residual; ROADMAP C12)")
 
 
 @dataclass
@@ -184,8 +166,8 @@ class Engine:
         # reference's split: "dense" prefill windows, "auto" decode. A
         # serving mesh forces "sharded" and a head-sharded pool
         self.mesh = mesh
-        _check_bf16_route(cfg, "sharded" if mesh is not None else attn_impl,
-                          paged_decode)
+        check_bf16_route(cfg, "sharded" if mesh is not None else attn_impl,
+                         paged_decode, who="Engine")
         kv_shards = 1
         if mesh is not None:
             from repro_torch.distributed.sharding import serving_kv_shards

@@ -71,7 +71,8 @@ from repro_torch.serving.workload import WorkloadConfig, generate
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-from chip_smoke import record_selections, selection_ties  # noqa: E402
+from chip_smoke import (record_selections, score_gap,  # noqa: E402
+                        selection_ties)
 
 torch.set_num_threads(2)
 BF16 = dict(dtype="bfloat16", param_dtype="bfloat16")
@@ -479,18 +480,6 @@ def _decode_gap(a, b):
     return worst
 
 
-def _score_gap(a, b):
-    """Largest gap between two runs' ranked scores (``inter``), call by
-    call where both made the call on the same tokens."""
-    worst = 0.0
-    for (sa, _fa, _ia), (sb, _fb, _ib) in zip(a["sel"], b["sel"]):
-        if sa.inter is not None and sb.inter is not None and \
-                len(sa.inter) == len(sb.inter):
-            worst = max(worst, float(np.abs(np.asarray(sa.inter)
-                                            - np.asarray(sb.inter)).max()))
-    return worst
-
-
 @pytest.fixture(scope="module")
 def engines(world, tmp_path_factory):
     cfg, jcfg, tp, jp, jcfg32, jp32 = world
@@ -519,7 +508,8 @@ def test_engine_kernel_bf16_matches_jax(engines):
     # the port took the reference's choices; its own may differ from them
     # only at a near tie, within the room the reference's own bf16 scores
     # leave (BF16_GAP_FACTOR x their gap to its fp32 scores)
-    floor = BF16_GAP_FACTOR * _score_gap(j16, j32)
+    floor = BF16_GAP_FACTOR * score_gap(j16["sel"], j32["sel"],
+                                        lambda s: s.inter)
     ties, tie_tokens = selection_ties("bf16 engine", t16["sel"], j16["sel"],
                                       lambda s: s.inter, floor)
     # decode logits within BF16_GAP_FACTOR x the reference's own bf16 vs

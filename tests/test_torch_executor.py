@@ -48,6 +48,7 @@ from test_torch_preempt import ROOT, run_pinned
 sys.path.insert(0, ROOT)
 from chip_smoke import (NEAR_TIE, ROUNDING_DEV,  # noqa: E402
                         record_selections, selection_ties)
+from chip_smoke import ranked_by as cs_ranked_by  # noqa: E402
 
 torch.set_num_threads(2)
 TOL = 2e-4
@@ -117,15 +118,10 @@ def run(ex, sys_t, chunks, q, replay=None):
 
 
 def ranked_by(strategy):
-    """The score a strategy ranks a chunk's tokens by, and that score's
-    rounding floor (a key of None: the strategy does not rank)."""
-    if strategy == "cachecraft":
-        return (lambda s: s.inter), 0.0
-    if strategy == "h2o":
-        return (lambda s: s.total if s.total is not None else s.inter), 0.0
-    if strategy == "blend":
-        return (lambda s: s.deviation), ROUNDING_DEV
-    return (lambda s: None), 0.0
+    """The score a strategy ranks a chunk's tokens by
+    (``chip_smoke.ranked_by``), and that score's rounding floor."""
+    return cs_ranked_by(strategy), \
+        ROUNDING_DEV if strategy == "blend" else 0.0
 
 
 def near_ties(mine, ref):

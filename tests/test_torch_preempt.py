@@ -169,23 +169,50 @@ def _churn_runs(npz):
     return out
 
 
-def run_pinned(module, tmp_path, fn, *args):
-    """``fn(*args)`` of test module ``module`` in a fresh interpreter
-    whose host BLAS is pinned to its reproducible mode
-    (``MKL_CBWR=COMPATIBLE``, ROADMAP C9); the result comes back
-    pickled. The comparing runs of the pressure gates go through here."""
-    out = tmp_path / f"{fn}.pkl"
+def start_pinned(module, tmp_path, fn, *args, pin=True, threads=2):
+    """Start ``fn(*args)`` of test module ``module`` in a fresh
+    interpreter whose host BLAS is pinned to its reproducible mode
+    (``MKL_CBWR=COMPATIBLE``, ROADMAP C9) on ``threads`` threads;
+    ``finish_pinned`` waits for it and returns its result. ``pin=False``
+    leaves the host BLAS in its default mode (on one thread C9's flake is
+    gone there too)."""
+    out = tmp_path / f"{fn}-{pin}-{threads}.pkl"
     code = ("import pickle, sys, torch; sys.path[:0] = ['src', 'tests']; "
-            f"torch.set_num_threads(2); import {module} as T; "
+            f"torch.set_num_threads({threads}); import {module} as T; "
             f"pickle.dump(T.{fn}(*{args!r}), open({str(out)!r}, 'wb'))")
-    env = dict(os.environ, MKL_CBWR="COMPATIBLE",
-               PYTHONPATH="src" + os.pathsep + os.environ.get(
-                   "PYTHONPATH", ""))
-    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                       capture_output=True, text=True, timeout=900)
-    assert r.returncode == 0, r.stderr[-3000:]
+    env = dict(os.environ, PYTHONPATH="src" + os.pathsep + os.environ.get(
+        "PYTHONPATH", ""))
+    env.pop("MKL_CBWR", None)
+    if pin:
+        env["MKL_CBWR"] = "COMPATIBLE"
+    # the child's output to a file: a pipe that nothing reads while the
+    # caller works would stall a child that writes much
+    err = open(out.with_suffix(".err"), "w+")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
+                            stdout=err, stderr=subprocess.STDOUT)
+    return proc, out, err
+
+
+def finish_pinned(started):
+    proc, out, err = started
+    try:
+        proc.wait(timeout=900)
+        err.seek(0)
+        assert proc.returncode == 0, err.read()[-3000:]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        err.close()
     with open(out, "rb") as f:
         return pickle.load(f)
+
+
+def run_pinned(module, tmp_path, fn, *args, pin=True, threads=2):
+    """``fn(*args)`` as ``start_pinned`` runs it, waited for; the result
+    comes back pickled. The comparing runs of the pressure gates go
+    through here."""
+    return finish_pinned(start_pinned(module, tmp_path, fn, *args, pin=pin,
+                                      threads=threads))
 
 
 @pytest.fixture(scope="module")
