@@ -55,10 +55,12 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    time by CUDA events after one warm-up step, tokens/s, peak memory,
    the loss at every step; finite, and the last below the first); 3
    straight steps == 2 + checkpoint save / restore + 1, byte for byte,
-   on mamba2-370m cut to 2 layers; ``python -m repro_torch.launch.train
-   --tiny --steps 20`` on the card, then a tiny ``kernel`` engine built
-   from its checkpoint (``EngineSpec(params_path=...)``) serving the
-   smoke's 12 requests; training launches no kernel (its counts stay 0);
+   on mamba2-370m cut to 2 layers; ``examples/torch_train_tiny.py
+   --steps 20`` (``launch.train`` on the tiny config) on the card, then
+   ``--steps 22`` on its checkpoint, which must resume
+   from step 20, then a tiny ``kernel`` engine built from that
+   checkpoint (``EngineSpec(params_path=...)``) serving the smoke's 12
+   requests; training launches no kernel (its counts stay 0);
 6. engine A: full-width llama3-8b (random weights from a seed, fp32),
    ``cachecraft`` with a chunk store, ``attn_impl="kernel"``: chunk
    attention in the prefill windows, decode attention over the arena,
@@ -324,23 +326,42 @@ Phases (each prints its own line; any failure raises and exits non-zero):
     pure-bf16 step-root rows of phase 20 and its fp32 SSD row with its
     figures (a row cut from another call, never launched at its own
     shape, shows 0 launches); and phase 21's mixed probe row with its
-    figures;
-23. last line: ``{"ok": true, "device": {...}}``.
+    figures; the RoPE row's launches in phase 23's examples and its
+    figures at their most frequent shapes, and that phase's figures;
+23. the examples (after phase 17, while llama3-8b's fp32 weights are
+    loaded, before phase 10; ``run_examples``): ``run`` of
+    ``examples/torch_quickstart.py``, ``torch_cache_analysis.py`` and
+    ``torch_serve_rag.py`` on those weights (serve_rag at its 16 requests
+    and 4,096-block pool, full recompute then Cache-Craft), each one's
+    launches counted from 0, the peak memory logged; each example's tiny
+    ``main()`` as a subprocess with no ``--device`` (serve_rag with
+    ``--requests 4``). Every request completes in both strategies,
+    Cache-Craft computes fewer prefill tokens than the total and full
+    recompute all of them, quickstart's second request has two hits or
+    more and computes fewer tokens than it holds, cache_analysis's 100%
+    row is within 2e-4, the RoPE kernel runs in quickstart and in the
+    Cache-Craft engine, and each example's most frequent RoPE call,
+    replayed on its recorded inputs, holds against the plain RoPE (fp32
+    3e-5, bf16 3e-2); deviations, CCI, TTFT and throughput are logged,
+    not gated;
+24. last line: ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before the mamba2 phase, the training
 runs, the engine serving the trained checkpoint, engines A and B,
 each family's engine A, each counted run of phase 11, engine B on the
 mesh, the pressure phase's runs, the strategies phase's, engine A16 and
 each bf16 run of phase 21 (with each instantiation's count,
-``launches_by_type``), and read
+``launches_by_type``) and each example of phase 23, and read
 just after (rope and the attention kernels of engine A in A, paged
 decode in B and in B on the mesh, all four in phase 16, chunk and rope
 in phase 17, chunk, decode and SSD around each sharded run of phase 18,
 the mixed chunk and decode instantiations and rope in A16, chunk, decode
-and SSD by instantiation around each run of phase 20, and around each
-bf16 run of phase 21, summed);
+and SSD by instantiation around each run of phase 20, around each
+bf16 run of phase 21, summed, and all four around each example of phase
+23);
 the comparison launches
-of phase 3 and the replays after the engines do not count. Without CUDA, or without the
+of phase 3 and the replays after the engines and the examples do not
+count. Without CUDA, or without the
 repository's ``src/`` beside it, the script exits non-zero and prints no
 result.
 """
@@ -1871,16 +1892,38 @@ def train_resume_check(cfg, dev, tmp):
                 save_restore_s=io_s, grad_norm_witness=witness)
 
 
+def _train_tiny(steps, ckdir, want=None):
+    """``examples/torch_train_tiny.py --steps <steps>`` on ``ckdir`` (the
+    card, as a user runs it); raises unless it exits 0 having trained to
+    ``steps`` on the card and printed ``want``."""
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "examples",
+                                      "torch_train_tiny.py"),
+         "--steps", str(steps), "--ckpt-dir", ckdir],
+        env=_example_env(), cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    log(f"examples/torch_train_tiny.py --steps {steps} (exit "
+        f"{r.returncode}, {time.perf_counter() - t0:.1f}s): "
+        + " | ".join(r.stdout.strip().splitlines()[-3:]))
+    done = f"done: {steps} steps on cuda"
+    if r.returncode != 0 or done not in r.stdout or \
+            (want and want not in r.stdout):
+        raise RuntimeError(f"torch_train_tiny.py --steps {steps} failed: "
+                           f"{(r.stdout + r.stderr)[-3000:]}")
+
+
 def run_training(dev, card):
     """Phase 5: full-width mamba2-370m (48 layers) and llama3-8b cut to 2
     layers trained for ``TRAIN_STEPS`` steps; the resume check on
-    full-width mamba2-370m cut to 2 layers; ``launch.train --tiny`` on the
-    card and a tiny engine serving its checkpoint (``params_path``,
-    ``attn_impl="kernel"``) the smoke's 12 requests. The in-process
-    training runs reach no kernel (the launch counts stay 0 through
-    them; ``launch.train`` runs in its own process, where these counts
-    cannot see it); the engine's kernel launches are counted on their
-    own. Returns the figures."""
+    full-width mamba2-370m cut to 2 layers; ``examples/torch_train_tiny.py``
+    (``launch.train --tiny``) on the card for 20 steps, then for 22 on
+    its checkpoint, and a tiny engine serving that
+    checkpoint (``params_path``, ``attn_impl="kernel"``) the smoke's 12
+    requests. The in-process training runs reach no kernel (the launch
+    counts stay 0 through them; the example runs in its own process,
+    where these counts cannot see it); the engine's kernel launches are
+    counted on their own. Returns the figures."""
     import torch
 
     from repro_torch.configs import get_config, get_tiny
@@ -1915,18 +1958,11 @@ def run_training(dev, card):
             raise RuntimeError(f"training launched kernels: {during}")
         gc.collect()
         torch.cuda.empty_cache()
+        # the port's train_tiny example (launch.train on the tiny config),
+        # run as a user runs it, then resumed from its checkpoint
         ckdir = os.path.join(tmp, "tiny")
-        t0 = time.perf_counter()
-        r = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", "--tiny",
-             "--steps", "20", "--ckpt-dir", ckdir],
-            env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
-            text=True, timeout=600)
-        log(f"launch.train --tiny --steps 20 (exit {r.returncode}, "
-            f"{time.perf_counter() - t0:.1f}s): "
-            + " | ".join(r.stdout.strip().splitlines()[-3:]))
-        if r.returncode != 0 or "done: 20 steps on cuda" not in r.stdout:
-            raise RuntimeError(f"launch.train failed: {r.stderr[-3000:]}")
+        _train_tiny(20, ckdir)
+        _train_tiny(22, ckdir, want="resumed from step 20")
         zero()
         served = run_engine("T", get_tiny("llama3-8b"), None,
                             tmp, params_path=ckdir, attn_impl="kernel")[0]
@@ -6272,6 +6308,204 @@ def run_bf16_families(dev, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the port's examples at llama3-8b's full width
+# ---------------------------------------------------------------------------
+# the tiny main() of each example, run as a user runs it (no --device: the
+# card); serve_rag on fewer requests
+EXAMPLE_MAINS = (("quickstart", ()), ("cache_analysis", ()),
+                 ("serve_rag", ("--requests", "4")))
+EXAMPLE_REQUESTS = 16        # serve_rag's own default, as is its pool
+EXAMPLE_FULL_RECOMPUTE = 2e-4   # cache_analysis's 100% recompute row
+
+
+def _example_env():
+    """The environment without ``PYTHONPATH``: each example finds the
+    package from its own place in the checkout."""
+    return {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+
+
+def _example(name):
+    """``examples/torch_<name>.py`` as a module."""
+    import importlib.util
+    path = os.path.join(ROOT, "examples", f"torch_{name}.py")
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_examples(cfg, params, dev, card, tmp, mains_argv=()):
+    """Phase 23: ``run`` of the quickstart, cache_analysis and serve_rag
+    examples on full-width llama3-8b's fp32 weights (serve_rag at its 16
+    requests and 4,096-block pool), the kernel launches of each counted
+    from 0 (the Cache-Craft engine's apart from full recompute's, read
+    when serve_rag builds its second engine); each example's tiny
+    ``main()`` in a subprocess beside the first two (``mains_argv`` added
+    to each one's arguments: ``--device cpu`` in the CPU rehearsal).
+    Raises unless every
+    request completes in both strategies, Cache-Craft computes fewer
+    prefill tokens than the total and full recompute all of them,
+    quickstart's second request has two hits or more and computes fewer
+    tokens than it holds, cache_analysis's 100% row is within
+    ``EXAMPLE_FULL_RECOMPUTE``, the RoPE kernel ran in quickstart and
+    in the Cache-Craft engine, and the recorded inputs of each example's
+    most frequent RoPE call hold against the plain RoPE (``measure_rope``;
+    the examples' own shapes). Returns the figures."""
+    from repro_torch import device as devmod
+    from repro_torch.kernels.chunk_attention import ops as cops
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.rope import ops as rops
+
+    # by name: while a RopeRecorder wraps rope, its stand-in holds the count
+    counters = {"chunk_attention": cops, "decode_attention": dops,
+                "paged_decode_attention": dops, "rope": rops}
+
+    def zero():
+        for n, mod in counters.items():
+            getattr(mod, n).launches = 0
+
+    def read():
+        return {n: getattr(mod, n).launches for n, mod in counters.items()}
+
+    t_all = time.perf_counter()
+    _reset_peak(dev)
+    figs = {}
+    procs = {}
+    recs = {}
+    try:
+        for name, argv in EXAMPLE_MAINS:
+            out = open(os.path.join(tmp, f"example-{name}.log"), "w+")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "examples",
+                                              f"torch_{name}.py"), *argv,
+                 *mains_argv],
+                env=_example_env(), cwd=ROOT, stdout=out,
+                stderr=subprocess.STDOUT, text=True), out, time.perf_counter())
+
+        for name in ("quickstart", "cache_analysis"):
+            mod = _example(name)
+            zero()
+            t0 = time.perf_counter()
+            with RopeRecorder(rops) as recs[name]:
+                figs[name] = mod.run(cfg, params, dev)
+                devmod.sync(dev)
+            figs[name]["seconds"] = time.perf_counter() - t0
+            figs[name]["launches"] = read()
+            log(f"example {name} ({cfg.name}, beside the tiny mains): "
+                + json.dumps(figs[name]))
+
+        mains = {}
+        for name, (proc, out, t0) in procs.items():
+            rc = proc.wait(timeout=600)
+            out.seek(0)
+            text = out.read()
+            out.close()
+            # waited on in order, so this is when it was reaped, not how
+            # long it ran
+            mains[name] = dict(exit=rc, reaped_s=time.perf_counter() - t0)
+            cmd = " ".join((f"examples/torch_{name}.py",
+                            *dict(EXAMPLE_MAINS)[name], *mains_argv))
+            log(f"{cmd} (tiny, exit {rc}, reaped "
+                f"{mains[name]['reaped_s']:.1f}s after its start, beside "
+                "the other mains and the first two examples): "
+                + " | ".join(text.strip().splitlines()[-4:]))
+            want = {"quickstart": ["Cache-Craft:"],
+                    "cache_analysis": ["recompute 100%: deviation"],
+                    "serve_rag": ["== full-recompute ==", "== cache-craft ==",
+                                  "completed 4,"]}[name]
+            if rc != 0 or any(w not in text for w in want):
+                raise RuntimeError(f"examples/torch_{name}.py failed: "
+                                   f"{text[-3000:]}")
+        figs["tiny_mains"] = mains
+    finally:
+        for proc, out, _t in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+
+    mod = _example("serve_rag")
+    builds = []
+    build_engine = mod.build_engine
+
+    def counted_build(*a, **kw):
+        builds.append(read())
+        return build_engine(*a, **kw)
+
+    mod.build_engine = counted_build
+    zero()
+    t0 = time.perf_counter()
+    with RopeRecorder(rops) as recs["serve_rag cache-craft"]:
+        figs["serve_rag"] = mod.run(cfg, params, dev, EXAMPLE_REQUESTS)
+    figs["serve_rag"]["seconds"] = time.perf_counter() - t0
+    end = read()
+    figs["serve_rag"]["full-recompute"]["launches"] = builds[1]
+    figs["serve_rag"]["cache-craft"]["launches"] = {
+        n: end[n] - builds[1][n] for n in end}
+    log("example serve_rag (" + cfg.name + "): "
+        + json.dumps(figs["serve_rag"]))
+    figs["peak_gb"] = _peak(dev) / 1e9 if dev.type == "cuda" else None
+    figs["seconds"] = time.perf_counter() - t_all
+
+    q, a, sr = figs["quickstart"], figs["cache_analysis"], figs["serve_rag"]
+    log(f"examples [{card}]: quickstart deviation from full recompute: "
+        f"naive reuse {q['dev_naive']:.6f}, Cache-Craft "
+        f"{q['dev_cachecraft']:.6f} ({q['hits']} hits, computed "
+        f"{q['r2_computed']}/{q['r2_total']})")
+    log(f"examples [{card}]: cache_analysis CCI by chunk "
+        + json.dumps(a["chunks"]) + "; Fig. 7 " + json.dumps(a["fig7"])
+        + "; Fig. 15 " + json.dumps(a["fig15"]))
+    for name in ("full-recompute", "cache-craft"):
+        r = sr[name]
+        log(f"examples [{card}]: serve_rag {name}: TTFT mean "
+            f"{r['ttft_mean_ms']:.1f} ms, throughput "
+            f"{r['throughput_rps']:.3f} rps on the engine clock "
+            f"{r['clock_s']:.3f} s, prefill tokens computed "
+            f"{r['prefill_tokens_computed']}/{r['prefill_tokens_total']}")
+    log(f"examples [{card}]: peak memory {figs['peak_gb']} GB; phase "
+        f"{figs['seconds']:.1f}s")
+
+    for name in ("full-recompute", "cache-craft"):
+        r = sr[name]
+        if r["completed"] != r["requests"] or r["failed"]:
+            raise RuntimeError(f"serve_rag {name}: {r['completed']}/"
+                               f"{r['requests']} completed, {r['failed']} "
+                               "failed")
+    if sr["full-recompute"]["prefill_tokens_computed"] != \
+            sr["full-recompute"]["prefill_tokens_total"]:
+        raise RuntimeError("serve_rag full-recompute skipped prefill tokens")
+    if sr["cache-craft"]["prefill_tokens_computed"] >= \
+            sr["cache-craft"]["prefill_tokens_total"]:
+        raise RuntimeError("serve_rag cache-craft: no prefill token saved")
+    if q["hits"] < 2 or q["r2_computed"] >= q["r2_total"]:
+        raise RuntimeError(f"quickstart: {q['hits']} hits, computed "
+                           f"{q['r2_computed']}/{q['r2_total']}")
+    if a["fig15"][-1]["deviation"] > EXAMPLE_FULL_RECOMPUTE:
+        raise RuntimeError(f"cache_analysis: the 100% row reads "
+                           f"{a['fig15'][-1]['deviation']}")
+    if q["launches"]["rope"] <= 0 or \
+            sr["cache-craft"]["launches"]["rope"] <= 0:
+        raise RuntimeError("examples: no rope launch in quickstart or in "
+                           "the Cache-Craft engine")
+    # RoPE at the examples' own shapes: the recorded inputs of each run's
+    # most frequent call against the plain version (``measure_rope``; not
+    # path launches). Full recompute calls no RoPE, so serve_rag's calls
+    # are all the Cache-Craft engine's.
+    figs["rope_replay"] = {}
+    for name, rc in recs.items():
+        rk = rc.most_frequent()
+        if rk is None:
+            raise RuntimeError(f"examples: {name} recorded no rope call")
+        x, pos, theta = rc.calls[rk]
+        figs["rope_replay"][name] = dict(
+            shape=list(rk[0]), calls=rc.shapes[rk],
+            **measure_rope(f"example {name}", x, pos, theta))
+    del recs, rc
+    _free()
+    return figs
+
+
 def main() -> int:
     try:
         import torch
@@ -6474,6 +6708,11 @@ def main() -> int:
         # phase 17, while llama3-8b's weights are loaded: every recompute
         # strategy, the ablations, focus and streamed loads on both routes
         strategies = run_strategies(cfg, params, tmp)
+
+        # phase 23, while llama3-8b's fp32 weights are loaded: the port's
+        # examples at full width, and each one's tiny main() as a user
+        # runs it
+        examples = run_examples(cfg, params, dev, card, tmp)
 
         # phase 10: the families. First the paper's model once more, on
         # a prompt past auto's 2^21 score elements, then its weights go
@@ -6699,6 +6938,20 @@ def main() -> int:
                              "bound_ms", "bound_by") if k in r[dt]})
     # rope's row is at the path's shape; the 1024-token span beside it
     kernels[-1]["shape"] = "[32, 48, 8, 128]; span1024 [32, 1024, 8, 128]"
+    # its launches in the examples of phase 23
+    kernels[-1]["examples"] = {
+        "quickstart": examples["quickstart"]["launches"]["rope"],
+        "cache_analysis": examples["cache_analysis"]["launches"]["rope"],
+        "serve_rag cache-craft":
+            examples["serve_rag"]["cache-craft"]["launches"]["rope"]}
+    # and held at each example's most frequent shape, on its own inputs
+    kernels[-1]["examples_replay"] = {
+        name: dict(shape=r["shape"], calls_at_shape=r["calls"],
+                   **{f"{k}{sfx}": r[dt][k]
+                      for dt, sfx in (("float32", ""), ("bfloat16", "_bf16"))
+                      for k in ("err", "ms", "device_ms", "plain_ms",
+                                "bound_ms", "bound_by")})
+        for name, r in examples["rope_replay"].items()}
     kernels[-1]["host_ms"] = rope_rows["path"]["float32"]["host_ms"]
     kernels[-1]["device_ms"] = rope_rows["path"]["float32"]["device_ms"]
     kernels[-1]["device_ms_bf16"] = \
@@ -6961,6 +7214,9 @@ def main() -> int:
         **{k: ({m: x for m, x in v.items() if m != "kernels"}
                if isinstance(v, dict) else v)
            for k, v in bf16_fams.items()}}))
+    log(f"examples [{card}]: " + json.dumps({
+        k: v for k, v in examples.items()
+        if k in ("tiny_mains", "peak_gb", "seconds")}))
     log(f"end-to-end vs dense: A max abs logit diff {err_a:.3e}, "
         f"B {err_b:.3e}; total {time.perf_counter() - t_all:.1f}s")
     log(card)    # nvidia-smi's name, power.limit line, verbatim
