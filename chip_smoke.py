@@ -173,14 +173,25 @@ Phases (each prints its own line; any failure raises and exits non-zero):
     1) (the MoE aux term from global means alone) and 3 on (data 2,
     model 2) (experts and vocab split), the routing flips of every step
     counted against the unsharded run's: the 2-layer run on (4, 1) within
-    the parity standard, at 2 layers one sharded step from each
+    the parity standard, the others replaying the unsharded run's expert
+    ids per data shard and layer (``Routes.hand``) and within it too,
+    their router probs as well, but granite whole (``MOE_LOOSE``), at 2
+    layers one sharded step from each
     unsharded state within it wherever that step flips no route, every
     run's loss gap and params outside the tolerance within 4x the
     controls' most, its params within twice the summed lr; 8 x 512
     tokens, accum 2; the counted collective bytes equal to the dry-run's
     closed forms, mesh position 0's param / ``m`` / ``v`` bytes equal to
     their layouts', each microbatch's aux printed beside the unsharded
-    one's;
+    one's; and mamba2-370m cut to 2 layers on (2, 4) and (2, 1) and
+    whole on (2, 4) in float64 (``Float64``, which raises on any float32
+    tensor made inside, the backward's too; ``f64_check``): its first
+    sharded step from the same init and one from the unsharded state
+    before the last, against the unsharded steps, each loss within
+    1e-9, every element of ``m`` and ``v`` within tau of its leaf's
+    largest magnitude (tau = 1e-9, or 2^-20 x the same comparison's gap
+    in fp32 where larger: the 48 random layers amplify rounding past
+    saturation in fp32), the params within AdamW's propagation of it;
 16. the engine under pool pressure (after phase 12, while llama3-8b's
     weights are loaded; fp32, TF32 off; ``run_pressure``): the
     reference's churn workload (6 requests, decode lengths 18, 18, 3, 5,
@@ -233,7 +244,10 @@ Phases (each prints its own line; any failure raises and exits non-zero):
     ``kernel`` and on ``dense``: sharded within 2e-4 of unsharded on the
     same route (whole mamba2, whose 48 random layers amplify rounding,
     within 4x the drift of three unsharded controls from embeddings
-    perturbed by 2^-20), ``kernel`` within 2e-3 of ``dense`` (logits and
+    perturbed by 2^-20, and in float64 on ``dense`` with the SSD's plain
+    version, every element of the steps' logits, states and conv
+    windows within 1e-9 of its leaf's largest magnitude,
+    ``f64_serving``), ``kernel`` within 2e-3 of ``dense`` (logits and
     caches, allclose), the chunk,
     decode and SSD launches counted from 0 around each sharded run and
     equal to one per layer, model shard and data shard; each kernel held
@@ -3997,14 +4011,15 @@ def _steps(step, state, batch, dev, first=0, n=SHARD_STEPS, auxes=None):
     return state, losses, ms, lrs
 
 
-def _host_state(state, keep=("params", "m", "v")):
-    """Copies on the host of an unsharded state's params, ``m`` and
-    ``v`` (those ``keep`` names), with the leaf names."""
+def _host_state(state, keep=("params", "m", "v"), where="cpu"):
+    """Copies on the host (or on ``where``) of an unsharded state's
+    params, ``m`` and ``v`` (those ``keep`` names), with the leaf
+    names."""
     from repro_torch.training.optimizer import tree_leaves
     trees = {"params": state.params, "m": state.opt["m"],
              "v": state.opt["v"]}
     return dict(names=_leaf_names(state.params), **{
-        k: [x.detach().to("cpu", copy=True) for x in tree_leaves(trees[k])]
+        k: [x.detach().to(where, copy=True) for x in tree_leaves(trees[k])]
         for k in keep})
 
 
@@ -4332,27 +4347,179 @@ RECURRENT_TP = (("recurrentgemma-9b", 3, (1, 4)),
 MOE_SEEDS = (1, 2, 3)
 MOE_STRICT = {(MOE_CUT, (4, 1))}
 MOE_DRIFT = 4.0
+# The runs MOE_STRICT does not name replay the unsharded run's expert ids
+# (``Routes.hand``, ROADMAP A21) and are held to the parity standard, but
+# for those named here: granite-moe-1b-a400m whole (24 layers) on both
+# meshes missed it replayed on the H100 (AdamW's steps on near-tied
+# elements; PERF.md §6), so they are held, as their free-running
+# runs were, within MOE_DRIFT x the controls
+MOE_LOOSE = {(24, (4, 1)), (24, (2, 2))}
+# The proof that the split is the unsharded function (ROADMAP C10): the
+# same steps in float64 (``Float64``), sharded against unsharded. A gap
+# that a reordering of the sums makes scales with the unit roundoff,
+# 2^-53 in float64 against 2^-24 in fp32, a factor 2^-29 = 1.9e-9; a
+# change of the function moves the result by its own size whatever the
+# precision. mamba2-370m/48's fp32 loss gap, 2.13e-5 after its first step
+# and 1.03e-3 after 3 (PERF.md §6), becomes 4e-14 and 2e-12. So:
+# * each loss within F64_TOL of the unsharded loss, relative to it;
+# * every element of ``m`` and ``v`` (a serving step's logits, caches and
+#   states) within tau of its leaf's largest magnitude, tau = F64_TOL,
+#   or for a train step F64_SCALE x the same comparison's worst gap in
+#   fp32 where that is larger: the grads of 48 random layers carry
+#   rounding amplified ~1e8-fold (the float64 grads of one step are
+#   2e-8 of their scale apart on the H100, 3e-14 at 2 layers; PERF.md
+#   §6), so fp32's saturate, and a gap that is rounding stays
+#   2^-29 of them while F64_SCALE = 2^-20 leaves a factor 2^9 for that
+#   saturation; a fault's gap is the same in both and fails;
+# * the params within tau x (their leaf's largest magnitude + lr x its
+#   largest grad / eps summed over the steps apart): AdamW's step turns a
+#   grad's rounding into up to 1/eps of a step where the grad is near 0.
+# No flip allowance: float64 resolves a grad near eps = 1e-8 to ~1e-16
+# of its terms. The comparisons: the first step from the same init, and
+# one step from the unsharded state before the last step (the same
+# function at a later state; a free-running sharded run feeds rounding
+# back through AdamW and the random layers each step and is reported)
+F64_TOL = 1e-9
+F64_SCALE = 2.0 ** -20
+# (arch, layers or None for all, mesh) of the float64 train-step gates
+F64_TP = (("mamba2-370m", MOE_CUT, (2, 4)),
+          ("mamba2-370m", MOE_CUT, (2, 1)),
+          ("mamba2-370m", None, (2, 4)))
+
+
+class Float64:
+    """What runs inside it runs in float64: a harness's precision, not
+    the port's (the reference computes in float32 throughout). While
+    entered the default dtype is float64, ``Tensor.float`` widens to
+    float64, ``torch.zeros`` / ``ones`` / ``full`` / ``empty`` make
+    float64 where asked for float32, and the config dtype "float32"
+    names float64 (``model._DTYPES``). A ``TorchDispatchMode`` sees every
+    operator run, the backward pass's too (the autograd workers inherit
+    it): each output of dtype float32 is counted by operator in ``made``
+    (but for tensors on ``meta``, which hold shapes alone: the layouts,
+    and host data made a tensor, ``lift_fresh``: constants such as RoPE's
+    fp32 frequencies, which every operator on them widens),
+    and leaving the context raises if there is one, so a cast site the
+    patches miss fails the run instead of leaving an fp32 island.
+    ``ops`` and ``backward_ops`` (operators named ``*backward*``) count
+    what it saw. The kernels take no float64 (their wrappers raise on
+    the card), so a float64 run reaches none."""
+
+    FACTORIES = ("zeros", "ones", "full", "empty")
+
+    def __init__(self):
+        self.made = collections.Counter()
+        self.ops = self.backward_ops = 0
+
+    def __enter__(self):
+        import torch
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        from repro_torch.models import model as M
+        owner, f32, f64 = self, torch.float32, torch.float64
+
+        class Watch(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                owner.ops += 1
+                name = func.__name__
+                if "backward" in name:
+                    owner.backward_ops += 1
+                if name.startswith("lift_fresh"):
+                    return out      # host data made a tensor: no rounding
+                for t in out if isinstance(out, (tuple, list)) else (out,):
+                    if isinstance(t, torch.Tensor) and t.dtype == f32 \
+                            and not t.is_meta:
+                        owner.made[name] += 1
+                return out
+
+        def widen(fn):
+            def made64(*a, **k):
+                if k.get("dtype") is f32:
+                    k["dtype"] = f64
+                return fn(*a, **k)
+            return made64
+        self.saved = [(torch, n, getattr(torch, n)) for n in self.FACTORIES]
+        self.saved.append((torch.Tensor, "float", torch.Tensor.float))
+        self.default, self.dtypes = torch.get_default_dtype(), M._DTYPES
+        for mod, n, fn in self.saved[:-1]:
+            setattr(mod, n, widen(fn))
+        torch.Tensor.float = torch.Tensor.double
+        M._DTYPES = dict(M._DTYPES, float32=f64)
+        torch.set_default_dtype(f64)
+        self.mode = Watch()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        from repro_torch.models import model as M
+        self.mode.__exit__(*exc)
+        torch.set_default_dtype(self.default)
+        M._DTYPES = self.dtypes
+        for mod, n, fn in self.saved:
+            setattr(mod, n, fn)
+        if exc[0] is None and self.made:
+            raise RuntimeError("Float64: float32 tensors made inside, by "
+                               f"operator: {dict(self.made)}")
+        return False
 
 
 class Routes:
     """Records the expert ids of every MoE layer's forward pass while it
     lives (``close`` ends it): per ``Ctx`` (a microbatch, or a data shard
-    of one) in the order first seen, the sorted top-k ids [tokens, k] of
-    each layer. The recomputation inside the backward pass is not read."""
+    of one) in the order first seen, each layer's top-k ids [tokens, k]
+    in their top-k order and its router probs [tokens, E]. The
+    recomputation inside the backward pass is not read.
+
+    ``hand(order, dp)`` replays another run's routing (ROADMAP A21): each
+    call of the next step gets the ids that ``order`` (a ``take_all``'s
+    "order" of that run's step: per microbatch and layer [tokens, k]) holds
+    for its rows, a data shard's rows of its microbatch cut in shard
+    order, and gates from its own probs at those ids renormalised over k,
+    as ``layers.moe_route`` forms them; the backward pass's recomputation
+    of a layer (``model._remat``) gets the ids its forward got, found by
+    the ``Ctx`` and the layer's router weight. The run's own top-k is
+    what it records. So the routing is the other run's and the function
+    is continuous in the params, as with no tie near."""
 
     def __init__(self):
         from repro_torch.models import model as M
         from repro_torch.training import steps as TS
-        self.rec, self.bwd = [], False
+        self.rec, self.bwd, self.order, self.dp = [], False, None, 1
+        self.ctxs, self.given, self.calls = [], {}, []
         route, grads = M._moe_route, TS._grads
 
         def rec_route(ctx, p, h):
-            out = route(ctx, p, h)
+            xg, probs, gates, ids = route(ctx, p, h)
+            c = next((i for i, x in enumerate(self.ctxs) if x is ctx), None)
+            if c is None:
+                c = len(self.ctxs)
+                self.ctxs.append(ctx)
+                self.calls.append(0)
+            key = (c, p["router"].data_ptr())
             if not self.bwd:
-                ids = out[3].detach()
-                self.rec.append((ctx, ids.sort(-1).values.reshape(
-                    -1, ids.shape[-1]).cpu()))
-            return out
+                self.rec.append((ctx, ids.detach().reshape(
+                    -1, ids.shape[-1]).cpu(), probs.detach().reshape(
+                    -1, probs.shape[-1]).cpu()))
+                if self.order is not None:
+                    mb, d = divmod(c, self.dp)
+                    full = self.order[mb][self.calls[c]]
+                    t = full.shape[0] // self.dp
+                    if key in self.given or full.shape[0] % self.dp or \
+                            t != ids.numel() // ids.shape[-1]:
+                        raise RuntimeError(
+                            f"Routes: no replay for call {self.calls[c]} of"
+                            f" shard {d} of microbatch {mb}")
+                    self.given[key] = full[d * t:(d + 1) * t].reshape(
+                        ids.shape).to(ids.device)
+                    self.calls[c] += 1
+            if self.order is not None:
+                ids = self.given[key]
+                gates = probs.gather(-1, ids)
+                gates = gates / gates.sum(-1, keepdim=True)
+            return xg, probs, gates, ids
 
         def rec_grads(loss, leaves):
             self.bwd = True
@@ -4366,24 +4533,44 @@ class Routes:
         self.close = close
         M._moe_route, TS._grads = rec_route, rec_grads
 
-    def take(self, dp):
-        """The ids recorded since the last ``take`` per (microbatch,
-        layer) [tokens, k], the ``dp`` data shards' rows put together in
-        shard order."""
+    def reset(self):
+        """Forget what was recorded and handed, and replay nothing."""
+        self.rec, self.order, self.dp = [], None, 1
+        self.ctxs, self.given, self.calls = [], {}, []
+
+    def hand(self, order, dp):
+        """Replay ``order`` over ``dp`` data shards from the next call."""
+        self.reset()
+        self.order, self.dp = order, dp
+
+    def take_all(self, dp):
+        """The calls recorded since the last ``take``, per (microbatch,
+        layer), the ``dp`` data shards' rows put together in shard order:
+        "ids" sorted [tokens, k] (the expert sets), "order" the ids in
+        their top-k order, "probs" [tokens, E]; then ``reset``."""
         import torch
         by = []
-        for ctx, ids in self.rec:
+        for ctx, ids, probs in self.rec:
             for c, lst in by:
                 if c is ctx:
-                    lst.append(ids)
+                    lst.append((ids, probs))
                     break
             else:
-                by.append((ctx, [ids]))
-        self.rec = []
+                by.append((ctx, [(ids, probs)]))
+        self.reset()
         lists = [lst for _, lst in by]
-        return [[torch.cat([lists[i + d][j] for d in range(dp)])
-                 for j in range(len(lists[i]))]
-                for i in range(0, len(lists), dp)]
+
+        def cat(j):
+            return [[torch.cat([lists[i + d][layer][j] for d in range(dp)])
+                     for layer in range(len(lists[i]))]
+                    for i in range(0, len(lists), dp)]
+        order = cat(0)
+        return dict(ids=[[x.sort(-1).values for x in mb] for mb in order],
+                    order=order, probs=cat(1))
+
+    def take(self, dp):
+        """``take_all``'s "ids"."""
+        return self.take_all(dp)["ids"]
 
 
 def flips(a, b) -> int:
@@ -4408,13 +4595,17 @@ def _snapshot(state):
                               "count": state.opt["count"].clone()})
 
 
-def _plain_run(cfg, dev, routes=None, noise=0.0, seed=1, snaps=False):
+def _plain_run(cfg, dev, routes=None, noise=0.0, seed=1, snaps=False,
+               keep1=False):
     """``SHARD_STEPS`` unsharded steps of ``cfg`` from ``_shard_setup``'s
     init, each embedding element scaled by 1 + ``noise`` x N(0, 1) (the
     noise drawn with ``seed``) where ``noise`` is given: ``_host_state``
-    and the run's figures; with ``routes`` each step's routing ("ids"),
+    (of such a control, its params alone, left on ``dev``) and the run's
+    figures; with ``routes`` each step's routing ("ids";
+    of an unperturbed run also "order" and "probs", ``Routes.take_all``),
     with ``snaps`` copies on ``dev`` of the state before each step and
-    after the last ("snaps")."""
+    after the last ("snaps"), with ``keep1`` ``_host_state`` after the
+    first step, on ``dev`` ("after1")."""
     import torch
 
     from repro_torch.training import steps as TS
@@ -4429,10 +4620,10 @@ def _plain_run(cfg, dev, routes=None, noise=0.0, seed=1, snaps=False):
                                            device=e.device))
     aux = [] if cfg.num_experts else None
     step = TS.make_train_step(cfg, opt, accum=TRAIN_ACCUM)
-    out = dict(ids=[], snaps=[] if snaps else None, losses=[], ms=[],
-               lrs=[])
+    out = dict(ids=[], order=[], probs=[], snaps=[] if snaps else None,
+               losses=[], ms=[], lrs=[])
     if routes is not None:
-        routes.rec = []
+        routes.reset()
     for t in range(SHARD_STEPS):
         if snaps:
             out["snaps"].append(_snapshot(state))
@@ -4440,12 +4631,20 @@ def _plain_run(cfg, dev, routes=None, noise=0.0, seed=1, snaps=False):
                                       auxes=aux)
         for k, v in (("losses", loss), ("ms", ms), ("lrs", lrs)):
             out[k] += v
+        if keep1 and not t:
+            out["after1"] = _host_state(state, where=dev)
         if routes is not None:
-            out["ids"].append(routes.take(1))
+            got = routes.take_all(1)
+            out["ids"].append(got["ids"])
+            if not noise:
+                out["order"].append(got["order"])
+                out["probs"].append(got["probs"])
     if snaps:
         out["snaps"].append(_snapshot(state))
+    # a control's params stay on the card, where ``_drift`` compares them
     keep = ("params",) if noise else ("params", "m", "v")
-    return dict(out, **_host_state(state, keep), peak=_peak(dev), aux=aux)
+    return dict(out, **_host_state(state, keep, where=dev if noise
+                                   else "cpu"), peak=_peak(dev), aux=aux)
 
 
 def _drift(run, plain):
@@ -4479,7 +4678,8 @@ class _Unsharded:
         return SH.unshard(self.leaves[j])
 
 
-def tp_check(cfg, dev, shape, plain, routes=None, controls=None):
+def tp_check(cfg, dev, shape, plain, routes=None, controls=None,
+             replay=False):
     """``SHARD_STEPS`` steps of ``cfg`` on a ``shape`` (data, model) mesh
     on ``dev`` from ``_shard_setup``'s init, against the unsharded run
     ``plain`` (``_plain_run``): losses within LOSS_RTOL, params within
@@ -4492,8 +4692,14 @@ def tp_check(cfg, dev, shape, plain, routes=None, controls=None):
     routing flips per step against ``plain`` (``routes``), and the
     parity standard only where ``MOE_STRICT`` names the run; else its
     loss gap and params outside PARAM_TOL within ``MOE_DRIFT`` x the
-    controls' most, its params within twice the summed lr."""
+    controls' most, its params within twice the summed lr. With
+    ``replay`` each step replays ``plain``'s expert ids (``Routes.hand``)
+    and the run is held to the parity standard, its router probs within
+    PARAM_TOL of ``plain``'s too; its own top-k's flips are logged per
+    step, and where ``plain`` has "after1" its state after the first step
+    against that ("after_1")."""
     import numpy as np
+    import torch
 
     from repro_torch.distributed import collectives as CO
     from repro_torch.distributed import sharding as SH
@@ -4513,14 +4719,43 @@ def tp_check(cfg, dev, shape, plain, routes=None, controls=None):
     CO.reset_bytes()
     aux = [] if cfg.num_experts else None
     losses, ms, lrs, ids = [], [], [], []
+    probs, after1 = [], None
     if routes is not None:
-        routes.rec = []
+        routes.reset()
     for t in range(SHARD_STEPS):
+        if replay:
+            routes.hand(plain["order"][t], shape[0])
         sst, loss, m_, lr = _steps(step, sst, batch, dev, first=t, n=1,
                                    auxes=aux)
         losses, ms, lrs = losses + loss, ms + m_, lrs + lr
         if routes is not None:
-            ids.append(routes.take(shape[0]))
+            got = routes.take_all(shape[0])
+            ids.append(got["ids"])
+            if replay:
+                pairs = [(g, w) for gm, wm in zip(got["probs"],
+                                                  plain["probs"][t],
+                                                  strict=True)
+                         for g, w in zip(gm, wm, strict=True)]
+                probs.append(dict(
+                    worst_abs=max(float((g - w).abs().max())
+                                  for g, w in pairs),
+                    outside=sum(int((~torch.isclose(g, w, **PARAM_TOL))
+                                    .sum()) for g, w in pairs)))
+        if not t and "after1" in plain:
+            un = {k: _Unsharded(list(tree_leaves(tr))) for k, tr in (
+                ("params", sst.params), ("m", sst.opt["m"]),
+                ("v", sst.opt["v"]))}
+            first = {k: _params_gap(plain["names"], un[k],
+                                    plain["after1"][k])
+                     for k in ("params", "m", "v")}
+            after1 = dict(loss_rel_gap=abs(loss[0] - plain["losses"][0])
+                          / abs(plain["losses"][0]), strict=_flips_only(
+                              first["params"][1], lr) and not first["m"][1]
+                          and not first["v"][1], **{
+                              k: dict(worst_abs=w, outside=sum(
+                                  b["outside"] for b in bad))
+                              for k, (w, bad) in first.items()})
+            del un, first
     peak = _peak(dev)
     counted = dict(CO.BYTES)
     z = dryrun.zero1_collective_bytes(cfg, mesh, TRAIN_ACCUM)
@@ -4543,7 +4778,8 @@ def tp_check(cfg, dev, shape, plain, routes=None, controls=None):
     rel = float(np.max(np.abs(np.array(losses) - plain["losses"])
                        / np.abs(plain["losses"])))
     strict = rel <= LOSS_RTOL and _flips_only(bad, lrs) and \
-        not moments["m"][1] and not moments["v"][1]
+        not moments["m"][1] and not moments["v"][1] and \
+        not any(p["outside"] for p in probs)
     outside = sum(b["outside"] for b in bad)
     out = dict(model=f"{cfg.name}/{cfg.num_layers}", mesh=list(shape),
                tokens=f"{SHARD_BATCH} x {SHARD_SEQ}", accum=TRAIN_ACCUM,
@@ -4562,10 +4798,18 @@ def tp_check(cfg, dev, shape, plain, routes=None, controls=None):
         out.update(aux_plain=plain["aux"], aux_sharded=aux,
                    aux_rel_gap=float(np.max(np.abs(np.array(aux) - np.array(
                        plain["aux"])) / np.abs(plain["aux"]))))
-    need_strict = controls is None or \
-        (cfg.num_layers, tuple(shape)) in MOE_STRICT
-    if controls is not None:
+    key = (cfg.num_layers, tuple(shape))
+    need_strict = controls is None or key in MOE_STRICT or \
+        (replay and key not in MOE_LOOSE)
+    if routes is not None or controls is not None:
         out["flips"] = [flips(a, b) for a, b in zip(ids, plain["ids"])]
+    if routes is not None:
+        out["replayed"] = replay
+        if replay:
+            out["probs_vs_plain"] = probs       # per step
+        if after1 is not None:
+            out["after_1"] = after1
+    if controls is not None:
         out["control_loss_rel_gap"] = max(c["loss_rel_gap"]
                                           for c in controls)
         out["control_params_outside"] = max(c["params_outside"]
@@ -4576,7 +4820,8 @@ def tp_check(cfg, dev, shape, plain, routes=None, controls=None):
     if need_strict and not strict:
         raise RuntimeError(
             f"tp {shape}: loss gap {rel:.3e}, leaves outside {PARAM_TOL}: "
-            f"params {bad}, m {moments['m'][1]}, v {moments['v'][1]}")
+            f"params {bad}, m {moments['m'][1]}, v {moments['v'][1]}"
+            + (f", router probs {probs}" if replay else ""))
     if controls is not None and not strict and (
             rel > MOE_DRIFT * out["control_loss_rel_gap"] or
             outside > MOE_DRIFT * out["control_params_outside"]):
@@ -4625,7 +4870,7 @@ def one_step_check(cfg, dev, shape, plain, routes, flip_grad=False):
         step = TS.make_train_step(cfg, opt, accum=TRAIN_ACCUM,
                                   grad_specs=shs["opt"]["m"])
         if routes is not None:
-            routes.rec = []
+            routes.reset()
         sst, loss, _, lrs = _steps(step, sst, batch, dev, first=t, n=1)
         f = 0 if routes is None else flips(routes.take(shape[0]),
                                            plain["ids"][t])
@@ -4661,18 +4906,246 @@ def one_step_check(cfg, dev, shape, plain, routes, flip_grad=False):
     return per
 
 
+def _f64_state(state):
+    """``state`` with its params, ``m`` and ``v`` widened to float64, an
+    exact copy, the params taking grads."""
+    from repro_torch.training import steps as TS
+    from repro_torch.training.optimizer import tree_leaves, tree_unflatten
+
+    def wide(tree, grad=False):
+        return tree_unflatten(tree, [x.detach().double().requires_grad_(grad)
+                                     for x in tree_leaves(tree)])
+    return TS.TrainState(step=state.step, params=wide(state.params, True),
+                         opt={"m": wide(state.opt["m"]),
+                              "v": wide(state.opt["v"]),
+                              "count": state.opt["count"]})
+
+
+def f64_gap(names, got, want, tau=F64_TOL, add=None, extra=()):
+    """Two leaf lists held elementwise: leaf j within ``tau`` x (its
+    largest magnitude in ``want`` + ``add[j]``, where given).
+    Returns {"ratio": the worst gap over its leaf's tolerance, "rel": the
+    worst gap over its leaf's largest magnitude, "leaf": the leaf of the
+    worst ratio, "beyond": per leaf with an element beyond its tolerance,
+    those elements' count, the worst gap, the scale, the tolerance and,
+    at that element, both values and those of ``extra`` (pairs of leaf
+    lists, such as the runs' ``m`` and ``v``: sqrt(v) is the rms of the
+    element's grads)}."""
+    out = dict(ratio=0.0, rel=0.0, leaf=None, beyond=[])
+    for j, (n, g, w) in enumerate(zip(names, got, want, strict=True)):
+        g, w = g.detach(), w.detach().to(g.device)
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise RuntimeError(f"{n}: {g.dtype} {list(g.shape)} against "
+                               f"{w.dtype} {list(w.shape)}")
+        d = (g - w).abs()
+        scale = float(w.abs().max())
+        gap = float(d.max())
+        tol = tau * (scale + (add[j] if add else 0.0))
+        ratio = gap / tol if tol else (0.0 if gap == 0 else math.inf)
+        out["rel"] = max(out["rel"], gap / scale if scale else
+                         (0.0 if gap == 0 else math.inf))
+        if ratio > out["ratio"] or out["leaf"] is None:
+            out["ratio"], out["leaf"] = max(out["ratio"], ratio), n
+        over = d > tol
+        if over.any():
+            i = int(d.flatten().argmax())
+            out["beyond"].append(dict(
+                leaf=n, shape=list(g.shape), elements=int(over.sum()),
+                gap=gap, scale=scale, tol=tol,
+                at=[float(g.flatten()[i]), float(w.flatten()[i])]
+                + [[float(a[j].detach().flatten()[i]),
+                    float(b[j].detach().flatten()[i])] for a, b in extra]))
+    return out
+
+
+def _compare(sst, want, lw, ls, eps, tau):
+    """A sharded state ``sst`` after a step against the unsharded run's
+    copy ``want`` after it (``_host_state`` plus "lrs" and "ghat":
+    per step the sum apart, each leaf's largest |m| / bc1, the step's
+    grad at most): the losses so far (``ls`` against ``lw``) and the
+    params, ``m`` and ``v`` by ``f64_gap``. With ``tau`` the gate: the
+    losses within F64_TOL relative, every element of ``m`` and ``v``
+    within ``tau`` of its leaf's largest magnitude and of the params
+    within ``tau`` x (the leaf's largest magnitude + the sum over the
+    steps apart of lr x its largest grad / eps): AdamW's step
+    m^/(sqrt(v^) + eps) moves by up to 1/eps per unit of a grad near
+    zero, so the grads' rounding reaches a param through that factor,
+    while a change of the function moves it by lr whatever the grads."""
+    import numpy as np
+
+    from repro_torch.training.optimizer import tree_leaves
+    un = {k: _Unsharded(list(tree_leaves(tr))) for k, tr in (
+        ("params", sst.params), ("m", sst.opt["m"]), ("v", sst.opt["v"]))}
+    ext = [(un["m"], want["m"]), (un["v"], want["v"])]
+    rel = np.abs(np.array(ls) - lw[:len(ls)]) / np.abs(lw[:len(ls)])
+    t = 1.0 if tau is None else tau
+    add = [sum(lr * g[j] / eps for lr, g in zip(want["lrs"], want["ghat"]))
+           for j in range(len(want["params"]))]
+    out = dict(loss_rel_gap=float(rel.max()), tau=tau,
+               params=f64_gap(want["names"], un["params"], want["params"],
+                              t, add, ext if tau else ()),
+               **{k: f64_gap(want["names"], un[k], want[k], t,
+                             extra=ext if tau else ())
+                  for k in ("m", "v")})
+    if tau is None:
+        for k in ("params", "m", "v"):
+            out[k].pop("beyond")
+    else:
+        out["ok"] = out["loss_rel_gap"] <= F64_TOL and not any(
+            out[k]["beyond"] for k in ("params", "m", "v"))
+    return out
+
+
+def _apart(cfg, dev, shape, wide, taus=None, free=False):
+    """``SHARD_STEPS`` unsharded steps of ``cfg`` from ``_shard_setup``'s
+    init, then on a ``shape`` (data, model) mesh the first step from that
+    init and one step from the unsharded state before the last step, in
+    float64 (``wide``: the init widened, ``_f64_state``, each step under
+    ``Float64``) or fp32; each sharded step held by ``_compare`` against
+    the unsharded step ("after 1", "after {last}", with ``taus[key]``),
+    and with ``free`` the sharded run on from its own state to the last
+    step ("after {last} free", reported). Returns (the comparisons,
+    figures)."""
+    import torch
+
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.training import steps as TS
+    from repro_torch.training.optimizer import tree_leaves
+    f64 = Float64() if wide else None
+    scope = (lambda: f64) if wide else contextlib.nullcontext
+    widen = _f64_state if wide else (lambda st: st)
+    _reset_peak(dev)
+    state, opt, batch = _shard_setup(cfg, dev)
+    state = widen(state)
+    step = TS.make_train_step(cfg, opt, accum=TRAIN_ACCUM)
+    want, lw, msw, lrs, ghat = {}, [], [], [], []
+    for t in range(SHARD_STEPS):
+        with scope():
+            state, loss, ms, lr = _steps(step, state, batch, dev, first=t,
+                                         n=1)
+        lw, msw, lrs = lw + loss, msw + ms, lrs + lr
+        bc1 = 1 - opt.b1 ** (t + 1)
+        ghat.append([float(m.abs().max()) / bc1
+                     for m in tree_leaves(state.opt["m"])])
+        # kept on the device: the comparisons read them there
+        want[t + 1] = dict(_host_state(state, where=dev), lrs=lrs[:t + 1],
+                           ghat=ghat[:t + 1])
+    peak_w = _peak(dev)
+    del state, step
+    shs = TS.train_shardings(cfg, make_debug_mesh(shape, device=dev))
+    step = TS.make_train_step(cfg, opt, accum=TRAIN_ACCUM,
+                              grad_specs=shs["opt"]["m"])
+    last = SHARD_STEPS
+    res, ms_s = {}, {}
+
+    def sharded(start, first, n):
+        st = TS.shard_state(start, shs)
+        del start
+        ls = []
+        for t in range(first, first + n):
+            with scope():
+                st, loss, ms, _ = _steps(step, st, batch, dev, first=t, n=1)
+            ls += loss
+            ms_s[t + 1] = ms[0]
+            if t + 1 not in (1, last):
+                continue
+            key = f"after {t + 1}" + (" free" if not first and t else "")
+            w = dict(want[t + 1])
+            if first:       # apart for this step only
+                w.update(lrs=w["lrs"][first:], ghat=w["ghat"][first:])
+            res[key] = _compare(st, w, lw, lw[:first] + ls, opt.eps,
+                                (taus or {}).get(key.replace(" free", "")))
+        return st
+
+    _reset_peak(dev)
+    state, opt, batch = _shard_setup(cfg, dev)
+    st = sharded(widen(state), 0, last if free else 1)
+    del state
+    dtypes = sorted({str(x.dtype) for tr in (st.params, st.opt["m"],
+                                             st.opt["v"])
+                     for x in tree_leaves(tr)})
+    del st
+    _free()
+    # the unsharded state before the last step, back on the card
+    w = want.pop(last - 1)
+    count = torch.tensor(last - 1, dtype=torch.int32, device=dev)
+    sharded(TS.TrainState(step=count.clone(), params=_tree_like(
+        cfg, w.pop("params"), dev, grad=True), opt={
+            "m": _tree_like(cfg, w.pop("m"), dev),
+            "v": _tree_like(cfg, w.pop("v"), dev), "count": count}),
+        last - 1, 1)
+    peak_s = _peak(dev)
+    return res, dict(
+        losses_plain=lw, state_dtypes=dtypes, step_ms_plain=msw,
+        step_ms_sharded=ms_s, peak_gb_plain=peak_w and peak_w / 1e9,
+        peak_gb_sharded=peak_s and peak_s / 1e9,
+        made=dict(f64.made) if wide else None,
+        ops_seen=f64.ops if wide else None,
+        backward_ops_seen=f64.backward_ops if wide else None)
+
+
+def f64_check(cfg, dev, shape, free=True):
+    """The float64 gate of ``cfg``'s sharded train step on a ``shape``
+    (data, model) mesh (``_apart``): the same comparisons in fp32 first,
+    then in float64, each held with ``tau`` = max(F64_TOL, F64_SCALE x
+    the fp32 comparison's worst gap of ``m`` and ``v`` over their
+    leaves' largest magnitudes) and no allowance; the state float64, no
+    float32 tensor made, the backward seen by the check. Logs both,
+    raises on a miss."""
+    name = f"{cfg.name}/{cfg.num_layers}"
+    t_case = time.perf_counter()
+    g32, info32 = _apart(cfg, dev, shape, wide=False)
+    taus = {k: max(F64_TOL, F64_SCALE * max(r["m"]["rel"], r["v"]["rel"]))
+            for k, r in g32.items()}
+    _free()
+    g64, info = _apart(cfg, dev, shape, wide=True, taus=taus, free=free)
+    gated = [k for k in g64 if not k.endswith("free")]
+    ok = info["state_dtypes"] == ["torch.float64"] and \
+        info["backward_ops_seen"] > 0 and not info["made"] and \
+        all(g64[k]["ok"] for k in gated)
+    out = dict(model=name, mesh=list(shape), dtype="float64",
+               tokens=f"{SHARD_BATCH} x {SHARD_SEQ}", accum=TRAIN_ACCUM,
+               tol=F64_TOL, scale=F64_SCALE, gated=gated, **g64,
+               fp32=dict(g32, step_ms_plain=info32["step_ms_plain"],
+                         step_ms_sharded=info32["step_ms_sharded"]),
+               **info, ok=ok, seconds=time.perf_counter() - t_case)
+    log(f"float64 {name} on a (data {shape[0]}, model {shape[1]}) mesh "
+        f"against unsharded: " + json.dumps(out))
+    if not ok:
+        raise RuntimeError(
+            f"float64 {name} {list(shape)}: sharded vs unsharded beyond "
+            f"the float64 standard: " + json.dumps({k: g64[k] for k in
+                                                    gated})
+            + f", state {info['state_dtypes']}, {info['made']} float32 "
+            f"made, {info['backward_ops_seen']} backward operators seen")
+    return out
+
+
+def _tree_like(cfg, leaves, dev, grad=False):
+    """Leaves in ``tree_leaves`` order as a params-shaped tree on
+    ``dev``."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.training.optimizer import tree_unflatten
+    shapes = M.init_params(cfg, torch.Generator(), device="meta")
+    return tree_unflatten(shapes, [x.to(dev).requires_grad_(grad)
+                                   for x in leaves])
+
+
 def run_tp(dev, card, plain):
     """Phase 15: llama3-8b/2 on (data 2, model 4) against phase 14's
     unsharded steps (``plain``, emptied afterwards); the recurrent blocks
     split over "model" (``RECURRENT_TP``) against unsharded runs,
     mamba2-370m also against its controls and, cut, step by step on its
-    mesh and on (data 2, model 1);
-    granite-moe-1b-a400m
+    mesh and on (data 2, model 1), and in float64 (``F64_TP``,
+    ``f64_check``); granite-moe-1b-a400m
     at full width, cut to ``MOE_CUT`` layers and then whole, unsharded,
     its controls (``MOE_CONTROL``, ``MOE_SEEDS``), and on (data 4, model
     1) and (data 2, model 2), 8 x 512 tokens, accum 2, ``SHARD_STEPS``
-    steps each (``tp_check``), at ``MOE_CUT`` layers also one sharded
-    step from each unsharded state (``one_step_check``)."""
+    steps each (``tp_check``; but for ``MOE_STRICT``'s run, replaying
+    the unsharded run's expert ids), at ``MOE_CUT`` layers also one
+    sharded step from each unsharded state (``one_step_check``)."""
     from repro_torch.configs import get_config
     t_phase = time.perf_counter()
     llama2 = get_config("llama3-8b").replace(num_layers=2)
@@ -4701,13 +5174,20 @@ def run_tp(dev, card, plain):
         _free()
         r["seconds"] = time.perf_counter() - t_case
         out[f"{cfg.name}/{cfg.num_layers} {list(shape)}"] = r
+    for arch, layers, shape in F64_TP:
+        cfg = get_config(arch)
+        cfg = cfg.replace(num_layers=layers or cfg.num_layers)
+        # the free-running sharded steps reported at the cut depth only
+        out[f"{cfg.name}/{cfg.num_layers} {list(shape)} float64"] = \
+            f64_check(cfg, dev, shape, free=layers is not None)
+        _free()
     granite = get_config("granite-moe-1b-a400m")
     routes = Routes()
     try:
         for cfg in (granite.replace(num_layers=MOE_CUT), granite):
             cut = cfg.num_layers == MOE_CUT
             name = f"{cfg.name}/{cfg.num_layers}"
-            base = _plain_run(cfg, dev, routes, snaps=cut)
+            base = _plain_run(cfg, dev, routes, snaps=cut, keep1=True)
             ctl = [_drift(_plain_run(cfg, dev, routes, MOE_CONTROL, seed=s),
                           base) for s in MOE_SEEDS]
             _free()
@@ -4715,7 +5195,8 @@ def run_tp(dev, card, plain):
                 losses=base["losses"], aux=base["aux"], step_ms=base["ms"],
                 peak_gb=base["peak"] and base["peak"] / 1e9, controls=ctl)
             for shape in MOE_MESHES:
-                r = tp_check(cfg, dev, shape, base, routes, ctl)
+                r = tp_check(cfg, dev, shape, base, routes, ctl, replay=(
+                    cfg.num_layers, shape) not in MOE_STRICT)
                 if cut:
                     r["one_step"] = one_step_check(cfg, dev, shape, base,
                                                    routes)
@@ -4745,7 +5226,10 @@ def run_tp(dev, card, plain):
 # whole model far past the parity standard, which its 2 layers meet. So
 # the whole model (``SERVE_DRIFT``) is held as phase 15 holds its train
 # step: its sharded gap within MOE_DRIFT x the most of MOE_SEEDS
-# unsharded controls' from embeddings scaled by 1 + MOE_CONTROL N(0, 1)
+# unsharded controls' from embeddings scaled by 1 + MOE_CONTROL N(0, 1),
+# and in float64 on (1, 4), where no reordering moves it, to F64_TOL
+# against its unsharded float64 steps (``f64_serving``: the proof that
+# the split serves the same function)
 TP_SERVE = (("llama3-8b", None, ((1, 4), (2, 2))),
             ("recurrentgemma-9b", 3, ((1, 4),)),
             ("mamba2-370m", MOE_CUT, ((1, 4),)),
@@ -4915,6 +5399,68 @@ def _serve_gap(got, want, tol):
     return ratio, diff
 
 
+def f64_serving(cfg, params, inp, dev, shape):
+    """The serving steps (``_serve_steps``: the prefill, the Cache-Craft
+    step, the decode steps) of ``cfg`` in float64 (``Float64``) from
+    ``params`` widened, on ``dense`` with the SSD through its plain
+    version (``PlainSsd``: the kernels take no float64), unsharded and
+    on a ``shape`` (data, model) mesh: every element of each step's
+    logits and of each cache leaf (the SSD states and conv windows, the
+    KV) within F64_TOL of its leaf's largest magnitude, the positions
+    equal, no float32 tensor made. Raises on a miss, after logging it."""
+    import torch
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.training.optimizer import tree_map
+    name = f"{cfg.name}/{cfg.num_layers}"
+    t0 = time.perf_counter()
+    p64 = tree_map(lambda x: x.detach().double(), params)
+    mesh = make_debug_mesh(shape, device=dev)
+    psh = DR.serving_shardings(cfg, "prefill", SERVE_ROWS, SERVE_CACHE,
+                               mesh)[0]
+    f64 = Float64()
+    with torch.no_grad(), PlainSsd(sops):
+        with f64:
+            want = _serve_steps(cfg, p64, inp, "dense", dev)
+        sp = SH.shard_tree(p64, psh)
+        with f64:
+            got = _serve_steps(cfg, p64, inp, "dense", dev, mesh, sp)
+        del sp
+    names, gl, wl = [], [], []
+    for what, (lg, cache) in want.items():
+        names.append(f"{what} logits")
+        gl.append(got[what][0])
+        wl.append(lg)
+        for part in ("groups", "tail"):
+            for i, (g, w) in enumerate(zip(got[what][1][part],
+                                           cache[part])):
+                for n, x in w.items():
+                    if x.is_floating_point():
+                        names.append(f"{what} {part}/{i}/{n}")
+                        gl.append(g[n])
+                        wl.append(x)
+                    elif not torch.equal(g[n], x):
+                        raise RuntimeError(f"{name} float64 {what} {part} "
+                                           f"{n}: the positions differ")
+    gap = f64_gap(names, gl, wl)
+    dtypes = sorted({str(x.dtype) for x in gl + wl})
+    ok = not gap["beyond"] and dtypes == ["torch.float64"] and \
+        not f64.made
+    out = dict(model=name, mesh=list(shape), dtype="float64", impl="dense",
+               ssd="plain", tol=F64_TOL, leaves=len(names), gap=gap,
+               dtypes=dtypes, ops_seen=f64.ops, ok=ok,
+               seconds=time.perf_counter() - t0)
+    log(f"float64 {name} serving steps on a (data {shape[0]}, model "
+        f"{shape[1]}) mesh against unsharded: " + json.dumps(out))
+    if not ok:
+        raise RuntimeError(f"float64 {name} serving {list(shape)}: beyond "
+                           f"F64_TOL {F64_TOL}: {gap['beyond']}, {dtypes}")
+    return out
+
+
 def measure_ssd_call(label, args, unsharded):
     """ssd_intra on ``args`` (the recorded inputs of a per-shard call) in
     fp32: held against its plain version to the reference's allclose
@@ -4969,7 +5515,8 @@ def run_tp_serving(dev, card):
     against its cache, 8 decode steps after it. Unsharded and sharded on
     ``kernel`` and on ``dense``: sharded within SHARD_TOL of unsharded on
     the same route (whole mamba2 within MOE_DRIFT x its controls' drift,
-    ``SERVE_DRIFT``), ``kernel`` within LOGIT_TOL of ``dense``; the chunk,
+    ``SERVE_DRIFT``, and in float64 on ``dense`` within F64_TOL,
+    ``f64_serving``), ``kernel`` within LOGIT_TOL of ``dense``; the chunk,
     decode and SSD launches counted from 0 around each sharded kernel
     run, exactly once per model shard, data shard and layer; each kernel
     held and timed on the recorded inputs of llama3-8b's (mamba2's for
@@ -5098,6 +5645,10 @@ def run_tp_serving(dev, card):
                     r[str(list(shape))] = res
                     del sparams
                     _free()
+                if arch in SERVE_DRIFT and layers is None:
+                    # the proof beside the controls' yardstick: float64
+                    r["float64"] = f64_serving(cfg, params, inp, dev,
+                                               meshes[0])
                 del params, plain
                 _free()
                 r["seconds"] = time.perf_counter() - t_case

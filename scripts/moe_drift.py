@@ -13,7 +13,12 @@ same init and batches), ``--steps`` AdamW steps on ``--device``:
 * ``one-step (d, m)`` (``--one-step``): before each step t, one sharded
   step from the plain run's state, held against the plain run's step t:
   the same function from the same state, so that only the order of the
-  fp32 sums differs.
+  fp32 sums differs;
+* ``replayed (d, m)`` (``--replay``): the sharded run on each shape of
+  ``--meshes`` handed the plain run's expert ids of each step
+  (chip_smoke.py's ``Routes.hand``, gates from its own probs), so that
+  the routing is the plain run's; also its router probs' worst gap to
+  the plain run's per step.
 
 For every run and step: the loss, its gap to the plain run's relative to
 it, and the routing flips, the tokens (summed over layers and
@@ -29,6 +34,8 @@ relative error of the step's grads, ||m - m'|| / ||m' - b1 m_prev||.
         --controls 3 --no-one-step
     PYTHONPATH=src python3 scripts/moe_drift.py --device cpu --controls 3
     PYTHONPATH=src python3 scripts/moe_drift.py --device cpu --tiny
+    PYTHONPATH=src python3 scripts/moe_drift.py --device cuda --layers 24 \\
+        --controls 0 --no-one-step --replay
 
 Prints one JSON line per run (the card's name and power limit first, on
 the card) and, with ``--out``, writes them to that file too.
@@ -110,11 +117,13 @@ def perturb(state, noise, seed, dev):
 
 
 def run(cfg, dev, routes, steps, shape=None, noise=0.0, seed=1,
-        snaps=None):
+        snaps=None, replay=None, taken=None):
     """``steps`` steps from the phase's init: (losses, per-step routing,
     final state); unsharded without ``shape``, the init perturbed where
     ``noise``; ``snaps``, a list, gets the unsharded state before each
-    step and after the last."""
+    step and after the last; ``replay``, another run's ``take_all`` per
+    step, is handed to the steps (``Routes.hand``); ``taken``, a list,
+    gets each step's ``take_all``."""
     state, opt, batch = CS._shard_setup(cfg, dev)
     if noise:
         perturb(state, noise, seed, dev)
@@ -128,13 +137,18 @@ def run(cfg, dev, routes, steps, shape=None, noise=0.0, seed=1,
                                   grad_specs=shs["opt"]["m"])
         dp = shape[0]
     losses, ids = [], []
-    routes.rec = []
+    routes.reset()
     for t in range(steps):
         if snaps is not None:
             snaps.append(CS._snapshot(state))
+        if replay is not None:
+            routes.hand(replay[t]["order"], dp)
         state, m = step(state, batch(t))
         losses.append(float(m["loss"]))
-        ids.append(routes.take(dp))
+        got = routes.take_all(dp)
+        ids.append(got["ids"])
+        if taken is not None:
+            taken.append(got)
     if snaps is not None:
         snaps.append(CS._snapshot(state))
     return losses, ids, state
@@ -148,7 +162,7 @@ def one_step(cfg, dev, routes, shape, snaps, t):
     state = TS.shard_state(trainable(snaps[t]), shs)
     step = TS.make_train_step(cfg, opt, accum=CS.TRAIN_ACCUM,
                               grad_specs=shs["opt"]["m"])
-    routes.rec = []
+    routes.reset()
     state, m = step(state, batch(t))
     return float(m["loss"]), routes.take(shape[0]), leaves(state)
 
@@ -161,6 +175,9 @@ def main():
     ap.add_argument("--controls", type=int, default=6)
     ap.add_argument("--meshes", default="4x1,2x2")
     ap.add_argument("--no-one-step", dest="one_step", action="store_false")
+    ap.add_argument("--replay", action="store_true",
+                    help="also the sharded runs replaying the plain run's "
+                    "expert ids")
     ap.add_argument("--tiny", action="store_true",
                     help="the tiny config (a check of the script)")
     ap.add_argument("--out", default=None)
@@ -185,19 +202,21 @@ def main():
     routes = CS.Routes()
     b1 = AdamWConfig().b1
     snaps = [] if args.one_step else None
-    base_l, base_ids, base = run(cfg, dev, routes, args.steps, snaps=snaps)
+    taken = []
+    base_l, base_ids, base = run(cfg, dev, routes, args.steps, snaps=snaps,
+                                 taken=taken)
     want = leaves(base)
     names = CS._leaf_names(base.params)
     del base
     emit(dict(run="plain", model=f"{cfg.name}/{cfg.num_layers}",
               device=str(dev), losses=base_l))
 
-    def versus(name, losses, ids, state):
+    def versus(name, losses, ids, state, **more):
         emit(dict(run=name, losses=losses,
                   loss_rel_gap=[abs(a - b) / abs(b)
                                 for a, b in zip(losses, base_l)],
                   flips=[CS.flips(a, b) for a, b in zip(ids, base_ids)],
-                  end=gaps(leaves(state), want)))
+                  end=gaps(leaves(state), want), **more))
 
     for s in range(1, args.controls + 1):
         versus(f"control {s}", *run(cfg, dev, routes, args.steps,
@@ -206,6 +225,16 @@ def main():
     for shape in meshes:
         versus(f"sharded {shape}", *run(cfg, dev, routes, args.steps,
                                         shape=shape))
+        CS._free()
+    for shape in meshes if args.replay else ():
+        got = []
+        res = run(cfg, dev, routes, args.steps, shape=shape, replay=taken,
+                  taken=got)
+        versus(f"replayed {shape}", *res, probs_worst_abs=[
+            max(float((a - b).abs().max()) for ma, mb in zip(
+                g["probs"], w["probs"]) for a, b in zip(ma, mb))
+            for g, w in zip(got, taken)])
+        del res
         CS._free()
     if args.one_step:
         plain = [leaves(s) for s in snaps]

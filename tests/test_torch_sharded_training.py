@@ -781,37 +781,60 @@ def test_chip_smoke_sharded_phase_rehearsal(monkeypatch):
     # phase 15 on the same tiny configs: llama3-8b/2 on (2, 4) against
     # phase 14's unsharded run, recurrentgemma-9b/3 on (1, 4) against an
     # unsharded run (its rglru blocks split), mamba2 cut to 2 layers and
-    # whole (4 tiny layers) on (2, 4) (its ssd blocks split) and
-    # granite-moe-1b cut to 2 layers and whole on (4, 1) and (2, 2),
-    # each beside its perturbed controls, at 2 layers also one sharded
-    # step from each unsharded state; on the host CPU at tiny size every
-    # run but mamba2's (AdamW's flips on its clipped grads) meets the
-    # strict standard too, and no step flips a route
+    # whole (4 tiny layers) on (2, 4) (its ssd blocks split) beside its
+    # perturbed controls, and in float64 at 2 layers on (2, 4) and (2, 1)
+    # and whole on (2, 4), and granite-moe-1b cut to 2 layers and whole
+    # on (4, 1) and (2, 2) (each but MOE_STRICT's run replaying the
+    # unsharded run's expert ids), beside its controls, at 2 layers also
+    # one sharded step from each unsharded state; on the host CPU at tiny
+    # size every run but mamba2's fp32 ones (AdamW's flips on its clipped
+    # grads) meets the strict standard too, and no step flips a route
     tp = cs.run_tp(CPU, "cpu", plain)
     g, m2 = "granite-moe-1b-tiny", "mamba2-tiny"
+    f64 = {f"{m2}/2 [2, 4] float64", f"{m2}/2 [2, 1] float64",
+           f"{m2}/4 [2, 4] float64"}
     assert set(tp) == {"llama3-8b/2", "recurrentgemma-9b-tiny/3 [1, 4]",
                        f"{m2}/2 [2, 4]", f"{m2}/4 [2, 4]",
                        f"{g}/2 unsharded", f"{g}/2 [4, 1]",
                        f"{g}/2 [2, 2]", f"{g}/4 unsharded", f"{g}/4 [4, 1]",
-                       f"{g}/4 [2, 2]", "seconds"}
+                       f"{g}/4 [2, 2]", "seconds"} | f64
+    for k in f64:
+        # the float64 gate: no exemption, the fixed standard at tiny size
+        r = tp[k]
+        assert r["ok"] and r["state_dtypes"] == ["torch.float64"]
+        assert r["gated"] == ["after 1", f"after {cs.SHARD_STEPS}"]
+        assert not r["made"] and r["backward_ops_seen"] > 0
+        for c in r["gated"]:
+            assert r[c]["ok"] and r[c]["tau"] == cs.F64_TOL
+            assert r[c]["loss_rel_gap"] <= cs.F64_TOL
+            assert all(not r[c][w]["beyond"] for w in ("params", "m", "v"))
     for k, r in tp.items():
-        if k != "seconds" and "mesh" in r:
-            controlled = k.startswith((g, m2))
-            assert r["coll_bytes_counted"] == r["coll_bytes_closed_form"]
-            assert r["position0_bytes"] == r["layout_bytes"]
-            assert (r["strict"] and r["loss_rel_gap"] <= cs.LOSS_RTOL) or \
-                k.startswith(m2)
-            assert ("control_loss_rel_gap" in r) == controlled
-            if controlled:
-                assert r["flips"] == ([0] * cs.SHARD_STEPS if k.startswith(g)
-                                      else [])
-                assert len(r["control_flips"]) == len(cs.MOE_SEEDS)
-            assert ("one_step" in r) == k.startswith((f"{g}/2 ", f"{m2}/2 "))
-            assert ("one_step_data_parallel" in r) == k.startswith(
-                f"{m2}/2 ")
-            for st in r.get("one_step", []) + \
-                    r.get("one_step_data_parallel", []):
-                assert st["flips"] == 0 and st["strict"]
+        if k in f64 or k == "seconds" or "mesh" not in r:
+            continue
+        controlled = k.startswith((g, m2))
+        assert r["coll_bytes_counted"] == r["coll_bytes_closed_form"]
+        assert r["position0_bytes"] == r["layout_bytes"]
+        assert (r["strict"] and r["loss_rel_gap"] <= cs.LOSS_RTOL) or \
+            k.startswith(m2)
+        assert ("control_loss_rel_gap" in r) == controlled
+        if controlled:
+            assert r["flips"] == ([0] * cs.SHARD_STEPS if k.startswith(g)
+                                  else [])
+            assert len(r["control_flips"]) == len(cs.MOE_SEEDS)
+        if k.startswith(g):
+            # every run but MOE_STRICT's replays, and is strict
+            layers, shape = int(k.split()[0].split("/")[1]), tuple(
+                r["mesh"])
+            assert r["replayed"] == ((layers, shape) not in cs.MOE_STRICT)
+            if r["replayed"]:
+                assert r["strict"] and r["after_1"]["strict"]
+                assert [p["outside"] for p in r["probs_vs_plain"]] == \
+                    [0] * cs.SHARD_STEPS
+        assert ("one_step" in r) == k.startswith((f"{g}/2 ", f"{m2}/2 "))
+        assert ("one_step_data_parallel" in r) == k.startswith(f"{m2}/2 ")
+        for st in r.get("one_step", []) + \
+                r.get("one_step_data_parallel", []):
+            assert st["flips"] == 0 and st["strict"]
     assert [st["step"] for st in tp[f"{g}/2 [2, 2]"]["one_step"]] == \
         list(range(1, cs.SHARD_STEPS + 1))
     assert len(tp[f"{g}/2 unsharded"]["controls"]) == len(cs.MOE_SEEDS)

@@ -707,6 +707,13 @@ def test_chip_smoke_tp_serving_rehearsal(monkeypatch):
         assert r["float32"]["err"] <= cs.TOL["float32"]
         assert r["float32"]["unsharded_ms"] == 1.0
     assert len(out["mamba2-tiny/4"]["controls"]) == len(cs.MOE_SEEDS)
+    # the whole model's float64 gate on (1, 4): every step's logits and
+    # cache leaves within F64_TOL of their scale, all float64, none fp32
+    f64 = out["mamba2-tiny/4"]["float64"]
+    assert f64["ok"] and f64["mesh"] == [1, 4]
+    assert f64["gap"]["ratio"] <= 1.0 and not f64["gap"]["beyond"]
+    assert f64["dtypes"] == ["torch.float64"]
+    assert f64["leaves"] == 3 * (1 + 2)     # 3 steps' logits, s and conv
     for name in ("llama3-8b-tiny/4", "recurrentgemma-9b-tiny/3",
                  "mamba2-tiny/2", "mamba2-tiny/4"):
         for key, res in out[name].items():

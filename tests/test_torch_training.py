@@ -218,6 +218,45 @@ def test_grads_match_reference(world):
     _assert_grads_mamba2(grads, ref, moved)
 
 
+def test_float64_step_matches_reference(world, monkeypatch):
+    """The port's loss and grads in float64 under chip_smoke.py's
+    ``Float64`` (the harness of its float64 gates, ROADMAP C10) from the
+    reference's params widened, against the reference's fp32 ``loss_fn``
+    and ``jax.grad`` on the same batch: the loss within LOSS_RTOL and the
+    grads at GRAD_TOL (rtol 1e-4, atol 1e-5; tiny mamba2 with the
+    allowance the fp32 port has, ``MAMBA_GRAD_SHARE`` and
+    ``MAMBA_GRAD_NORM``: the gap is the reference's fp32 rounding, which
+    its one-ulp test above shows moves past GRAD_TOL). The harness
+    changes the precision, not the function."""
+    monkeypatch.syspath_prepend(os.path.dirname(SRC))
+    import chip_smoke as cs
+    arch, cfg, jcfg, data, tree = world
+    batch = data.batch(0)
+    state = cs._f64_state(TS.state_from_jax(cfg, tree, "cpu"))
+    leaves = list(tree_leaves(state.params))
+    with cs.Float64():
+        loss, _ = TS.loss_fn(cfg, state.params, _tbatch(batch))
+        grads = torch.autograd.grad(loss, leaves)
+    assert loss.dtype == torch.float64
+    assert {g.dtype for g in grads} == {torch.float64}
+    jp = jax.tree.map(jnp.asarray, tree["params"])
+    jloss, _ = JS.loss_fn(jcfg, jp, _jbatch(batch))
+    np.testing.assert_allclose(float(loss.detach()), float(jloss),
+                               rtol=LOSS_RTOL)
+    ref = jax.tree.leaves(jax.grad(lambda p: JS.loss_fn(
+        jcfg, p, _jbatch(batch))[0])(jp))
+    if arch == "llama3-8b":
+        _assert_leaves(grads, ref, GRAD_TOL, "grads")
+        return
+    for i, (t, a) in enumerate(zip(grads, ref, strict=True)):
+        t, a = t.numpy(), np.asarray(a, np.float64)
+        share = (~np.isclose(t, a, **GRAD_TOL)).mean()
+        err = np.linalg.norm(t - a) / np.linalg.norm(a)
+        assert share <= MAMBA_GRAD_SHARE and err <= MAMBA_GRAD_NORM, (
+            f"grads leaf {i} {a.shape}: {share:.2%} outside the tolerance, "
+            f"error {err:.2e} of the leaf's norm")
+
+
 def test_labels_below_zero_are_masked(world):
     _arch, cfg, jcfg, data, tree = world
     batch = data.batch(1)
