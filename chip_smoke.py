@@ -167,23 +167,21 @@ Phases (each prints its own line; any failure raises and exits non-zero):
     data-parallel step on (data 2, model 1) beside it, each whole run
     within 4x the drift of three controls from inits perturbed by
     2^-20; granite-moe-1b-a400m at full width cut to 2 layers and
-    whole, 3 unsharded steps, 3 from each of three inits whose embedding
-    elements are scaled by 1 + 2^-20 N(0, 1) (the controls: top-k
-    routing is discontinuous, ``MOE_CONTROL``), then 3 on (data 4, model
-    1) (the MoE aux term from global means alone) and 3 on (data 2,
-    model 2) (experts and vocab split), the routing flips of every step
-    counted against the unsharded run's: the 2-layer run on (4, 1) within
-    the parity standard, the others replaying the unsharded run's expert
-    ids per data shard and layer (``Routes.hand``) and within it too,
-    their router probs as well, but granite whole (``MOE_LOOSE``), at 2
-    layers one sharded step from each
-    unsharded state within it wherever that step flips no route, every
-    run's loss gap and params outside the tolerance within 4x the
-    controls' most, its params within twice the summed lr; 8 x 512
-    tokens, accum 2; the counted collective bytes equal to the dry-run's
-    closed forms, mesh position 0's param / ``m`` / ``v`` bytes equal to
-    their layouts', each microbatch's aux printed beside the unsharded
-    one's; and mamba2-370m cut to 2 layers on (2, 4) and (2, 1) and
+    whole (24 layers, 1,385,481,216 params), 3 unsharded steps (each
+    state after a step kept on the host), then on (data 4, model 1) (the
+    MoE aux term from global means alone) and on (data 2, model 2)
+    (experts and vocab split) one sharded step from each unsharded
+    state replaying that step's expert ids per data shard and layer
+    (``Routes.hand``: top-k routing is discontinuous), every step within
+    the parity standard, the params but for elements whose grads sit
+    under 1e-6 (``FLIP_GRAD``, each listed), its own top-k's flips and
+    router probs logged; at 2 layers also the whole 3-step runs, on
+    (4, 1) free and on (2, 2) replaying, both within the standard; 8 x
+    512 tokens, accum 2; the counted collective bytes equal to the
+    dry-run's closed forms, mesh position 0's param / ``m`` / ``v``
+    bytes equal to their layouts', each microbatch's aux term > 0 and
+    printed beside the unsharded one's; and mamba2-370m cut to 2 layers
+    on (2, 4) and (2, 1) and
     whole on (2, 4) in float64 (``Float64``, which raises on any float32
     tensor made inside, the backward's too; ``f64_check``): its first
     sharded step from the same init and one from the unsharded state
@@ -236,7 +234,10 @@ Phases (each prints its own line; any failure raises and exits non-zero):
     512-token prefill into a 576-slot cache, the Cache-Craft step of 160
     active positions (30%) against it, 8 decode steps after it;
     llama3-8b at full width and depth on (1, 4) and (2, 2) (its kv heads
-    split with the q heads), recurrentgemma-9b at full width cut to its
+    split with the q heads), granite-moe-1b-a400m whole on the same
+    meshes (16/8 heads of 64 and its 32 experts split; every run but the
+    unsharded ``dense`` one replaying that run's expert ids, each run's
+    own top-k flips logged), recurrentgemma-9b at full width cut to its
     first group on (1, 4) (one kv head: the prefill cache split by D
     columns, the decode cache by sequence, attention reading them put
     together), mamba2-370m cut to 2 layers and whole on (1, 4)
@@ -247,13 +248,16 @@ Phases (each prints its own line; any failure raises and exits non-zero):
     perturbed by 2^-20, and in float64 on ``dense`` with the SSD's plain
     version, every element of the steps' logits, states and conv
     windows within 1e-9 of its leaf's largest magnitude,
-    ``f64_serving``), ``kernel`` within 2e-3 of ``dense`` (logits and
-    caches, allclose), the chunk,
+    ``f64_serving``; granite's ``kernel`` route held through ``dense``,
+    its own sharded vs unsharded gap reported, ``SPLIT_NOISE``),
+    ``kernel`` within 2e-3 of ``dense`` (logits and caches, allclose),
+    each sharded step's counted collective bytes
+    equal to the dry-run's ``serving_collective_bytes``, the chunk,
     decode and SSD launches counted from 0 around each sharded run and
     equal to one per layer, model shard and data shard; each kernel held
     and timed on the recorded inputs of its most frequent per-shard call
-    (llama3-8b's on (1, 4), mamba2's for SSD) beside the unsharded call
-    of that shape and SDPA on the shard's slice;
+    (llama3-8b's and granite's on (1, 4), mamba2's for SSD) beside the
+    unsharded call of that shape and SDPA on the shard's slice;
 19. bf16 serving (after phase 10's long prompt, the last use of
     llama3-8b's fp32 weights; TF32 off; ``run_bf16``): the weights rounded
     to bf16 values in place and copied to bf16 (48 GB of weights on the
@@ -3423,6 +3427,8 @@ def _free():
     import torch
     gc.collect()
     torch.cuda.empty_cache()
+    # and the page-locked host blocks PyTorch keeps for reuse
+    getattr(torch._C, "_host_emptyCache", lambda: None)()
 
 
 def _max_diff(a, b):
@@ -4058,23 +4064,59 @@ def _params_gap(names, got_leaves, want_leaves, extra=()):
     return worst, bad
 
 
-def _rounding_flips(got, want, got_v, want_v, lrs, b2, count) -> bool:
-    """Every element of the param leaves ``got`` outside PARAM_TOL of
-    ``want`` has sqrt(max(v) / bc2) < FLIP_GRAD in both runs' second
-    moments and lies within 2 x the summed lr (``FLIP_GRAD``)."""
+def _step_gap(names, sst, want, lr, b2, count, chunk=1 << 26):
+    """One sharded step's state ``sst`` against the unsharded step's
+    ``want`` (its leaves by tree, on any device), a leaf and ``chunk``
+    elements at a time on ``sst``'s device (the card holds both states
+    beside the state before the step): ``m`` and ``v`` within PARAM_TOL,
+    and the params within it but for ``FLIP_GRAD``'s elements (both
+    runs' grad rms, sqrt(v / bc2) after ``count`` steps, under
+    FLIP_GRAD, the gap within 2 x ``lr``). Returns per tree the worst
+    abs gap and the elements outside, the params' elements outside each
+    listed (up to LISTED a leaf) with both runs' values, ``m``, ``v``
+    and grad rms, and "ok"."""
     import torch
+
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.training.optimizer import tree_leaves
     bc2 = 1 - b2 ** count
-    for g, w, gv, wv in zip(got, want, got_v, want_v, strict=True):
-        g, w = g.detach(), w.detach().to(g.device)
-        bad = ~torch.isclose(g, w, **PARAM_TOL)
-        if not bad.any():
-            continue
-        rms = torch.sqrt(torch.maximum(gv.detach(), wv.detach().to(
-            g.device)) / bc2)[bad]
-        if (rms >= FLIP_GRAD).any() or \
-                ((g - w).abs()[bad] > 2 * sum(lrs)).any():
-            return False
-    return True
+    got = {k: list(tree_leaves(tr)) for k, tr in (
+        ("params", sst.params), ("m", sst.opt["m"]), ("v", sst.opt["v"]))}
+    out = {k: dict(worst_abs=0.0, outside=0, leaves=[]) for k in got}
+    elements, ok = [], True
+    for j, n in enumerate(names):
+        for k in ("m", "v", "params"):
+            g = SH.unshard(got[k][j]).detach().reshape(-1)
+            w = want[k][j].detach().to(g.device).reshape(-1)
+            bad = []
+            for i in range(0, g.numel(), chunk):
+                gc, wc = g[i:i + chunk], w[i:i + chunk]
+                out[k]["worst_abs"] = max(out[k]["worst_abs"],
+                                          float((gc - wc).abs().max()))
+                bad.append(i + torch.nonzero(~torch.isclose(
+                    gc, wc, **PARAM_TOL)).flatten())
+            bad = torch.cat(bad)
+            if not bad.numel():
+                continue
+            out[k]["outside"] += bad.numel()
+            out[k]["leaves"].append(n)
+            if k != "params":
+                ok = False
+                continue
+            at = {"params": (g[bad], w[bad])}
+            for a in ("m", "v"):
+                at[a] = (SH.unshard(got[a][j]).detach().reshape(-1)[bad],
+                         want[a][j].detach().to(g.device).reshape(-1)[bad])
+            rms = [torch.sqrt(x / bc2) for x in at["v"]]
+            flip = (torch.maximum(*rms) < FLIP_GRAD) & \
+                ((at["params"][0] - at["params"][1]).abs() <= 2 * lr)
+            ok = ok and bool(flip.all())
+            for e in range(min(bad.numel(), LISTED)):
+                elements.append(dict(
+                    leaf=n, index=int(bad[e]), flip=bool(flip[e]),
+                    **{a: [float(x[e]) for x in at[a]] for a in at},
+                    grad_rms=[float(r[e]) for r in rms]))
+    return dict(out, elements=elements, ok=ok)
 
 
 def _flips_only(bad, lrs) -> bool:
@@ -4314,19 +4356,20 @@ MOE_MESHES = ((4, 1), (2, 2))
 # fp32 sums breaks the other way sends a token to other experts (a
 # routing flip, ``Routes``); the change spreads through attention and,
 # through AdamW's step (about lr whatever a grad's size), into the next
-# steps. The unsharded step itself drifts so from an init whose
-# embedding elements are scaled by 1 + MOE_CONTROL x N(0, 1), the noise
-# drawn with each seed of MOE_SEEDS (the controls; PERF.md §6). So
-# granite, at full width cut to MOE_CUT layers and whole, is held:
-# * over the whole run to the parity standard where MOE_STRICT names
-#   the run (no step of it flipped a route on the H100);
-# * at MOE_CUT layers step by step: one sharded step from the unsharded
-#   run's state before each of its steps, to the parity standard
-#   wherever that step flips no route;
-# * over the whole run on every mesh: its loss gap and its params
-#   outside PARAM_TOL within MOE_DRIFT x the most of the controls' (or
-#   within the parity standard), its params within twice the summed lr
+# steps. So granite's sharded steps replay the unsharded run's expert
+# ids (``Routes.hand``, ROADMAP A21), which makes the routing the
+# unsharded run's and the function continuous in the params, and granite,
+# at full width cut to MOE_CUT layers and whole, is held to the parity
+# standard by one sharded step from each unsharded state
+# (``_stepwise``): a step from a common state decides the split,
+# where a free run over several steps feeds AdamW's steps on grads near
+# eps back through the layers (PERF.md §6). At MOE_CUT layers
+# the whole runs stay beside it, strict too: on (4, 1) free (MOE_STRICT:
+# no step of it flipped a route on the H100), on (2, 2) replayed.
 MOE_CUT = 2
+# mamba2's controls: unsharded runs from an init whose embedding
+# elements are scaled by 1 + MOE_CONTROL x N(0, 1), the noise drawn with
+# each seed of MOE_SEEDS
 MOE_CONTROL = 2.0 ** -20
 # the recurrent blocks split over "model" (rnn 4096 and 32 SSD heads of
 # 64 divide 4): (arch, layers or None for all, mesh). recurrentgemma-9b
@@ -4337,23 +4380,20 @@ MOE_CONTROL = 2.0 ** -20
 # (the init's norm is ~1e5) leave many elements where AdamW's step turns
 # on a near-cancelling sum (``FLIP_GRAD``), and the 48 random layers
 # amplify rounding (the first forward's loss moves 2e-5 at 48 layers,
-# none at 2; PERF.md §6). So it is held as granite is: at MOE_CUT layers
-# one sharded step from each unsharded state to the parity standard
-# (with FLIP_GRAD's allowance), and at 2 and 48 layers the free-running
-# run within MOE_DRIFT x the most of the MOE_SEEDS controls' drift
+# none at 2; PERF.md §6). So it is held at MOE_CUT layers by one sharded
+# step from each unsharded state to the parity standard (with
+# FLIP_GRAD's allowance), and at 2 and 48 layers the free-running run
+# within MOE_DRIFT x the most of the MOE_SEEDS controls' drift (and in
+# float64, F64_TP)
 RECURRENT_TP = (("recurrentgemma-9b", 3, (1, 4)),
                 ("mamba2-370m", MOE_CUT, (2, 4)),
                 ("mamba2-370m", None, (2, 4)))
 MOE_SEEDS = (1, 2, 3)
 MOE_STRICT = {(MOE_CUT, (4, 1))}
 MOE_DRIFT = 4.0
-# The runs MOE_STRICT does not name replay the unsharded run's expert ids
-# (``Routes.hand``, ROADMAP A21) and are held to the parity standard, but
-# for those named here: granite-moe-1b-a400m whole (24 layers) on both
-# meshes missed it replayed on the H100 (AdamW's steps on near-tied
-# elements; PERF.md §6), so they are held, as their free-running
-# runs were, within MOE_DRIFT x the controls
-MOE_LOOSE = {(24, (4, 1)), (24, (2, 2))}
+# the elements of a leaf outside the tolerance that a gate lists one by
+# one (the count is always whole)
+LISTED = 256
 # The proof that the split is the unsharded function (ROADMAP C10): the
 # same steps in float64 (``Float64``), sharded against unsharded. A gap
 # that a reordering of the sums makes scales with the unit roundoff,
@@ -4595,56 +4635,14 @@ def _snapshot(state):
                               "count": state.opt["count"].clone()})
 
 
-def _plain_run(cfg, dev, routes=None, noise=0.0, seed=1, snaps=False,
-               keep1=False):
+def _plain_run(cfg, dev, routes=None, noise=0.0, seed=1):
     """``SHARD_STEPS`` unsharded steps of ``cfg`` from ``_shard_setup``'s
     init, each embedding element scaled by 1 + ``noise`` x N(0, 1) (the
     noise drawn with ``seed``) where ``noise`` is given: ``_host_state``
     (of such a control, its params alone, left on ``dev``) and the run's
-    figures; with ``routes`` each step's routing ("ids";
-    of an unperturbed run also "order" and "probs", ``Routes.take_all``),
-    with ``snaps`` copies on ``dev`` of the state before each step and
-    after the last ("snaps"), with ``keep1`` ``_host_state`` after the
-    first step, on ``dev`` ("after1")."""
-    import torch
-
-    from repro_torch.training import steps as TS
-    _reset_peak(dev)
-    state, opt, batch = _shard_setup(cfg, dev)
-    if noise:
-        e = state.params["embed"]
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-        with torch.no_grad():
-            e.mul_(1 + noise * torch.randn(e.shape, generator=gen,
-                                           device=e.device))
-    aux = [] if cfg.num_experts else None
-    step = TS.make_train_step(cfg, opt, accum=TRAIN_ACCUM)
-    out = dict(ids=[], order=[], probs=[], snaps=[] if snaps else None,
-               losses=[], ms=[], lrs=[])
-    if routes is not None:
-        routes.reset()
-    for t in range(SHARD_STEPS):
-        if snaps:
-            out["snaps"].append(_snapshot(state))
-        state, loss, ms, lrs = _steps(step, state, batch, dev, first=t, n=1,
-                                      auxes=aux)
-        for k, v in (("losses", loss), ("ms", ms), ("lrs", lrs)):
-            out[k] += v
-        if keep1 and not t:
-            out["after1"] = _host_state(state, where=dev)
-        if routes is not None:
-            got = routes.take_all(1)
-            out["ids"].append(got["ids"])
-            if not noise:
-                out["order"].append(got["order"])
-                out["probs"].append(got["probs"])
-    if snaps:
-        out["snaps"].append(_snapshot(state))
-    # a control's params stay on the card, where ``_drift`` compares them
-    keep = ("params",) if noise else ("params", "m", "v")
-    return dict(out, **_host_state(state, keep, where=dev if noise
-                                   else "cpu"), peak=_peak(dev), aux=aux)
+    figures; with ``routes`` each step's routing ("ids", "order" and
+    "probs", ``Routes.take_all``)."""
+    return _stepwise(cfg, dev, (), routes, noise, seed)[0]
 
 
 def _drift(run, plain):
@@ -4678,6 +4676,34 @@ class _Unsharded:
         return SH.unshard(self.leaves[j])
 
 
+def _probs_gap(got, want):
+    """Two steps' router probs (``Routes.take_all``'s "probs"): the worst
+    abs gap and the elements outside PARAM_TOL."""
+    import torch
+    pairs = [(g, w) for gm, wm in zip(got, want, strict=True)
+             for g, w in zip(gm, wm, strict=True)]
+    return dict(worst_abs=max(float((g - w).abs().max()) for g, w in pairs),
+                outside=sum(int((~torch.isclose(g, w, **PARAM_TOL)).sum())
+                            for g, w in pairs))
+
+
+def _position0(sst):
+    """The bytes mesh position 0 holds of a sharded state's params, ``m``
+    and ``v``, and those their layouts' ``shard_bytes`` give it."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.training.optimizer import tree_leaves
+    trees = {"params": sst.params, "m": sst.opt["m"], "v": sst.opt["v"]}
+    held, layout = {}, {}
+    for k, tr in trees.items():
+        leaves = list(tree_leaves(tr))
+        pos = (0,) * leaves[0].shards.ndim
+        held[k] = sum(x.shards[pos].numel() * x.shards[pos].element_size()
+                      for x in leaves)
+        layout[k] = sum(SH.shard_bytes(x.shape, x.dtype, x.sharding)
+                        for x in leaves)
+    return held, layout
+
+
 def tp_check(cfg, dev, shape, plain, routes=None, controls=None,
              replay=False):
     """``SHARD_STEPS`` steps of ``cfg`` on a ``shape`` (data, model) mesh
@@ -4688,16 +4714,13 @@ def tp_check(cfg, dev, shape, plain, routes=None, controls=None,
     ``tp_collective_bytes`` plus ``zero1_collective_bytes``, and what
     mesh position 0 holds of params, ``m`` and ``v`` equal to their
     layouts' ``shard_bytes``. With ``controls`` (``_drift``s of unsharded
-    runs from perturbed inits, for a config with experts) the run's
-    routing flips per step against ``plain`` (``routes``), and the
-    parity standard only where ``MOE_STRICT`` names the run; else its
-    loss gap and params outside PARAM_TOL within ``MOE_DRIFT`` x the
-    controls' most, its params within twice the summed lr. With
-    ``replay`` each step replays ``plain``'s expert ids (``Routes.hand``)
-    and the run is held to the parity standard, its router probs within
-    PARAM_TOL of ``plain``'s too; its own top-k's flips are logged per
-    step, and where ``plain`` has "after1" its state after the first step
-    against that ("after_1")."""
+    runs from perturbed inits) the parity standard is logged, and the
+    run is held to its loss gap and params outside PARAM_TOL within
+    ``MOE_DRIFT`` x the controls' most, its params within twice the
+    summed lr. With ``routes`` the run's routing flips per step against
+    ``plain``'s; with ``replay`` too each step replays ``plain``'s expert
+    ids (``Routes.hand``), its router probs held within PARAM_TOL of
+    ``plain``'s."""
     import numpy as np
     import torch
 
@@ -4718,8 +4741,7 @@ def tp_check(cfg, dev, shape, plain, routes=None, controls=None,
                               grad_specs=shs["opt"]["m"])
     CO.reset_bytes()
     aux = [] if cfg.num_experts else None
-    losses, ms, lrs, ids = [], [], [], []
-    probs, after1 = [], None
+    losses, ms, lrs, ids, probs = [], [], [], [], []
     if routes is not None:
         routes.reset()
     for t in range(SHARD_STEPS):
@@ -4732,44 +4754,17 @@ def tp_check(cfg, dev, shape, plain, routes=None, controls=None,
             got = routes.take_all(shape[0])
             ids.append(got["ids"])
             if replay:
-                pairs = [(g, w) for gm, wm in zip(got["probs"],
-                                                  plain["probs"][t],
-                                                  strict=True)
-                         for g, w in zip(gm, wm, strict=True)]
-                probs.append(dict(
-                    worst_abs=max(float((g - w).abs().max())
-                                  for g, w in pairs),
-                    outside=sum(int((~torch.isclose(g, w, **PARAM_TOL))
-                                    .sum()) for g, w in pairs)))
-        if not t and "after1" in plain:
-            un = {k: _Unsharded(list(tree_leaves(tr))) for k, tr in (
-                ("params", sst.params), ("m", sst.opt["m"]),
-                ("v", sst.opt["v"]))}
-            first = {k: _params_gap(plain["names"], un[k],
-                                    plain["after1"][k])
-                     for k in ("params", "m", "v")}
-            after1 = dict(loss_rel_gap=abs(loss[0] - plain["losses"][0])
-                          / abs(plain["losses"][0]), strict=_flips_only(
-                              first["params"][1], lr) and not first["m"][1]
-                          and not first["v"][1], **{
-                              k: dict(worst_abs=w, outside=sum(
-                                  b["outside"] for b in bad))
-                              for k, (w, bad) in first.items()})
-            del un, first
+                probs.append(_probs_gap(got["probs"], plain["probs"][t]))
     peak = _peak(dev)
     counted = dict(CO.BYTES)
     z = dryrun.zero1_collective_bytes(cfg, mesh, TRAIN_ACCUM)
     t = dryrun.tp_collective_bytes(cfg, mesh, TRAIN_ACCUM, SHARD_BATCH,
                                    SHARD_SEQ)
     closed = {k: SHARD_STEPS * (z[k] + t[k]) for k in z}
-    trees = {"params": sst.params, "m": sst.opt["m"], "v": sst.opt["v"]}
-    pos = (0,) * len(shape)
-    held = {k: sum(x.shards[pos].numel() * x.shards[pos].element_size()
-                   for x in tree_leaves(tr)) for k, tr in trees.items()}
-    layout = {k: sum(SH.shard_bytes(x.shape, x.dtype, x.sharding)
-                     for x in tree_leaves(tr)) for k, tr in trees.items()}
-    un = {k: _Unsharded(list(tree_leaves(tr))) for k, tr in trees.items()}
-    del sst, step, trees
+    held, layout = _position0(sst)
+    un = {k: _Unsharded(list(tree_leaves(tr))) for k, tr in (
+        ("params", sst.params), ("m", sst.opt["m"]), ("v", sst.opt["v"]))}
+    del sst, step
     worst, bad = _params_gap(plain["names"], un["params"], plain["params"],
                              extra=[(un["v"], plain["v"])])
     moments = {k: _params_gap(plain["names"], un[k], plain[k])
@@ -4798,17 +4793,12 @@ def tp_check(cfg, dev, shape, plain, routes=None, controls=None,
         out.update(aux_plain=plain["aux"], aux_sharded=aux,
                    aux_rel_gap=float(np.max(np.abs(np.array(aux) - np.array(
                        plain["aux"])) / np.abs(plain["aux"]))))
-    key = (cfg.num_layers, tuple(shape))
-    need_strict = controls is None or key in MOE_STRICT or \
-        (replay and key not in MOE_LOOSE)
     if routes is not None or controls is not None:
         out["flips"] = [flips(a, b) for a, b in zip(ids, plain["ids"])]
     if routes is not None:
         out["replayed"] = replay
         if replay:
             out["probs_vs_plain"] = probs       # per step
-        if after1 is not None:
-            out["after_1"] = after1
     if controls is not None:
         out["control_loss_rel_gap"] = max(c["loss_rel_gap"]
                                           for c in controls)
@@ -4817,7 +4807,7 @@ def tp_check(cfg, dev, shape, plain, routes=None, controls=None,
         out["control_flips"] = [c["flips"] for c in controls]
     log(f"tensor-parallel {out['model']} on a (data {shape[0]}, model "
         f"{shape[1]}) mesh: " + json.dumps(out))
-    if need_strict and not strict:
+    if controls is None and not strict:
         raise RuntimeError(
             f"tp {shape}: loss gap {rel:.3e}, leaves outside {PARAM_TOL}: "
             f"params {bad}, m {moments['m'][1]}, v {moments['v'][1]}"
@@ -4844,66 +4834,204 @@ def tp_check(cfg, dev, shape, plain, routes=None, controls=None,
     return out
 
 
-def one_step_check(cfg, dev, shape, plain, routes, flip_grad=False):
-    """Before each of the unsharded run's steps, one sharded step on a
-    ``shape`` mesh from the unsharded state (``plain["snaps"]``) on the
-    same batch: per step its routing flips (with ``routes``; a config
-    without experts flips none), loss gap, ``m`` / ``v`` and params
-    against the unsharded step's; to the parity standard ("strict")
-    wherever the step flips no route, its params with ``FLIP_GRAD``'s
-    allowance in place of ``FLIP_SHARE``'s where ``flip_grad``."""
-    from repro_torch.distributed import sharding as SH
+def _stepwise(cfg, dev, shapes, routes=None, noise=0.0, seed=1):
+    """``SHARD_STEPS`` unsharded steps of ``cfg`` (``_plain_run``), and
+    after each, on each (data, model) mesh of ``shapes``, one sharded
+    step from the unsharded state before it on the same batch, held
+    against the unsharded step (``_one_step``), which stays on the card
+    for them: the state before the step waits on the host (a full-width
+    state, the step and the state after it do not fit the card
+    together), in page-locked memory on the card's host, and goes back
+    to the card for each mesh's step. Returns (the unsharded run, as
+    ``_plain_run`` gives it, its state left on ``dev`` where ``shapes``
+    are given; {shape: the sharded steps' rows}). Logs each mesh's
+    steps, then raises on a miss."""
+    import torch
+
+    from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.training import steps as TS
     from repro_torch.training.optimizer import tree_leaves
-
-    mesh = make_debug_mesh(shape, device=dev)
-    shs = TS.train_shardings(cfg, mesh)
-    _, opt, batch = _shard_setup(cfg, dev)
-    per = []
+    _reset_peak(dev)
+    state, opt, batch = _shard_setup(cfg, dev)
+    if noise:
+        e = state.params["embed"]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        with torch.no_grad():
+            e.mul_(1 + noise * torch.randn(e.shape, generator=gen,
+                                           device=e.device))
+    aux = [] if cfg.num_experts else None
+    step = TS.make_train_step(cfg, opt, accum=TRAIN_ACCUM)
+    out = dict(ids=[], order=[], probs=[], losses=[], ms=[], lrs=[])
+    meshes = {}
+    for shape in shapes:
+        mesh = make_debug_mesh(shape, device=dev)
+        z = dryrun.zero1_collective_bytes(cfg, mesh, TRAIN_ACCUM)
+        tp = dryrun.tp_collective_bytes(cfg, mesh, TRAIN_ACCUM,
+                                        SHARD_BATCH, SHARD_SEQ)
+        meshes[shape] = (TS.train_shardings(cfg, mesh),
+                         {k: z[k] + tp[k] for k in z})
+    per, missed = {shape: [] for shape in shapes}, []
+    peak, host = 0, None
+    if routes is not None:
+        routes.reset()
     for t in range(SHARD_STEPS):
-        start = _snapshot(plain["snaps"][t])
-        for x in tree_leaves(start.params):
-            x.requires_grad_(True)
-        sst = TS.shard_state(start, shs)
-        del start
-        step = TS.make_train_step(cfg, opt, accum=TRAIN_ACCUM,
-                                  grad_specs=shs["opt"]["m"])
+        if shapes:
+            host = _to_host(state, host)
+        _reset_peak(dev)
+        state, loss, ms, lrs = _steps(step, state, batch, dev, first=t, n=1,
+                                      auxes=aux)
+        peak = max(peak, _peak(dev) or 0)
+        for k, v in (("losses", loss), ("ms", ms), ("lrs", lrs)):
+            out[k] += v
+        plain = dict(losses=loss)
         if routes is not None:
-            routes.reset()
-        sst, loss, _, lrs = _steps(step, sst, batch, dev, first=t, n=1)
-        f = 0 if routes is None else flips(routes.take(shape[0]),
-                                           plain["ids"][t])
-        want = plain["snaps"][t + 1]
-        pairs = {k: ([SH.unshard(x) for x in tree_leaves(g)],
-                     list(tree_leaves(w)))
-                 for k, g, w in (("params", sst.params, want.params),
-                                 ("m", sst.opt["m"], want.opt["m"]),
-                                 ("v", sst.opt["v"], want.opt["v"]))}
-        gap = {k: _params_gap(plain["names"], *pw) for k, pw in pairs.items()}
-        del sst, step
-        rel = abs(loss[0] - plain["losses"][t]) / abs(plain["losses"][t])
-        params_ok = _rounding_flips(*pairs["params"], *pairs["v"], lrs,
-                                    opt.b2, t + 1) if flip_grad else \
-            _flips_only(gap["params"][1], lrs)
-        del pairs
-        strict = rel <= LOSS_RTOL and params_ok and not gap["m"][1] and \
-            not gap["v"][1]
-        per.append(dict(step=t + 1, flips=f, loss_rel_gap=rel,
-                        params_worst_abs=gap["params"][0],
-                        params_outside=sum(b["outside"]
-                                           for b in gap["params"][1]),
-                        m_worst_abs=gap["m"][0], v_worst_abs=gap["v"][0],
-                        strict=strict))
-        if not f and not strict:
-            raise RuntimeError(
-                f"one step on {shape} from the unsharded state before step "
-                f"{t + 1}: no route flipped, yet loss gap {rel:.3e}, "
-                f"leaves outside {PARAM_TOL}: params {gap['params'][1]}, "
-                f"m {gap['m'][1]}, v {gap['v'][1]}")
-    log(f"one sharded step from the unsharded state, {cfg.name}/"
-        f"{cfg.num_layers} on {list(shape)}: " + json.dumps(per))
-    return per
+            got = routes.take_all(1)
+            for k in ("ids", "order", "probs"):
+                out[k].append(got[k])
+                plain[k] = got[k]
+        want = {k: list(tree_leaves(x)) for k, x in (
+            ("params", state.params), ("m", state.opt["m"]),
+            ("v", state.opt["v"]))}
+        for shape in shapes:
+            row, miss = _one_step(cfg, dev, shape, meshes[shape],
+                                  _host_start(cfg, host, t, dev), want,
+                                  plain, t, opt, batch, routes)
+            per[shape].append(row)
+            missed += [f"{list(shape)} {m}" for m in miss]
+        del want
+    del host
+    _free()
+    for shape in shapes:
+        log(f"one sharded step from the unsharded state, {cfg.name}/"
+            f"{cfg.num_layers} on {list(shape)}"
+            + (" replaying its expert ids" if routes is not None else "")
+            + f" (closed-form bytes a step {json.dumps(meshes[shape][1])})"
+            + ": " + json.dumps(per[shape]))
+    if missed:
+        raise RuntimeError("one sharded step from the unsharded state: "
+                           + "; ".join(missed))
+    if noise or shapes:
+        # left on the card: a control's params, where ``_drift`` compares
+        # them, and a stepwise run's state (at the cut depth alone read
+        # again)
+        trees = {"params": state.params, "m": state.opt["m"],
+                 "v": state.opt["v"]}
+        final = dict(names=_leaf_names(state.params), **{
+            k: list(tree_leaves(trees[k]))
+            for k in (("params",) if noise else trees)})
+    else:
+        final = _host_state(state)
+    return dict(out, **final, peak=peak or None, aux=aux), per
+
+
+def _to_host(state, bufs=None):
+    """A state's params, ``m`` and ``v`` copied into ``bufs`` ({tree:
+    host tensors}, made on the first call, page-locked for a state on
+    the card) and returned."""
+    import torch
+
+    from repro_torch.training.optimizer import tree_leaves
+    trees = {"params": state.params, "m": state.opt["m"],
+             "v": state.opt["v"]}
+    if bufs is None:
+        bufs = {k: [torch.empty(x.shape, dtype=x.dtype,
+                                pin_memory=x.is_cuda)
+                    for x in tree_leaves(tr)] for k, tr in trees.items()}
+    for k, tr in trees.items():
+        for b, x in zip(bufs[k], tree_leaves(tr), strict=True):
+            b.copy_(x.detach())
+    return bufs
+
+
+def _host_start(cfg, host, t, dev):
+    """The unsharded state after ``t`` steps, copied to ``dev`` from
+    ``host`` (``_to_host``), the params taking grads."""
+    import torch
+
+    from repro_torch.training import steps as TS
+    count = torch.tensor(t, dtype=torch.int32, device=dev)
+
+    def tree(k, grad=False):
+        return _tree_like(cfg, [x.to(dev, copy=True) for x in host[k]], dev,
+                          grad)
+    return TS.TrainState(step=count.clone(), params=tree("params", True),
+                         opt={"m": tree("m"), "v": tree("v"),
+                              "count": count})
+
+
+def _one_step(cfg, dev, shape, mesh, start, want, plain, t, opt, batch,
+              routes):
+    """One sharded step of ``cfg`` on a ``shape`` (data, model) mesh
+    (``mesh``: its train shardings and one step's closed-form collective
+    bytes) from the unsharded state ``start`` (taken) on batch ``t``,
+    against the unsharded step's state ``want`` (its leaves by tree) and
+    figures ``plain``, with ``routes`` replaying that step's expert ids
+    (``Routes.hand``; its own top-k's flips and its router probs against
+    the unsharded step's logged). Held to the parity standard
+    ("strict"): its loss within LOSS_RTOL, ``m`` and ``v`` within
+    PARAM_TOL and the params but for ``FLIP_GRAD``'s elements
+    (``_step_gap``, which lists them); its counted collective bytes equal
+    to the closed form, what mesh position 0 holds to the layouts'
+    ``shard_bytes``, every microbatch's MoE aux term > 0; its peak
+    logged. Returns (its row, what it missed)."""
+    from repro_torch.distributed import collectives as CO
+    from repro_torch.training import steps as TS
+    t0 = time.perf_counter()
+    shs, closed = mesh
+    sst = TS.shard_state(start, shs)
+    del start
+    _reset_peak(dev)
+    step = TS.make_train_step(cfg, opt, accum=TRAIN_ACCUM,
+                              grad_specs=shs["opt"]["m"])
+    if routes is not None:
+        routes.hand(plain["order"], shape[0])
+    aux = [] if cfg.num_experts else None
+    CO.reset_bytes()
+    sst, loss, ms, lrs = _steps(step, sst, batch, dev, first=t, n=1,
+                                auxes=aux)
+    counted = dict(CO.BYTES)
+    peak = _peak(dev)
+    row = dict(step=t + 1)
+    if routes is not None:
+        got = routes.take_all(shape[0])
+        row.update(flips=flips(got["ids"], plain["ids"]),
+                   probs_vs_plain=_probs_gap(got["probs"], plain["probs"]))
+    held, layout = _position0(sst)
+    del step
+    gap = _step_gap(_leaf_names(sst.params), sst, want, lrs[0], opt.b2,
+                    t + 1)
+    del sst
+    rel = abs(loss[0] - plain["losses"][0]) / abs(plain["losses"][0])
+    strict = rel <= LOSS_RTOL and gap["ok"]
+    row.update(loss_rel_gap=rel, strict=strict,
+               **{f"{k}_worst_abs": gap[k]["worst_abs"]
+                  for k in ("params", "m", "v")},
+               **{f"{k}_outside": gap[k]["outside"]
+                  for k in ("params", "m", "v")},
+               outside_leaves={k: gap[k]["leaves"]
+                               for k in ("params", "m", "v")},
+               params_outside_elements=gap["elements"],
+               flip_bound=2 * lrs[0], aux=aux, step_ms=ms[0],
+               peak_gb=peak and peak / 1e9, coll_bytes_counted=counted,
+               position0_bytes=held, layout_bytes=layout,
+               seconds=time.perf_counter() - t0)
+    missed = []
+    if not strict:
+        missed.append(f"step {t + 1}: loss gap {rel:.3e}, outside "
+                      f"{PARAM_TOL}: params {gap['params']['outside']} (all "
+                      f"FLIP_GRAD's: {gap['ok']}), m {gap['m']['outside']},"
+                      f" v {gap['v']['outside']}")
+    if counted != closed:
+        missed.append(f"step {t + 1}: counted collective bytes {counted} "
+                      f"!= the closed form {closed}")
+    if held != layout:
+        missed.append(f"step {t + 1}: position 0 holds {held}, the layouts "
+                      f"{layout}")
+    if aux is not None and not all(a > 0 for s in aux for a in s):
+        missed.append(f"step {t + 1}: aux {aux}")
+    return row, missed
 
 
 def _f64_state(state):
@@ -5133,19 +5261,52 @@ def _tree_like(cfg, leaves, dev, grad=False):
                                    for x in leaves])
 
 
+def moe_tp(dev):
+    """Phase 15's granite-moe-1b-a400m at full width, cut to ``MOE_CUT``
+    layers and then whole: ``SHARD_STEPS`` unsharded steps (each state
+    after a step on the host), then on each of ``MOE_MESHES`` one
+    sharded step from each unsharded state replaying its expert ids
+    (``_stepwise``), at ``MOE_CUT`` layers also the whole sharded
+    run (``tp_check``; ``MOE_STRICT``'s free, the other replaying)."""
+    from repro_torch.configs import get_config
+    out = {}
+    granite = get_config("granite-moe-1b-a400m")
+    routes = Routes()
+    try:
+        for cfg in (granite.replace(num_layers=MOE_CUT), granite):
+            t_case = time.perf_counter()
+            name = f"{cfg.name}/{cfg.num_layers}"
+            base, steps = _stepwise(cfg, dev, MOE_MESHES, routes)
+            one = {shape: sum(st["seconds"] for st in steps[shape])
+                   for shape in MOE_MESHES}
+            out[f"{name} unsharded"] = dict(
+                losses=base["losses"], aux=base["aux"], step_ms=base["ms"],
+                peak_gb=base["peak"] and base["peak"] / 1e9,
+                seconds=time.perf_counter() - t_case - sum(one.values()))
+            for shape in MOE_MESHES:
+                t_case = time.perf_counter()
+                # the whole runs at the cut depth alone
+                r = tp_check(cfg, dev, shape, base, routes, replay=(
+                    cfg.num_layers, shape) not in MOE_STRICT) \
+                    if cfg.num_layers == MOE_CUT else {}
+                r["one_step"] = steps[shape]
+                r["seconds"] = time.perf_counter() - t_case + one[shape]
+                out[f"{name} {list(shape)}"] = r
+            del base, steps
+            _free()
+    finally:
+        routes.close()
+    return out
+
+
 def run_tp(dev, card, plain):
     """Phase 15: llama3-8b/2 on (data 2, model 4) against phase 14's
     unsharded steps (``plain``, emptied afterwards); the recurrent blocks
     split over "model" (``RECURRENT_TP``) against unsharded runs,
     mamba2-370m also against its controls and, cut, step by step on its
     mesh and on (data 2, model 1), and in float64 (``F64_TP``,
-    ``f64_check``); granite-moe-1b-a400m
-    at full width, cut to ``MOE_CUT`` layers and then whole, unsharded,
-    its controls (``MOE_CONTROL``, ``MOE_SEEDS``), and on (data 4, model
-    1) and (data 2, model 2), 8 x 512 tokens, accum 2, ``SHARD_STEPS``
-    steps each (``tp_check``; but for ``MOE_STRICT``'s run, replaying
-    the unsharded run's expert ids), at ``MOE_CUT`` layers also one
-    sharded step from each unsharded state (``one_step_check``)."""
+    ``f64_check``); granite-moe-1b-a400m on (data 4, model 1) and (data
+    2, model 2) (``moe_tp``); 8 x 512 tokens, accum 2."""
     from repro_torch.configs import get_config
     t_phase = time.perf_counter()
     llama2 = get_config("llama3-8b").replace(num_layers=2)
@@ -5157,19 +5318,19 @@ def run_tp(dev, card, plain):
         cfg = cfg.replace(num_layers=layers or cfg.num_layers)
         drifts = cfg.family == "ssm"
         cut = drifts and cfg.num_layers == MOE_CUT
-        base = _plain_run(cfg, dev, snaps=cut)
+        # at the cut depth one sharded step from each unsharded state, and
+        # the data-parallel step alone beside it, which meets the same
+        # allowance
+        base, steps = _stepwise(cfg, dev, (shape, (shape[0], 1)) if cut
+                                else ())
         ctl = [_drift(_plain_run(cfg, dev, noise=MOE_CONTROL, seed=s), base)
                for s in MOE_SEEDS] if drifts else None
         r = tp_check(cfg, dev, shape, base, controls=ctl)
         if drifts:
             r["controls"] = ctl
         if cut:
-            # and the data-parallel step alone beside it, which meets the
-            # same allowance
-            r["one_step"] = one_step_check(cfg, dev, shape, base, None,
-                                           flip_grad=True)
-            r["one_step_data_parallel"] = one_step_check(
-                cfg, dev, (shape[0], 1), base, None, flip_grad=True)
+            r["one_step"] = steps[shape]
+            r["one_step_data_parallel"] = steps[(shape[0], 1)]
         del base
         _free()
         r["seconds"] = time.perf_counter() - t_case
@@ -5181,30 +5342,7 @@ def run_tp(dev, card, plain):
         out[f"{cfg.name}/{cfg.num_layers} {list(shape)} float64"] = \
             f64_check(cfg, dev, shape, free=layers is not None)
         _free()
-    granite = get_config("granite-moe-1b-a400m")
-    routes = Routes()
-    try:
-        for cfg in (granite.replace(num_layers=MOE_CUT), granite):
-            cut = cfg.num_layers == MOE_CUT
-            name = f"{cfg.name}/{cfg.num_layers}"
-            base = _plain_run(cfg, dev, routes, snaps=cut, keep1=True)
-            ctl = [_drift(_plain_run(cfg, dev, routes, MOE_CONTROL, seed=s),
-                          base) for s in MOE_SEEDS]
-            _free()
-            out[f"{name} unsharded"] = dict(
-                losses=base["losses"], aux=base["aux"], step_ms=base["ms"],
-                peak_gb=base["peak"] and base["peak"] / 1e9, controls=ctl)
-            for shape in MOE_MESHES:
-                r = tp_check(cfg, dev, shape, base, routes, ctl, replay=(
-                    cfg.num_layers, shape) not in MOE_STRICT)
-                if cut:
-                    r["one_step"] = one_step_check(cfg, dev, shape, base,
-                                                   routes)
-                out[f"{name} {list(shape)}"] = r
-            del base
-            _free()
-    finally:
-        routes.close()
+    out.update(moe_tp(dev))
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 15 (tensor-parallel training, the MoE aux term) [{card}]: "
         f"{out['seconds']:.1f}s")
@@ -5216,7 +5354,11 @@ def run_tp(dev, card, plain):
 # (arch, layers or None for all, meshes). llama3-8b at full width and
 # depth: 32/8 heads, d_ff and the vocab split over "model" on (1, 4) and
 # (2, 2), its kv heads too (8 divides 4 and 2), each shard's q heads on
-# its own kv heads and cache block; recurrentgemma-9b at full width cut
+# its own kv heads and cache block; granite-moe-1b-a400m whole on the
+# same meshes: 16/8 heads of 64, its 32 experts and the vocab split, the
+# experts' GShard groups dispatched across the data shards, every run
+# replaying the unsharded dense run's expert ids (top-k routing is
+# discontinuous; ``Routes``, as phase 15); recurrentgemma-9b at full width cut
 # to its first group (rglru, rglru, local): one kv head, so the prefill
 # cache splits its D columns and the decode cache its sequence over
 # "model", attention reading them put together; mamba2-370m: 32 SSD
@@ -5231,10 +5373,25 @@ def run_tp(dev, card, plain):
 # against its unsharded float64 steps (``f64_serving``: the proof that
 # the split serves the same function)
 TP_SERVE = (("llama3-8b", None, ((1, 4), (2, 2))),
+            ("granite-moe-1b-a400m", None, ((1, 4), (2, 2))),
             ("recurrentgemma-9b", 3, ((1, 4),)),
             ("mamba2-370m", MOE_CUT, ((1, 4),)),
             ("mamba2-370m", None, ((1, 4),)))
 SERVE_DRIFT = {"mamba2-370m"}
+# the archs whose ``kernel`` route over a mesh is held through its
+# ``dense`` route: sharded ``dense`` within SHARD_TOL of unsharded
+# ``dense``, and sharded ``kernel`` within LOGIT_TOL of sharded
+# ``dense`` on the same mesh; the ``kernel`` route's own sharded vs
+# unsharded gap is reported. A shard's chunk and decode launches pick
+# their key ranges from the shard's own shapes (``num_splits``), the
+# unsharded launch from its own, so each row sums its keys in another
+# order; granite's 24 random MoE layers amplify that fp32 rounding to
+# about SHARD_TOL (its unsharded ``kernel`` against ``dense`` reads
+# about 1x SHARD_TOL too)
+SPLIT_NOISE = {"granite-moe-1b-a400m"}
+# the archs whose per-model-shard chunk and decode calls are measured on
+# their first mesh: D 128 and D 64
+SERVE_MEASURED = ("llama3-8b", "granite-moe-1b-a400m")
 SERVE_ROWS, SERVE_TOKENS, SERVE_DECODE = 4, 512, 8
 # the Cache-Craft step's active tokens: 30% of the prompt's positions
 SERVE_ACTIVE = 160
@@ -5331,15 +5488,18 @@ def _serve_inputs(cfg, dev, seed=3, tokens=None):
 
 
 def _serve_steps(cfg, params, inp, impl, dev, mesh=None, sparams=None,
-                 cache_len=None, with_cc=True):
+                 cache_len=None, with_cc=True, counted=None):
     """The three serving steps on ``impl``: the prefill of the prompt
     into a cache of ``cache_len`` (SERVE_CACHE) slots at ``cfg.dtype``,
     the Cache-Craft step (``with_cc``) on a copy of
     that cache and the decode steps on another; unsharded, or on ``mesh``
     with ``sparams`` (the params laid out) and each cache laid out by the
-    step's layout. Returns {step: (logits, the whole cache)}."""
+    step's layout, the bytes ``collectives.py`` counts over each step's
+    calls (``BYTES`` and ``GATHERS``) put in ``counted`` by mode where it
+    is given. Returns {step: (logits, the whole cache)}."""
     import torch
 
+    from repro_torch.distributed import collectives as CO
     from repro_torch.distributed import sharding as SH
     from repro_torch.launch import dryrun as DR
     from repro_torch.models import model as M
@@ -5358,9 +5518,12 @@ def _serve_steps(cfg, params, inp, impl, dev, mesh=None, sparams=None,
             c = SH.shard_tree(cache, shs[1]["cache"])
             del cache
         lgs = []
+        CO.reset_bytes()
         for b in batches:
             lg, c = step(p, dict(b, cache=c))
             lgs.append(lg)
+        if counted is not None:
+            counted[mode] = {**CO.BYTES, **CO.GATHERS}
         torch.cuda.synchronize()
         return torch.cat(lgs, 1), (c if mesh is None
                                    else SH.unshard_tree(c))
@@ -5508,20 +5671,61 @@ def measure_ssd_call(label, args, unsharded):
                             bound_by=b_by, bound_ms_cuda_cores=b_cores)}
 
 
+def _serve_closed(cfg, mesh, inp):
+    """``serving_collective_bytes`` of ``_serve_steps``' calls by mode on
+    ``mesh``: the prefill of the prompt, the Cache-Craft step of its
+    active tokens and the decode steps, each against SERVE_CACHE slots
+    (the prefill's cache, ``local`` rings as ``init_cache`` makes
+    them)."""
+    from repro_torch.launch import dryrun as DR
+    pre, cc, dec = inp
+
+    def closed(mode, T):
+        return DR.serving_collective_bytes(cfg, mesh, mode, SERVE_ROWS, T,
+                                           SERVE_CACHE)
+    return {"prefill": closed("prefill", pre["tokens"].shape[1]),
+            "partial": closed("partial", cc["tokens"].shape[1]),
+            "decode": {k: len(dec) * v
+                       for k, v in closed("decode", 1).items()}}
+
+
+def _replayed(routes, ref, dp, run):
+    """``run()`` with ``routes`` replaying ``ref`` (``Routes.take_all`` of
+    the reference run: per step call, one ``Ctx`` a data shard, and
+    layer) over ``dp`` data shards, or recording where ``ref`` is None;
+    returns (its result, its own routing's take, the tokens whose expert
+    sets differ from ``ref``'s)."""
+    if routes is None:
+        return run(), None, None
+    if ref is None:
+        routes.reset()
+    else:
+        routes.hand(ref["order"], dp)
+    got = run()
+    own = routes.take_all(dp)
+    return got, own, None if ref is None else flips(own["ids"], ref["ids"])
+
+
 def run_tp_serving(dev, card):
     """Phase 18: the prefill, Cache-Craft and decode steps (``shardings=``)
     over (data, model) meshes (``TP_SERVE``), fp32 with TF32 off, 4 rows:
     a 512-token prefill, the Cache-Craft step of 160 active positions
     against its cache, 8 decode steps after it. Unsharded and sharded on
-    ``kernel`` and on ``dense``: sharded within SHARD_TOL of unsharded on
+    ``dense`` and on ``kernel``: sharded within SHARD_TOL of unsharded on
     the same route (whole mamba2 within MOE_DRIFT x its controls' drift,
     ``SERVE_DRIFT``, and in float64 on ``dense`` within F64_TOL,
-    ``f64_serving``), ``kernel`` within LOGIT_TOL of ``dense``; the chunk,
-    decode and SSD launches counted from 0 around each sharded kernel
-    run, exactly once per model shard, data shard and layer; each kernel
-    held and timed on the recorded inputs of llama3-8b's (mamba2's for
-    SSD) most frequent per-shard call on (1, 4), beside the unsharded
-    call of the same shape and SDPA on the shard's slice."""
+    ``f64_serving``; granite's ``kernel`` route through its ``dense``
+    one, ``SPLIT_NOISE``), ``kernel`` within LOGIT_TOL of ``dense``; with
+    experts every run but the unsharded ``dense`` one replaying that
+    run's expert ids (``Routes.hand``), each run's own flips logged; the
+    counted collective bytes of each sharded step equal to
+    ``serving_collective_bytes``; the chunk, decode and SSD launches
+    counted from 0 around each sharded kernel run, exactly once per
+    model shard, data shard and layer; each kernel held and timed on the
+    recorded inputs of the most frequent per-shard call of llama3-8b and
+    granite-moe-1b (D 128 and 64; mamba2's for SSD) on (1, 4), beside
+    the unsharded call of the same shape and SDPA on the shard's
+    slice."""
     import torch
 
     from repro_torch.configs import get_config
@@ -5536,6 +5740,8 @@ def run_tp_serving(dev, card):
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     out, launches, rec = {}, collections.Counter(), {}
+    by_arch = collections.defaultdict(collections.Counter)
+    routes = None
     try:
         with torch.no_grad():
             for arch, layers, meshes in TP_SERVE:
@@ -5547,10 +5753,21 @@ def run_tp_serving(dev, card):
                 inp = _serve_inputs(cfg, dev)
                 n_attn = sum(k in ("attn", "local") for k in cfg.layer_kinds)
                 n_ssd = cfg.layer_kinds.count("ssd")
+                # top-k routing is discontinuous: every run but the first
+                # takes its expert ids (``ref``)
+                routes = Routes() if cfg.num_experts else None
+                ref, own_flips = None, {}
+                plain = {}
                 with ChunkRecorder(cops) as ucc, DecodeRecorder(dops) as udc, \
                         SsdRecorder(sops) as usc:
-                    plain = {impl: _serve_steps(cfg, params, inp, impl, dev)
-                             for impl in ("kernel", "dense")}
+                    for impl in ("dense", "kernel"):
+                        plain[impl], own, f = _replayed(
+                            routes, ref, 1, lambda: _serve_steps(
+                                cfg, params, inp, impl, dev))
+                        if ref is None:
+                            ref = own
+                        else:
+                            own_flips[f"unsharded {impl}"] = f
                 kd = _serve_gap(plain["kernel"], plain["dense"], LOGIT_TOL)
                 log(f"{name} unsharded: kernel vs dense max abs diff "
                     f"{kd[1]:.3e} ({kd[0]:.3f}x the bound, rtol = atol = "
@@ -5586,19 +5803,24 @@ def run_tp_serving(dev, card):
                     psh = DR.serving_shardings(cfg, "prefill", SERVE_ROWS,
                                                SERVE_CACHE, mesh)[0]
                     sparams = SH.shard_tree(params, psh)
+                    closed = _serve_closed(cfg, mesh, inp)
                     dp, nm = shape
                     res, dense = {}, None
                     for impl in ("dense", "kernel"):
                         cops.chunk_attention.launches = 0
                         dops.decode_attention.launches = 0
                         sops.ssd_intra.launches = 0
+                        counted = {}
                         with ChunkRecorder(cops) as cc, \
                                 DecodeRecorder(dops) as dc, \
                                 SsdRecorder(sops) as sc:
                             t0 = time.perf_counter()
-                            got = _serve_steps(cfg, params, inp, impl, dev,
-                                               mesh, sparams)
+                            got, _, f = _replayed(
+                                routes, ref, dp, lambda: _serve_steps(
+                                    cfg, params, inp, impl, dev, mesh,
+                                    sparams, counted=counted))
                             secs = time.perf_counter() - t0
+                        own_flips[f"{list(shape)} {impl}"] = f
                         n = {"chunk_attention": cops.chunk_attention.launches,
                              "decode_attention":
                                  dops.decode_attention.launches,
@@ -5613,15 +5835,28 @@ def run_tp_serving(dev, card):
                         _expect_launches(f"{name} {list(shape)} {impl}", n,
                                          want)
                         launches.update(n)
+                        by_arch[arch].update(n)
+                        if counted != closed:
+                            raise RuntimeError(
+                                f"{name} {list(shape)} {impl}: counted "
+                                f"collective bytes {counted} != "
+                                f"serving_collective_bytes {closed}")
                         gap = _serve_gap(got, plain[impl], SHARD_TOL)
+                        # held here, or (SPLIT_NOISE) through dense
+                        held = impl == "dense" or arch not in SPLIT_NOISE
                         res[impl] = dict(ratio=gap[0], max_abs=gap[1],
-                                         seconds=secs, launches=n)
+                                         seconds=secs, launches=n,
+                                         coll_bytes=counted, held=held)
                         log(f"{name} {list(shape)} {impl}: sharded vs "
                             f"unsharded logits and caches max abs diff "
                             f"{gap[1]:.3e}, {gap[0]:.3f}x the allclose "
-                            f"bound (rtol = atol = {SHARD_TOL}); steps "
+                            f"bound (rtol = atol = {SHARD_TOL}"
+                            + ("" if held else "; reported, held through "
+                               "dense (SPLIT_NOISE)")
+                            + f"); counted collective bytes equal the "
+                            f"closed form {json.dumps(closed)}; steps "
                             f"{secs:.2f}s")
-                        if not gap[0] <= bound:
+                        if held and not gap[0] <= bound:
                             raise RuntimeError(
                                 f"{name} {list(shape)} {impl}: sharded vs "
                                 f"unsharded {gap[0]:.3f}x the bound (held "
@@ -5639,12 +5874,20 @@ def run_tp_serving(dev, card):
                                                f"vs dense {kd[0]:.3f}x the "
                                                "bound")
                         res["kernel_vs_dense"] = kd
-                        if (arch, shape) == (TP_SERVE[0][0],
-                                             TP_SERVE[0][2][0]) or n_ssd:
+                        if shape == meshes[0]:
                             rec[arch] = (cc, dc, sc, ucc, udc, usc, shape)
                     r[str(list(shape))] = res
                     del sparams
                     _free()
+                if routes is not None:
+                    # how often each run's own top-k leaves the reference's
+                    r["own_flips"] = own_flips
+                    log(f"{name}: every run but unsharded dense replayed "
+                        f"its expert ids; each run's own top-k flips "
+                        f"against them (tokens over the step calls and "
+                        f"layers): {json.dumps(own_flips)}")
+                    routes.close()
+                    routes = None
                 if arch in SERVE_DRIFT and layers is None:
                     # the proof beside the controls' yardstick: float64
                     r["float64"] = f64_serving(cfg, params, inp, dev,
@@ -5655,41 +5898,53 @@ def run_tp_serving(dev, card):
                 out[name] = r
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+        if routes is not None:
+            routes.close()
     # each kernel on the recorded inputs of its most frequent per-shard
-    # call, beside the unsharded call of the same shape
-    cc, dc, _, ucc, udc, _, shape = rec[TP_SERVE[0][0]]
-    ck = max(cc.shapes, key=lambda k: (cc.shapes[k], k))
-    dk = dc.most_frequent("dense")
-    ci, di = cc.calls[ck], dc.calls[dk]
-    uci, udi = ucc.calls[ck], udc.calls[dk]
+    # call, beside the unsharded call of the same shape: llama3-8b's rows
+    # by the kernel's name, granite's (D 64) by the name and the arch
     rows = {}
-    for kname, fn, rec_in, un_in, key in (
-            ("chunk_attention", measure_chunk, ci, uci, ck),
-            ("decode_attention", measure_decode, di, udi, dk[1:])):
-        r = fn(f"per model shard {list(shape)} path{list(key)}", rec_in)
-        if kname == "chunk_attention":
-            args = (un_in["q"], un_in["k"], un_in["v"], un_in["q_pos"],
-                    un_in["k_pos"], un_in["k_chunk"])
-            kw = dict(q_seg=un_in["q_seg"], k_seg=un_in["k_seg"],
-                      num_chunks=un_in["C"], window=un_in["window"])
-            r["float32"]["unsharded_ms"] = cuda_ms(
-                lambda: cops.chunk_attention(*args, **kw))
-            H, Hu = rec_in["q"].shape[2], un_in["q"].shape[2]
-        else:
-            args = (un_in["q"], un_in["k"], un_in["v"], un_in["q_pos"],
-                    un_in["k_pos"])
-            r["float32"]["unsharded_ms"] = cuda_ms(
-                lambda: dops.decode_attention(*args,
-                                              window=un_in["window"]))
-            H, Hu = rec_in["q"].shape[1], un_in["q"].shape[1]
-        log(f"kernel {kname} per model shard: {r['float32']['ms']:.4f} ms "
-            f"(H {H}) against the unsharded call's "
-            f"{r['float32']['unsharded_ms']:.4f} ms (H {Hu})")
-        r["shape"] = (f"{TP_SERVE[0][0]} on {list(shape)}, {kname} call "
-                      f"{list(key)}, H {H} of {Hu}")
-        r["calls"] = (cc if kname == "chunk_attention" else dc).shapes[
-            ck if kname == "chunk_attention" else dk]
-        rows[kname] = r
+    for arch in SERVE_MEASURED:
+        cc, dc, _, ucc, udc, _, shape = rec[arch]
+        ck = max(cc.shapes, key=lambda k: (cc.shapes[k], k))
+        dk = dc.most_frequent("dense")
+        ci, di = cc.calls[ck], dc.calls[dk]
+        uci, udi = ucc.calls[ck], udc.calls[dk]
+        for kname, fn, rec_in, un_in, key in (
+                ("chunk_attention", measure_chunk, ci, uci, ck),
+                ("decode_attention", measure_decode, di, udi, dk[1:])):
+            row = fn(f"{arch} per model shard {list(shape)} path"
+                     f"{list(key)}", rec_in)
+            if kname == "chunk_attention":
+                args = (un_in["q"], un_in["k"], un_in["v"], un_in["q_pos"],
+                        un_in["k_pos"], un_in["k_chunk"])
+                kw = dict(q_seg=un_in["q_seg"], k_seg=un_in["k_seg"],
+                          num_chunks=un_in["C"], window=un_in["window"])
+                row["float32"]["unsharded_ms"] = cuda_ms(
+                    lambda: cops.chunk_attention(*args, **kw))
+                H, Hu = rec_in["q"].shape[2], un_in["q"].shape[2]
+            else:
+                args = (un_in["q"], un_in["k"], un_in["v"], un_in["q_pos"],
+                        un_in["k_pos"])
+                row["float32"]["unsharded_ms"] = cuda_ms(
+                    lambda: dops.decode_attention(*args,
+                                                  window=un_in["window"]))
+                H, Hu = rec_in["q"].shape[1], un_in["q"].shape[1]
+            log(f"kernel {kname} per model shard ({arch}): "
+                f"{row['float32']['ms']:.4f} ms (H {H}) against the "
+                f"unsharded call's {row['float32']['unsharded_ms']:.4f} ms "
+                f"(H {Hu})")
+            row["shape"] = (f"{arch} on {list(shape)}, {kname} call "
+                            f"{list(key)}, H {H} of {Hu}, D "
+                            f"{rec_in['q'].shape[-1]}")
+            row["calls"] = (cc if kname == "chunk_attention" else dc).shapes[
+                ck if kname == "chunk_attention" else dk]
+            # the first arch's row counts the phase's launches, another's
+            # its own
+            if arch != SERVE_MEASURED[0]:
+                row["launches"] = by_arch[arch][kname]
+            rows[kname if arch == SERVE_MEASURED[0]
+                 else f"{kname} {arch}"] = row
     _, _, sc, _, _, usc, shape = rec[TP_SERVE[-1][0]]
     sk = sc.most_frequent()
     uk = next(k for k in usc.calls if k[:-2] == sk[:-2])
@@ -7630,15 +7885,16 @@ def main() -> int:
     # the chunk, decode and SSD kernels once per model shard of the
     # serving steps (phase 18): their launches there, and each held and
     # timed on the recorded inputs of its most frequent per-shard call,
-    # beside the unsharded call of that shape
-    for name, (src, rep) in sources.items():
-        r = tp_serving["kernels"].get(name)
-        if r is None:
-            continue
+    # beside the unsharded call of that shape (llama3-8b's rows count the
+    # phase's launches, granite-moe-1b's at D 64 its own)
+    for key, r in tp_serving["kernels"].items():
+        name, _, arch = key.partition(" ")
+        src, rep = sources[name]
         f32 = r["float32"]
         row = dict(
-            name=f"{name} per model shard", route="cuda", source=src,
-            replaces=rep, launches=tp_serving["launches"][name],
+            name=f"{name} per model shard" + (f" {arch}" if arch else ""),
+            route="cuda", source=src, replaces=rep,
+            launches=r.get("launches", tp_serving["launches"][name]),
             max_abs_err=f32["err"], ms=f32["ms"], plain_ms=f32["plain_ms"],
             bound_ms=f32["bound_ms"], bound_by=f32["bound_by"],
             library_ms=f32["library_ms"], unsharded_ms=f32["unsharded_ms"],

@@ -783,12 +783,13 @@ def test_chip_smoke_sharded_phase_rehearsal(monkeypatch):
     # unsharded run (its rglru blocks split), mamba2 cut to 2 layers and
     # whole (4 tiny layers) on (2, 4) (its ssd blocks split) beside its
     # perturbed controls, and in float64 at 2 layers on (2, 4) and (2, 1)
-    # and whole on (2, 4), and granite-moe-1b cut to 2 layers and whole
-    # on (4, 1) and (2, 2) (each but MOE_STRICT's run replaying the
-    # unsharded run's expert ids), beside its controls, at 2 layers also
-    # one sharded step from each unsharded state; on the host CPU at tiny
-    # size every run but mamba2's fp32 ones (AdamW's flips on its clipped
-    # grads) meets the strict standard too, and no step flips a route
+    # and whole on (2, 4), and granite-moe-1b cut to 2 layers and whole:
+    # on (4, 1) and (2, 2) one sharded step from each unsharded state
+    # replaying its expert ids, and at 2 layers alone the whole runs (on
+    # (4, 1) free, MOE_STRICT, on (2, 2) replaying); no granite control;
+    # on the host CPU at tiny size every run but mamba2's fp32 ones
+    # (AdamW's flips on its clipped grads) meets the strict standard too,
+    # and no step flips a route
     tp = cs.run_tp(CPU, "cpu", plain)
     g, m2 = "granite-moe-1b-tiny", "mamba2-tiny"
     f64 = {f"{m2}/2 [2, 4] float64", f"{m2}/2 [2, 1] float64",
@@ -808,34 +809,56 @@ def test_chip_smoke_sharded_phase_rehearsal(monkeypatch):
             assert r[c]["ok"] and r[c]["tau"] == cs.F64_TOL
             assert r[c]["loss_rel_gap"] <= cs.F64_TOL
             assert all(not r[c][w]["beyond"] for w in ("params", "m", "v"))
+    assert not hasattr(cs, "MOE_LOOSE")
     for k, r in tp.items():
-        if k in f64 or k == "seconds" or "mesh" not in r:
+        if k in f64 or k == "seconds" or k.endswith("unsharded"):
             continue
-        controlled = k.startswith((g, m2))
-        assert r["coll_bytes_counted"] == r["coll_bytes_closed_form"]
-        assert r["position0_bytes"] == r["layout_bytes"]
-        assert (r["strict"] and r["loss_rel_gap"] <= cs.LOSS_RTOL) or \
+        assert "controls" not in r and "control_flips" not in r or \
             k.startswith(m2)
-        assert ("control_loss_rel_gap" in r) == controlled
-        if controlled:
-            assert r["flips"] == ([0] * cs.SHARD_STEPS if k.startswith(g)
-                                  else [])
+        # granite whole: the one-step check alone, no free run
+        assert ("mesh" in r) == (not k.startswith(f"{g}/4 "))
+        if "mesh" in r:
+            assert r["coll_bytes_counted"] == r["coll_bytes_closed_form"]
+            assert r["position0_bytes"] == r["layout_bytes"]
+            assert (r["strict"] and r["loss_rel_gap"] <= cs.LOSS_RTOL) or \
+                k.startswith(m2)
+            assert ("control_loss_rel_gap" in r) == k.startswith(m2)
+        if k.startswith(m2):
+            assert r["flips"] == []
             assert len(r["control_flips"]) == len(cs.MOE_SEEDS)
-        if k.startswith(g):
-            # every run but MOE_STRICT's replays, and is strict
-            layers, shape = int(k.split()[0].split("/")[1]), tuple(
-                r["mesh"])
-            assert r["replayed"] == ((layers, shape) not in cs.MOE_STRICT)
+        if k.startswith(f"{g}/2 "):
+            # every whole run but MOE_STRICT's replays, and is strict
+            shape = tuple(r["mesh"])
+            assert r["flips"] == [0] * cs.SHARD_STEPS
+            assert r["replayed"] == ((2, shape) not in cs.MOE_STRICT)
             if r["replayed"]:
-                assert r["strict"] and r["after_1"]["strict"]
+                assert r["strict"]
                 assert [p["outside"] for p in r["probs_vs_plain"]] == \
                     [0] * cs.SHARD_STEPS
-        assert ("one_step" in r) == k.startswith((f"{g}/2 ", f"{m2}/2 "))
+        assert ("one_step" in r) == k.startswith((g, f"{m2}/2 "))
         assert ("one_step_data_parallel" in r) == k.startswith(f"{m2}/2 ")
-        for st in r.get("one_step", []) + \
-                r.get("one_step_data_parallel", []):
-            assert st["flips"] == 0 and st["strict"]
-    assert [st["step"] for st in tp[f"{g}/2 [2, 2]"]["one_step"]] == \
-        list(range(1, cs.SHARD_STEPS + 1))
-    assert len(tp[f"{g}/2 unsharded"]["controls"]) == len(cs.MOE_SEEDS)
+        steps = [(st, sts[0]) for sts in (r.get("one_step", []),
+                                          r.get("one_step_data_parallel",
+                                                []))
+                 for st in sts]
+        for st, first in steps:
+            assert st["strict"] and st["loss_rel_gap"] <= cs.LOSS_RTOL
+            assert st["m_outside"] == st["v_outside"] == 0
+            assert all(e["flip"] for e in st["params_outside_elements"])
+            assert st["coll_bytes_counted"] == first["coll_bytes_counted"]
+            if k.startswith(g):
+                # replayed: its own top-k and its probs logged
+                assert st["flips"] == 0
+                assert st["probs_vs_plain"]["outside"] == 0
+                assert all(a > 0 for s in st["aux"] for a in s)
+    for k in (f"{g}/2 [4, 1]", f"{g}/2 [2, 2]", f"{g}/4 [4, 1]",
+              f"{g}/4 [2, 2]"):
+        assert [st["step"] for st in tp[k]["one_step"]] == \
+            list(range(1, cs.SHARD_STEPS + 1))
+    # one step of the whole run's counted collective bytes
+    for k in (f"{g}/2 [4, 1]", f"{g}/2 [2, 2]"):
+        assert {b: cs.SHARD_STEPS * v for b, v in
+                tp[k]["one_step"][0]["coll_bytes_counted"].items()} == \
+            tp[k]["coll_bytes_counted"]
+    assert "controls" not in tp[f"{g}/2 unsharded"]
     assert tp[f"{g}/2 [2, 2]"]["aux_rel_gap"] <= 1e-3

@@ -8,13 +8,15 @@ the harness of chip_smoke.py's phase 15:
   of fp32's, to ``F64_TOL`` with no allowance;
 - granite-moe: top-k routing is discontinuous, so the sharded run
   replays the unsharded run's expert ids (``chip_smoke.Routes.hand``)
-  and is held to the strict fp32 standard (``tp_check``), on the route
-  each data shard runs alone (its tokens whole GShard groups, as on the
-  card) and on the lockstep route (groups across the shards);
+  and is held to the strict fp32 standard, the whole run (``tp_check``)
+  and one step from each unsharded state (``_stepwise``, the gate at
+  full depth on the card), on the route each data shard runs alone
+  (its tokens whole GShard groups, as on the card) and on the lockstep
+  route (groups across the shards);
 - the float64 context fails on a cast site it does not cover;
 - two faults each fail their gate: a replay one row off for one layer of
-  one data shard, and a split SSD with two heads' rows of ``out_proj``
-  swapped.
+  one data shard (in both granite gates), and a split SSD with two
+  heads' rows of ``out_proj`` swapped.
 
 The float64 step against the reference's fp32 step is in
 ``tests/test_torch_training.py`` (``test_float64_step_matches_reference``).
@@ -105,6 +107,83 @@ def test_granite_replayed_is_strict(cs, monkeypatch, shape, seq):
     assert len(base["order"]) == cs.SHARD_STEPS
 
 
+@pytest.mark.parametrize("shape,seq", [((4, 1), 32), ((2, 2), 32),
+                                       ((2, 2), 256)],
+                         ids=["4x1-lockstep", "2x2-lockstep",
+                              "2x2-whole-groups"])
+def test_granite_one_replayed_step_is_strict(cs, monkeypatch, shape, seq):
+    """Tiny granite-moe at 4 layers: after each unsharded step one sharded
+    step on ``shape`` from the unsharded state before it (kept on the
+    device), replaying that step's expert ids (``_stepwise``): every step
+    strict (LOSS_RTOL, PARAM_TOL on ``m`` and ``v``, the params but for
+    ``FLIP_GRAD``'s elements, each listed), its own top-k's flips and
+    router probs logged, one step's counted bytes equal to the closed
+    form and position 0's bytes to the layouts."""
+    monkeypatch.setattr(cs, "SHARD_SEQ", seq)
+    cfg = get_tiny("granite-moe-1b-a400m")
+    routes = cs.Routes()
+    try:
+        base, steps = cs._stepwise(cfg, CPU, (shape,), routes)
+        alone = cs._plain_run(cfg, CPU, routes)
+    finally:
+        routes.close()
+    # the sharded steps leave the unsharded run as it runs alone
+    assert base["losses"] == alone["losses"]
+    assert all(torch.equal(a, b) for a, b in zip(base["params"],
+                                                 alone["params"]))
+    per = steps[shape]
+    assert [st["step"] for st in per] == list(range(1, cs.SHARD_STEPS + 1))
+    for st in per:
+        assert st["strict"] and st["loss_rel_gap"] <= cs.LOSS_RTOL
+        assert st["m_outside"] == st["v_outside"] == 0
+        assert all(e["flip"] for e in st["params_outside_elements"])
+        assert st["flips"] == 0 and st["probs_vs_plain"]["outside"] == 0
+        assert st["position0_bytes"] == st["layout_bytes"]
+        assert all(a > 0 for s in st["aux"] for a in s)
+
+
+def test_step_gap_lists_elements_across_chunks(cs):
+    """The one-step gate's comparison (``_step_gap``), a leaf and a chunk
+    of elements at a time: a sharded state equal to the unsharded one but
+    for two embedding elements in different chunks, each moved past
+    PARAM_TOL by less than 2 lr, one with grads under FLIP_GRAD (a flip)
+    and one with grads of rms 1e-3 (not): both listed in order with
+    their moments and grad rms, the gate fails; with the flip alone it
+    holds."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    cfg = get_tiny("granite-moe-1b-a400m")
+    state, opt, _ = cs._shard_setup(cfg, CPU)
+    names = cs._leaf_names(state.params)
+    e = state.params["embed"]
+    i1, i2 = 5, e.numel() - 7
+    with torch.no_grad():
+        for v in tree_leaves(state.opt["v"]):
+            v.fill_(1e-6 * (1 - opt.b2))            # grad rms 1e-3
+        state.opt["v"]["embed"].view(-1)[i1] = 0.0
+    want = {k: [x.detach().clone() for x in tree_leaves(tr)]
+            for k, tr in (("params", state.params), ("m", state.opt["m"]),
+                          ("v", state.opt["v"]))}
+    shs = TS.train_shardings(cfg, make_debug_mesh((2, 2), device=CPU))
+
+    def gap(moved):
+        with torch.no_grad():
+            e.view(-1).copy_(want["params"][names.index("/embed")]
+                             .view(-1))
+            for i in moved:
+                e.view(-1)[i] += 5e-4
+        return cs._step_gap(names, TS.shard_state(state, shs), want, 1e-3,
+                            opt.b2, 1, chunk=1000)
+    both = gap((i1, i2))
+    assert both["params"]["outside"] == 2 and not both["ok"]
+    assert both["m"]["outside"] == both["v"]["outside"] == 0
+    assert [x["index"] for x in both["elements"]] == [i1, i2]
+    assert [x["flip"] for x in both["elements"]] == [True, False]
+    assert both["elements"][0]["grad_rms"] == [0.0, 0.0]
+    assert both["elements"][1]["grad_rms"][0] == pytest.approx(1e-3)
+    one = gap((i1,))
+    assert one["ok"] and one["params"]["outside"] == 1
+
+
 def test_float64_fails_on_a_missed_cast_site(cs, monkeypatch):
     """A float32 cast that the context does not patch (``.to(float32)``
     in the RMS norm) makes fp32 tensors inside the step: leaving the
@@ -141,6 +220,34 @@ def test_replay_one_row_off_fails(cs):
                         replay=True)
     finally:
         routes.close()
+
+
+def test_one_step_replay_one_row_off_fails(cs, monkeypatch):
+    """``test_replay_one_row_off_fails``'s fault in the one-step check:
+    the first sharded step on (2, 2) handed the unsharded step's ids with
+    data shard 1's rows moved by one row in one layer of its first
+    microbatch; the gate raises, naming the mesh and the step."""
+    cfg = get_tiny("granite-moe-1b-a400m")
+    hand = cs.Routes.hand
+    planted = []
+
+    def off(self, order, dp):
+        if not planted:
+            order = [list(layers) for layers in order]
+            ids = order[0][1]
+            t = ids.shape[0] // 2
+            order[0][1] = torch.cat([ids[:t], ids[t:].roll(1, 0)])
+            planted.append(True)
+        hand(self, order, dp)
+    monkeypatch.setattr(cs.Routes, "hand", off)
+    routes = cs.Routes()
+    try:
+        with pytest.raises(RuntimeError,
+                           match=r"\[2, 2\] step 1: loss gap"):
+            cs._stepwise(cfg, CPU, ((2, 2),), routes)
+    finally:
+        routes.close()
+    assert planted
 
 
 def test_swapped_ssd_heads_fail_float64(cs, monkeypatch):

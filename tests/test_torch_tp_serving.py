@@ -613,14 +613,15 @@ def test_split_layer_matches_whole(arch, mode):
 
 
 # ---------------- chip_smoke.py's phase 18 on the CPU -------------------------
-def test_chip_smoke_tp_serving_rehearsal(monkeypatch):
-    """``chip_smoke.run_tp_serving`` end to end on the CPU at tiny size:
-    the configs patched to their tiny ones, the steps cut to 4 rows of 80
-    tokens, 24 active, 2 decode steps into 96 slots, the timers stubbed,
-    and the chunk, decode and SSD wrappers routed through their launch
-    hooks onto the plain versions, so that the phase's launch counts,
-    recorders, gates and per-shard measurements run as on the card (the
-    windows past the cache, as at full width)."""
+def _phase18(monkeypatch):
+    """``chip_smoke`` set up to run ``run_tp_serving`` on the CPU at tiny
+    size: the configs patched to their tiny ones, the steps cut to 4 rows
+    of 80 tokens, 24 active, 2 decode steps into 96 slots, the timers
+    stubbed, and the chunk, decode and SSD wrappers routed through their
+    launch hooks onto the plain versions, so that the phase's launch
+    counts, recorders, gates and per-shard measurements run as on the
+    card (the windows past the cache, as at full width). Returns the
+    module."""
     import repro_torch.configs as C
     from repro_torch.kernels.chunk_attention import ops as cops
     from repro_torch.kernels.chunk_attention.ref import chunk_attention_ref
@@ -693,19 +694,54 @@ def test_chip_smoke_tp_serving_rehearsal(monkeypatch):
                         decode_attention_ref(*ptrs, window=ints[-1]))
     monkeypatch.setattr(dops, "decode_attention", decode_attention)
     monkeypatch.setattr(sops, "ssd_intra", ssd_intra)
+    return cs
+
+
+def test_chip_smoke_tp_serving_rehearsal(monkeypatch):
+    """``chip_smoke.run_tp_serving`` end to end on the CPU at tiny size
+    (``_phase18``)."""
+    import repro_torch.configs as C
+    cs = _phase18(monkeypatch)
     out = cs.run_tp_serving(CPU, "cpu")
-    # llama3-8b/4 on (1, 4) and (2, 2), recurrentgemma-9b/3 (one local
-    # layer) on (1, 4), mamba2-370m at 2 and 4 layers on (1, 4); the SSD
-    # kernel on both routes
+    # llama3-8b/4 and granite-moe-1b/4 on (1, 4) and (2, 2),
+    # recurrentgemma-9b/3 (one local layer) on (1, 4), mamba2-370m at 2
+    # and 4 layers on (1, 4); the SSD kernel on both routes
     assert out["launches"] == {
-        "chunk_attention": 2 * (4 * 4 * 1 + 4 * 2 * 2) + 2 * 4,
-        "decode_attention": DECODE * (4 * 4 + 4 * 2 * 2 + 4),
+        "chunk_attention": 2 * 2 * (4 * 4 * 1 + 4 * 2 * 2) + 2 * 4,
+        "decode_attention": DECODE * (2 * (4 * 4 + 4 * 2 * 2) + 4),
         "ssd_intra": 2 * 2 * (2 + 4) * 4}
+    g = "granite-moe-1b-a400m"
     assert set(out["kernels"]) == {"chunk_attention", "decode_attention",
-                                   "ssd_intra"}
+                                   "ssd_intra", f"chunk_attention {g}",
+                                   f"decode_attention {g}"}
     for r in out["kernels"].values():
         assert r["float32"]["err"] <= cs.TOL["float32"]
         assert r["float32"]["unsharded_ms"] == 1.0
+    # granite's rows: its own launches over both meshes, its calls at its
+    # head dim, H per model shard of the whole
+    assert out["kernels"][f"chunk_attention {g}"]["launches"] == \
+        2 * 4 * 4 * 2
+    assert out["kernels"][f"decode_attention {g}"]["launches"] == \
+        DECODE * 4 * 4 * 2
+    assert out["kernels"][f"chunk_attention {g}"]["shape"].endswith(
+        f"D {C.get_tiny(g).head_dim}")
+    # granite's runs replay the unsharded dense run's ids: no own flip
+    # at tiny size on the CPU
+    gr = out["granite-moe-1b-tiny/4"]
+    assert gr["own_flips"] == {"unsharded kernel": 0, "[1, 4] dense": 0,
+                               "[1, 4] kernel": 0, "[2, 2] dense": 0,
+                               "[2, 2] kernel": 0}
+    # every sharded run's counted bytes equal the closed form (the phase
+    # raises otherwise), the experts' combine among them
+    for name, r in out.items():
+        for key, res in (r.items() if isinstance(r, dict) else ()):
+            if key.startswith("["):
+                for impl in ("dense", "kernel"):
+                    assert set(res[impl]["coll_bytes"]) == \
+                        {"prefill", "partial", "decode"}
+                    assert res[impl]["coll_bytes"] == \
+                        res["dense"]["coll_bytes"]
+    assert gr["[2, 2]"]["dense"]["coll_bytes"]["prefill"]["all-reduce"] > 0
     assert len(out["mamba2-tiny/4"]["controls"]) == len(cs.MOE_SEEDS)
     # the whole model's float64 gate on (1, 4): every step's logits and
     # cache leaves within F64_TOL of their scale, all float64, none fp32
@@ -714,9 +750,76 @@ def test_chip_smoke_tp_serving_rehearsal(monkeypatch):
     assert f64["gap"]["ratio"] <= 1.0 and not f64["gap"]["beyond"]
     assert f64["dtypes"] == ["torch.float64"]
     assert f64["leaves"] == 3 * (1 + 2)     # 3 steps' logits, s and conv
-    for name in ("llama3-8b-tiny/4", "recurrentgemma-9b-tiny/3",
-                 "mamba2-tiny/2", "mamba2-tiny/4"):
+    for name in ("llama3-8b-tiny/4", "granite-moe-1b-tiny/4",
+                 "recurrentgemma-9b-tiny/3", "mamba2-tiny/2",
+                 "mamba2-tiny/4"):
         for key, res in out[name].items():
             if key.startswith("["):
                 assert res["dense"]["ratio"] <= 1.0
                 assert res["kernel"]["ratio"] <= 1.0
+                # granite's kernel route is held through its dense one
+                assert res["dense"]["held"]
+                assert res["kernel"]["held"] == (name !=
+                                                 "granite-moe-1b-tiny/4")
+
+
+def test_chip_smoke_split_noise_kernel_fault_fails(monkeypatch):
+    """Phase 18 holds granite's sharded ``kernel`` route through its
+    ``dense`` one (``SPLIT_NOISE``): a planted fault in that route, each
+    data shard's decode launch handing back its rows rolled by one, must
+    fail the phase at the sharded kernel-vs-dense gate."""
+    from repro_torch.kernels.decode_attention import ops as dops
+    cs = _phase18(monkeypatch)
+    monkeypatch.setattr(cs, "TP_SERVE",
+                        (("granite-moe-1b-a400m", None, ((2, 2),)),))
+    plain = dops.decode_attention
+
+    def faulty(q, *a, **kw):
+        out = plain(q, *a, **kw)
+        faulty.launches += 1
+        return out.roll(1, 0) if q.shape[0] < B else out
+    faulty.launches = 0
+    monkeypatch.setattr(dops, "decode_attention", faulty)
+    with pytest.raises(RuntimeError, match=r"\[2, 2\]: kernel vs dense"):
+        cs.run_tp_serving(CPU, "cpu")
+
+
+def test_chip_smoke_serving_replay_is_live(monkeypatch):
+    """Phase 18's replay of the expert ids on the serving steps
+    (``chip_smoke._replayed``, ``Routes.hand`` per step call and layer):
+    tiny granite on (2, 2), replaying the unsharded run's own ids, lies
+    within the parity standard of it; with one layer's ids of the prefill
+    moved by one row it does not (the sharded run takes the ids it is
+    handed)."""
+    monkeypatch.syspath_prepend(ROOT)
+    import chip_smoke as cs
+    for k, v in dict(SERVE_ROWS=B, SERVE_TOKENS=T, SERVE_ACTIVE=A,
+                     SERVE_CACHE=S, SERVE_DECODE=DECODE).items():
+        monkeypatch.setattr(cs, k, v)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    cfg = get_tiny("granite-moe-1b-a400m")
+    params = _params("granite-moe-1b-a400m")
+    inp = cs._serve_inputs(cfg, CPU)
+    mesh = make_debug_mesh((2, 2), device=CPU)
+    sp = SH.shard_tree(params, DR.serving_shardings(cfg, "prefill", B, S,
+                                                    mesh)[0])
+    routes = cs.Routes()
+    try:
+        with torch.no_grad():
+            want, ref, _ = cs._replayed(
+                routes, None, 1,
+                lambda: cs._serve_steps(cfg, params, inp, "dense", CPU))
+            got, _, f = cs._replayed(
+                routes, ref, 2, lambda: cs._serve_steps(
+                    cfg, params, inp, "dense", CPU, mesh, sp))
+            order = [list(layers) for layers in ref["order"]]
+            order[0][1] = order[0][1].roll(1, 0)
+            off, _, _ = cs._replayed(routes, dict(ref, order=order), 2,
+                                     lambda: cs._serve_steps(
+                                         cfg, params, inp, "dense", CPU,
+                                         mesh, sp))
+    finally:
+        routes.close()
+    assert f == 0
+    assert cs._serve_gap(got, want, cs.SHARD_TOL)[0] <= 1.0
+    assert cs._serve_gap(off, want, cs.SHARD_TOL)[0] > 1.0
